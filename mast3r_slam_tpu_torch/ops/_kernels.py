@@ -1,0 +1,152 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` for Hopper
+(``sm_90a``) into ``build/torch_kernels/lib<name>.so``, a shared library
+with a plain C interface that ``ctypes`` loads. Nothing is built at import
+time, and nothing is built for CPU tensors: the wrappers take the plain
+PyTorch versions there. ``build_all()`` starts one ``nvcc`` per source at
+once so a fresh checkout builds in the time of the slowest file.
+
+``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
+where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
+
+# kernel source name -> (C symbol, ctypes argtypes)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SOURCES = {
+    "scharr_rays": ("scharr_rays_launch",
+                    [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "iter_proj": ("iter_proj_launch",
+                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]),
+    "refine_matches": ("refine_matches_launch",
+                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+LAUNCHES = {name: 0 for name in SOURCES}
+
+_libs: dict = {}
+_lock = threading.Lock()
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc():
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (pathlib.Path(cand) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "the machine with the GPU")
+    return found
+
+
+def _lib_path(name):
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name):
+    so = _lib_path(name)
+    if not so.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in CSRC.glob("*.cu*"))
+    return so.stat().st_mtime < newest
+
+
+def _start_build(name):
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish_build(name, proc, tmp):
+    out, _ = proc.communicate()
+    (BUILD_DIR / f"{name}.log").write_text(out)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+    os.replace(tmp, _lib_path(name))   # atomic: readers never see half a file
+    return out
+
+
+def build_all(names=None):
+    """Compile every stale kernel source in parallel; returns
+    {name: compiler output} for the sources that were built."""
+    names = list(SOURCES if names is None else names)
+    with _lock:
+        todo = [n for n in names if _stale(n)]
+        started = [(n, *_start_build(n)) for n in todo]
+        return {n: _finish_build(n, p, t) for n, p, t in started}
+
+
+def library(name):
+    """The loaded ctypes library of kernel ``name``, building it if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            sym, argtypes = SOURCES[name]
+            fn = getattr(lib, sym)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+    return _libs[name]
+
+
+def launch(name, *args):
+    """Call kernel ``name``'s C launcher on the current CUDA stream; raises
+    if the launch reported a CUDA error. Counts the launch."""
+    import torch
+
+    fn = getattr(library(name), SOURCES[name][0])
+    err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_cuda(t, name, dtype=None, ndim=None, last=None):
+    """Raise unless ``t`` is a contiguous CUDA tensor of the given dtype,
+    rank and trailing size."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name}: expected rank {ndim}, got {tuple(t.shape)}")
+    if last is not None and t.shape[-1] != last:
+        raise ValueError(f"{name}: expected trailing size {last}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,363 @@
+"""SLAM system: the per-frame tracking frontend and the mode machine.
+
+Counterpart of the frontend of ``mast3r_slam_tpu/slam/system.py``:
+``_track_gate_pre`` (:78), ``_track_frame_body`` (:101), the fused path
+of ``TrackerRunner`` (:442) and ``SLAMSystem.make_frame`` /
+``process_frame`` (:744, :764) with the INIT, TRACKING and RELOC modes.
+
+Per tracked frame the host waits for the device once per Gauss-Newton
+iteration (the 7x7 normal equations come to the host, ``slam/tracker.py``)
+and once for the five frame stats.
+
+Not in this slice (each raises ``NotImplementedError``; see ROADMAP.md):
+the windowed driver (``runtime.tracking_window > 1``), the step-by-step
+tracking path, the backend (``backend_step``: factor graph, global BA,
+retrieval and with it relocalization) and ``run()``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import config as config_mod
+from .. import geometry
+from .._device import resolve_device
+from ..lie import sim3
+from ..models import mast3r
+from ..ops import matching
+from . import tracker as tracker_mod
+from .frame import Frame, KeyframeStore, Mode, _score, fuse_pointmap
+
+_TODO = "is not ported yet; see ROADMAP.md queue 1"
+
+
+def _track_match(model_mod, params, cfg, mcfg, feat_f, pos_f, feat_k, pos_k,
+                 idx_init, ds: int = 1):
+    """Asymmetric inference + frame->keyframe matching (``system.py:34``).
+    Returns flat (n, ...) idx_f2k, valid, Xff, Cff, Qff, Xkf, Ckf, Qkf,
+    p_sub."""
+    X, C, D, Q = model_mod.inference_asymmetric(params, feat_f, pos_f,
+                                                feat_k, pos_k, cfg)
+    X, C, D, Q = mast3r.downsample_maps(X, C, D, Q, ds=ds)
+    Xff, Xkf = X[0:1], X[1:2]
+    out = matching.match(Xff, Xkf, D[0:1], D[1:2], idx_1_to_2_init=idx_init,
+                         **mcfg._asdict())
+    if mcfg.subpixel:
+        idx, valid, p_sub = out
+    else:
+        idx, valid = out
+        p_sub = matching.lin_to_pixel(idx, Xff.shape[2]).to(Xff.dtype)
+    hw = X.shape[1] * X.shape[2]
+    flat = lambda a: a.reshape(hw, -1)
+    return (idx[0], valid[0], flat(Xff), flat(C[0:1]), flat(Q[0:1]),
+            flat(Xkf), flat(C[1:2]), flat(Q[1:2]), p_sub[0])
+
+
+def _track_gate_pre(idx_f2k, valid_match_k, Qff_at, Qkf, Cf_at, Ck_avg,
+                    C_conf, Q_conf):
+    """Confidence gate and keyframe statistics (``system.py:78``).
+    Returns (Qk (n, 1), valid_opt (n, 1), stats (3,))."""
+    n = idx_f2k.shape[0]
+    Qk = torch.sqrt(Qff_at * Qkf)
+    valid_opt = (valid_match_k & (Cf_at > C_conf) & (Ck_avg > C_conf)
+                 & (Qk > Q_conf))
+    valid_kf = valid_match_k & (Qk > Q_conf)
+    hit = torch.zeros(n + 1, dtype=torch.float32, device=idx_f2k.device)
+    hit[torch.where(valid_match_k[:, 0], idx_f2k,
+                    torch.full_like(idx_f2k, n))] = 1.0
+    stats = torch.stack([valid_opt.float().mean(), valid_kf.float().mean(),
+                         hit[:n].sum() / n])
+    return Qk, valid_opt, stats
+
+
+def _track_frame_body(model_mod, params, cfg, mcfg, tcfg, feat_f, pos_f,
+                      feat_k, pos_k, idx_init, kf_X, kf_C, kf_N,
+                      kf_N_updates, kf_score, kf_T_WC, frame_T_WC, K,
+                      ds: int, fuse_mode: str, score_fn: str,
+                      use_calib: bool, img_size):
+    """One tracking step: inference, matching, gating, Sim(3) GN, masked
+    fusion and pose update (``system.py:101``). The skip/failure decisions
+    come back in a 5-vector of stats; nothing is read to the host here
+    except each GN iteration's 7x7 normal equations."""
+    (idx_f2k, valid_match_k, Xff, Cff, Qff, Xkf, Ckf, Qkf,
+     p_sub) = _track_match(model_mod, params, cfg, mcfg, feat_f, pos_f,
+                           feat_k, pos_k, idx_init, ds)
+
+    kf_Cavg = (kf_C / torch.clamp(kf_N.to(kf_C.dtype), min=1.0))[:, None]
+    Xf, Xk = Xff, kf_X
+    if use_calib:
+        Xf = geometry.constrain_points_to_ray(img_size, Xf, K)
+        Xk = geometry.constrain_points_to_ray(img_size, Xk, K)
+
+    if mcfg.subpixel:
+        hh, ww = img_size
+        u = torch.clamp(p_sub[None, :, 0], 0.0, ww - 1.001)
+        v = torch.clamp(p_sub[None, :, 1], 0.0, hh - 1.001)
+        Xf_at = matching._bilinear(Xf.reshape(1, hh * ww, 3), u, v, hh,
+                                   ww)[0]
+    else:
+        Xf_at = Xf[idx_f2k]
+    Qff_at, Cf_at = Qff[idx_f2k], Cff[idx_f2k]
+
+    Qk, valid_opt, stats3 = _track_gate_pre(
+        idx_f2k, valid_match_k, Qff_at, Qkf, Cf_at, kf_Cavg,
+        tcfg.C_conf, tcfg.Q_conf)
+
+    T_init = sim3.rel(kf_T_WC, frame_T_WC)
+    if not use_calib:
+        res = tracker_mod.opt_pose_ray_dist_sim3(Xf_at, Xk, T_init, Qk,
+                                                 valid_opt, tcfg)
+    else:
+        meas_k, valid_meas_k = tracker_mod.calib_measurements(
+            Xk, K, img_size, tcfg.depth_eps)
+        res = tracker_mod.opt_pose_calib_sim3(
+            Xf_at, Xk, T_init, Qk, valid_opt, meas_k, valid_meas_k, K,
+            img_size, tcfg)
+
+    skip = stats3[0] < tcfg.min_match_frac
+    ok = (~skip) & (~res.failed)
+    T_CkCf = res.T_CkCf
+    T_WCf = torch.where(ok, sim3.mul(kf_T_WC, T_CkCf), frame_T_WC)
+
+    Xkk = sim3.act(T_CkCf, Xkf)
+    if fuse_mode == "best_score":
+        Xn, Cn, Nn, score_n = fuse_pointmap(fuse_mode, kf_X, kf_C[:, None],
+                                            kf_N, Xkk, Ckf, kf_score,
+                                            score_fn)
+    else:
+        Xn, Cn, Nn = fuse_pointmap(fuse_mode, kf_X, kf_C[:, None], kf_N,
+                                   Xkk, Ckf, n_updates=kf_N_updates)
+        score_n = kf_score
+    kf_X_new = torch.where(ok, Xn, kf_X)
+    kf_C_new = torch.where(ok, Cn[:, 0], kf_C)
+    kf_N_new = torch.where(ok, Nn, kf_N)
+    kf_NU_new = torch.where(ok, kf_N_updates + 1, kf_N_updates)
+    kf_score_new = torch.where(ok, score_n, kf_score)
+
+    frame_score = (_score(Cff, score_fn) if fuse_mode == "best_score"
+                   else torch.zeros((), device=Cff.device))
+    stats = torch.cat([stats3, torch.stack([skip.float(),
+                                            res.failed.float()])])
+    return (idx_f2k, T_WCf, Xff, Cff, kf_X_new, kf_C_new, kf_N_new,
+            kf_NU_new, kf_score_new, frame_score, stats,
+            valid_match_k[:, 0], Qk[:, 0])
+
+
+class TrackerRunner:
+    """Frame-to-keyframe tracking driver (fused path, ``system.py:402``)."""
+
+    def __init__(self, params, model_cfg, keyframes: KeyframeStore,
+                 tcfg, mcfg, filtering_mode: str = "weighted_pointmap",
+                 filtering_score: str = "median", use_calib=False, K=None,
+                 model_mod=mast3r):
+        self.params = params
+        self.model_cfg = model_cfg
+        self.keyframes = keyframes
+        self.tcfg = tcfg
+        self.mcfg = mcfg
+        self.filtering_mode = filtering_mode
+        self.filtering_score = filtering_score
+        self.use_calib = use_calib
+        self.K = K
+        self.downsample = 1
+        self.fused = True
+        self.model_mod = model_mod
+        self.idx_f2k = None
+        self.last_stats = {}
+
+    def reset_idx(self):
+        self.idx_f2k = None
+
+    def track(self, frame: Frame):
+        """Returns (new_kf, try_reloc)."""
+        if not self.fused:
+            raise NotImplementedError(f"the step-by-step tracking path {_TODO}")
+        return self._track_fused(frame)
+
+    def _track_fused(self, frame: Frame):
+        kfs = self.keyframes
+        last = len(kfs) - 1
+        idx_init = self.idx_f2k
+        dev = kfs.X.device
+        K = self.K if self.K is not None else torch.eye(3, device=dev)
+        (idx_f2k, T_WCf, Xff, Cff, kf_X, kf_C, kf_N, kf_NU, kf_score,
+         frame_score, stats, vmk, Qk) = _track_frame_body(
+            self.model_mod, self.params, self.model_cfg, self.mcfg,
+            self.tcfg, frame.feat[None], frame.pos[None],
+            kfs.feat[last][None], kfs.pos[last][None],
+            idx_init[None] if idx_init is not None else None,
+            kfs.X[last], kfs.C[last], kfs.N[last], kfs.N_updates[last],
+            kfs.score[last], kfs.T_WC[last], frame.T_WC, K,
+            self.downsample, self.filtering_mode, self.filtering_score,
+            self.use_calib, (kfs.h, kfs.w))
+
+        st = stats.cpu().numpy()     # the per-frame stats read
+        self.idx_f2k = idx_f2k
+        self.last_stats = {"match_frac": float(st[0]),
+                           "match_frac_k": float(st[1]),
+                           "unique_frac": float(st[2])}
+        frame.X_canon, frame.C, frame.N = Xff, Cff, 1
+        frame.N_updates = 1
+        if self.filtering_mode == "best_score":
+            frame.score = frame_score
+
+        if st[3] > 0.5:
+            print(f"Skipped frame {frame.frame_id}")
+            return False, True
+        if st[4] > 0.5:
+            print(f"Cholesky failed {frame.frame_id}")
+            return False, True
+
+        frame.T_WC = T_WCf
+        kfs.X[last] = kf_X            # in-place row writes
+        kfs.C[last] = kf_C
+        kfs.N[last] = kf_N
+        kfs.N_updates[last] = kf_NU
+        kfs.score[last] = kf_score
+
+        if self.tcfg.kf_every:
+            new_kf = frame.frame_id % self.tcfg.kf_every == 0
+        else:
+            new_kf = min(st[1], st[2]) < self.tcfg.match_frac_thresh
+        if new_kf:
+            self.reset_idx()
+        return bool(new_kf), False
+
+
+class SLAMSystem:
+    """The frontend with the reference's mode machine
+    (INIT -> TRACKING <-> RELOC)."""
+
+    def __init__(self, params, model_cfg, config: dict, img_shape,
+                 retrieval_params=None, K=None, keyframe_capacity=None,
+                 model_module=mast3r, device="cuda"):
+        if retrieval_params is not None:
+            raise NotImplementedError(f"retrieval {_TODO}")
+        self.device = resolve_device(device)
+        rt = config.get("runtime", {})
+        self.window = int(rt.get("tracking_window", 1))
+        if self.window > 1:
+            raise NotImplementedError(
+                f"runtime.tracking_window > 1 (the windowed driver) {_TODO}; "
+                "set runtime.tracking_window: 1")
+        h, w = img_shape
+        self.full_img_shape = (h, w)
+        self.downsample = int(config.get("dataset", {}).get("img_downsample",
+                                                            1))
+        ds = self.downsample
+        if K is not None:
+            K = torch.as_tensor(K, dtype=torch.float32, device=self.device)
+        if ds > 1:
+            h, w = h // ds, w // ds
+            if K is not None:
+                K = K / ds * torch.tensor([[1.0, 1, 1], [1, 1, 1],
+                                           [ds, ds, ds]], device=self.device)
+        kf_cap = keyframe_capacity or int(rt.get("keyframe_capacity", 512))
+        self.config = config
+        self.model_cfg = model_cfg
+        self.model_mod = model_module
+        self.params = params
+        self.use_calib = bool(config.get("use_calib", False))
+        self.K = K
+        self.keyframes = KeyframeStore(
+            kf_cap, h * w, model_cfg.num_patches, model_cfg.enc_embed_dim,
+            (h, w), device=self.device)
+        self.keyframes.K = K
+        self.tracker = TrackerRunner(
+            params, model_cfg, self.keyframes,
+            config_mod.make_tracker_config(config),
+            config_mod.make_matching_config(config),
+            filtering_mode=config["tracking"]["filtering_mode"],
+            filtering_score=config["tracking"].get("filtering_score",
+                                                   "median"),
+            use_calib=self.use_calib, K=K, model_mod=model_module)
+        self.tracker.downsample = ds
+        self.mode = Mode.INIT
+        self.reloc_pending = False
+        self.current_frame: Optional[Frame] = None
+        self.stats = {"skipped": 0, "keyframes": 0, "loop_closures": 0,
+                      "relocs": 0, "reloc_failed": 0, "reinits": 0,
+                      "frames_tracking": 0, "frames_reloc": 0,
+                      "frames_init": 0}
+
+    def _to_uimg(self, img_np: np.ndarray) -> np.ndarray:
+        if img_np.dtype == np.uint8:
+            u = img_np.astype(np.float32) / 255.0
+        else:
+            u = img_np * 0.5 + 0.5
+        ds = self.downsample
+        return u[::ds, ::ds] if ds > 1 else u
+
+    def _check_frame_shape(self, frame_id, img_np):
+        expect = (*self.full_img_shape, 3)
+        if tuple(img_np.shape) != expect:
+            raise ValueError(
+                f"frame {frame_id} resized to {tuple(img_np.shape)} but the "
+                f"pipeline was built for {expect} (from the dataset's first "
+                "frame); all frames must share one resolution")
+
+    def make_frame(self, frame_id: int, img_np: np.ndarray) -> Frame:
+        """img_np (h, w, 3): normalized float32 or raw uint8."""
+        self._check_frame_shape(frame_id, img_np)
+        img = torch.from_numpy(np.ascontiguousarray(img_np)).to(self.device)
+        T_WC = (self.current_frame.T_WC if self.current_frame is not None
+                else sim3.identity(device=self.device))
+        frame = Frame(frame_id=frame_id, img=img, uimg=self._to_uimg(img_np),
+                      T_WC=T_WC, K=self.K)
+        feat, pos = self.model_mod.encode(self.params, img[None],
+                                          self.model_cfg)
+        frame.feat = feat[0]
+        frame.pos = pos[0]
+        return frame
+
+    def _mono_init(self, frame: Frame):
+        X, C = self.model_mod.inference_mono(
+            self.params, frame.feat[None], frame.pos[None], self.model_cfg,
+            self.downsample)
+        frame.update_pointmap(X[0], C[0],
+                              self.config["tracking"]["filtering_mode"])
+
+    def process_frame(self, frame: Frame):
+        """One frontend step; returns the (possibly updated) mode."""
+        if self.mode == Mode.INIT:
+            self.stats["frames_init"] += 1
+            self._mono_init(frame)
+            self.keyframes.append(frame)
+            self.stats["keyframes"] += 1
+            self.mode = Mode.TRACKING
+            self.current_frame = frame
+            return self.mode
+
+        if self.mode == Mode.TRACKING:
+            self.stats["frames_tracking"] += 1
+            new_kf, try_reloc = self.tracker.track(frame)
+            if try_reloc:
+                self.mode = Mode.RELOC
+                self.stats["skipped"] += 1
+            self.current_frame = frame
+            if new_kf:
+                self.keyframes.append(frame)
+                self.stats["keyframes"] += 1
+            return self.mode
+
+        if self.mode == Mode.RELOC:
+            # the mono pointmap for the relocalization attempt; the attempt
+            # itself runs in the backend (retrieval), not in this slice
+            self.stats["frames_reloc"] += 1
+            self._mono_init(frame)
+            self.current_frame = frame
+            self.reloc_pending = True
+            return self.mode
+
+        raise RuntimeError(f"invalid mode {self.mode}")
+
+    def backend_step(self, flush_deferred=True):
+        raise NotImplementedError(
+            f"the backend (factor graph, global BA, retrieval, "
+            f"relocalization) {_TODO}")
+
+    def run(self, *args, **kwargs):
+        raise NotImplementedError(f"SLAMSystem.run {_TODO}")
