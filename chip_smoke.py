@@ -11,21 +11,29 @@ Phases (any failure exits non-zero and prints no result line):
    kernels of ``mast3r_slam_tpu_torch/csrc`` (one ``nvcc`` per source, in
    parallel, into ``build/torch_kernels/``).
 2. Kernels: each kernel against its plain PyTorch version, on the GPU, at
-   the main path's shapes under both matcher presets (integer outputs and
-   converged flags exactly equal, floats within the stated tolerance), with
+   the main path's shapes under both matcher presets (integer outputs,
+   converged flags and gathered values exactly equal, floats within the
+   stated tolerance, the two reductions bit-equal across two calls), with
    CUDA-event timings (median of several runs) of the kernel, the plain
-   version and, for Scharr, a one-call PyTorch yardstick.
+   version and, where one PyTorch call computes the function, that call.
 3. Main path at full width: ViT-L MASt3R (384x512, bf16 transformer, bf16
    head, random weights from a seeded generator) driven through
    ``models.oracle_timing`` (the real network runs on every call; the SLAM
    stack sees ground-truth oracle geometry) by ``SLAMSystem.make_frame`` /
-   ``process_frame``: 17 frames with the ``tpu_fast`` matcher and tracker
-   settings at ``kf_every=4``, then 5 frames with ``base``. The run must be
-   healthy (keyframe count, no skipped or relocalizing frame, TRACKING at
-   the end, Sim(3)-aligned keyframe RMSE under 0.06 of the trajectory's
-   extent) and every kernel's launch count must be > 0.
+   ``process_frame`` / ``backend_step`` (the backend drained after every
+   frame): 17 frames with the ``tpu_fast`` settings at ``kf_every=4``
+   (consecutive edges from the tracker's match, bundle adjustment on every
+   4th point), 5 frames with ``base`` at ``kf_every=2`` (edges by symmetric
+   decode + match, bundle adjustment on every point), and 5 calibrated
+   ``base`` frames (pixel + log-depth residuals in tracker and bundle
+   adjustment). Each run must be healthy (keyframe and edge counts, no
+   dropped edge, no skipped or relocalizing frame, TRACKING at the end,
+   graph invariants, Sim(3)-aligned keyframe RMSE after bundle adjustment
+   under 0.06 of the trajectory's extent) and must have launched the
+   kernels of its path; every kernel must be launched by some run.
 
-Output: per-frame and per-stage times, peak memory, then a line
+Output: per-frame, per-stage and per-keyframe backend times, peak memory,
+then a line
 ``{"kernels": [...]}``, the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -43,8 +51,12 @@ MEM_BW = 3.35e12        # HBM3 bytes/s
 PEAK_OPS = {"fp32": 67e12,      # FLOP/s outside the tensor cores
             "bf16": 989e12,     # tensor cores
             "int8": 1979e12}    # tensor cores, OP/s
-KF_EVERY = 4
-N_FAST, N_BASE = 17, 5
+N_FAST, KF_FAST = 17, 4
+N_BASE, KF_BASE = 5, 2
+N_CALIB, KF_CALIB = 5, 2
+EDGE_CAPACITY = 64
+FRONTEND = {"scharr_rays", "iter_proj", "refine_matches", "gn_step"}
+BA_KERNELS = {"gather_rows", "ba_edge_terms"}
 
 
 def log(*a):
@@ -147,7 +159,8 @@ def check_kernels(model_cfg, orc):
     records = []
 
     def rec(name, variant, err, kernel, plain, lib, bound_bytes, bound_ops,
-            ops_type, replaces, source, plain_reps=20):
+            ops_type, replaces, source, plain_reps=20, tolerance="exact",
+            **extra):
         """Times ``kernel``, ``plain`` and ``lib`` (or None) with device_ms;
         call_ms is one kernel call alone, host launch cost included.
         bound_bytes: each input read once, each output written once;
@@ -157,12 +170,13 @@ def check_kernels(model_cfg, orc):
         ms = device_ms(kernel)
         r = {"name": name, "variant": variant, "route": "cuda",
              "source": source, "replaces": replaces, "launches": 0,
-             "max_abs_err": err, "ms": ms, "kernel_ms": ms,
+             "max_abs_err": err, "tolerance": tolerance, "ms": ms,
+             "kernel_ms": ms,
              "call_ms": time_ms(kernel),
              "plain_ms": device_ms(plain, reps=plain_reps),
              "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "library_ms": None if lib is None else device_ms(lib)}
+             "library_ms": None if lib is None else device_ms(lib), **extra}
         records.append(r)
         log("kernel", json.dumps(r))
 
@@ -194,7 +208,8 @@ def check_kernels(model_cfg, orc):
         # per pixel: one normalization (~9 FLOP), 2 x 3 stencils (~11 each)
         n * 3 * 4 + n * 9 * 4, n * (9 + 6 * 11), "fp32",
         "mast3r_slam_tpu/ops/pallas_gradient.py:31 (_scharr_kernel, "
-        "pallas_call :68)", "mast3r_slam_tpu_torch/csrc/scharr_rays.cu")
+        "pallas_call :68)", "mast3r_slam_tpu_torch/csrc/scharr_rays.cu",
+        tolerance="1e-6 abs")
     rays = got
 
     # 2. iter_proj: tpu_fast coarse subgrid (3 iters), base full grid (10)
@@ -221,7 +236,8 @@ def check_kernels(model_cfg, orc):
             # ~110 FLOP per LM evaluation (bilinear tap, ray error, 2x2 solve)
             n * 9 * 4 + m * (12 + 8 + 8 + 1), m * (iters + 1) * 110, "fp32",
             "mast3r_slam_tpu/ops/matching.py:117 (iter_proj, XLA)",
-            "mast3r_slam_tpu_torch/csrc/iter_proj.cu", plain_reps=5)
+            "mast3r_slam_tpu_torch/csrc/iter_proj.cu", plain_reps=5,
+            tolerance="1e-5 abs (pixels), converged flags equal")
         p_iters[iters] = a
 
     # 3. refine_matches: bf16 and int8, r=1 d=1 (tpu_fast), r=3 d=5 (base)
@@ -250,16 +266,178 @@ def check_kernels(model_cfg, orc):
                 "mast3r_slam_tpu/ops/matching.py:189 (refine_matches; "
                 "window_gather.py:183 refine_matches_full_unfold, XLA)",
                 "mast3r_slam_tpu_torch/csrc/refine_matches.cu", plain_reps=3)
+    check_backend_kernels(rec, X, n)
     torch.cuda.synchronize()
     return records
+
+
+def check_backend_kernels(rec, X, n):
+    """The gathers (exact) and the two reductions (1e-5 of the largest
+    entry, bit-equal across two calls) at the backend's shapes."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.ops import gather
+    from mast3r_slam_tpu_torch.slam import ba, tracker
+
+    rng = np.random.default_rng(7)
+    dev = "cuda"
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    probe = "scripts/probe_pallas_gather.py"
+
+    # 4. gather_rows: the probe's shape and the BA shape
+    for variant, R, C, N in (("probe (4096,256) x1024", 4096, 256, 1024),
+                             ("BA (8*196608,4) x8*49152", 8 * n, 4,
+                              8 * n // 4)):
+        table = f32(rng.standard_normal((R, C)))
+        idx = i32(rng.integers(0, R, N))
+        idx64 = idx.long()
+        got = gather.gather_rows(table, idx)
+        if not torch.equal(got, gather.gather_rows_plain(table, idx)):
+            raise AssertionError(f"gather_rows {variant} differs from plain")
+        rec("gather_rows", variant, 0.0,
+            lambda: gather.gather_rows(table, idx),
+            lambda: gather.gather_rows_plain(table, idx),
+            lambda: torch.index_select(table, 0, idx64),
+            2 * N * C * 4 + N * 4, 0, "fp32",
+            f"{probe}:38 (variant_a, pallas_call :43) and :52 (variant_b, "
+            "pallas_call :67); mast3r_slam_tpu/slam/ba.py:72 "
+            "(_gather_points, XLA)",
+            "mast3r_slam_tpu_torch/csrc/gather_rows.cu")
+
+    # 5. take_along: the probe's shape (axis 0), the edge gate's (axis 1)
+    for variant, axis, tshape in (("probe (1024,128) axis 0", 0, (1024, 128)),
+                                  ("gate (2,196608) axis 1", 1, (2, n))):
+        t = f32(rng.standard_normal(tshape))
+        idx = i32(rng.integers(0, tshape[axis], tshape))
+        idx64 = idx.long()
+        got = gather.take_along(t, idx, axis)
+        if not torch.equal(got, gather.take_along_plain(t, idx, axis)):
+            raise AssertionError(f"take_along {variant} differs from plain")
+        tot = tshape[0] * tshape[1]
+        rec("take_along", variant, 0.0,
+            lambda: gather.take_along(t, idx, axis),
+            lambda: gather.take_along_plain(t, idx, axis),
+            lambda: torch.take_along_dim(t, idx64, dim=axis),
+            tot * 12, 0, "fp32",
+            f"{probe}:76 (variant_c, pallas_call :83); "
+            "mast3r_slam_tpu/slam/factor_graph.py:117 (_gate_edges, XLA)",
+            "mast3r_slam_tpu_torch/csrc/take_along.cu")
+
+    def rel_err(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    # 6. gn_step: both modes at N = 196,608 on the oracle's two views
+    Xf = X[0].reshape(n, 3).contiguous()
+    Xk = X[1].reshape(n, 3).contiguous()
+    h, w = X.shape[1], X.shape[2]
+    T = sim3.exp(f32([0.01, -0.02, 0.01, 0.004, -0.003, 0.002, 0.01]))
+    Qk = f32(rng.uniform(1.0, 4.0, n)) * f32(rng.random(n) > 0.1)
+    tcfg = tracker.TrackerConfig()
+    for mode in ("ray_dist", "calib"):
+        if mode == "ray_dist":
+            proj = None
+            si = torch.stack([Qk / tcfg.sigma_ray] * 3
+                             + [Qk / tcfg.sigma_dist])
+            tgt, _, _ = tracker._ray_dist_t(Xk.T)
+        else:
+            proj = tracker.CalibProj(0.8 * w, 0.8 * w, w / 2.0, h / 2.0, w,
+                                     h, tcfg.pixel_border, tcfg.depth_eps)
+            K = f32([[proj.fx, 0, proj.cx], [0, proj.fy, proj.cy], [0, 0, 1]])
+            si = torch.stack([Qk / tcfg.sigma_pixel] * 2
+                             + [Qk / tcfg.sigma_depth])
+            meas, _ = tracker.calib_measurements(Xk, K, (h, w),
+                                                 tcfg.depth_eps)
+            tgt = meas.T
+        tgt, si = tgt.contiguous(), si.contiguous()
+        d = tgt.shape[0]
+        a = tracker.gn_step(T, Xf, tgt, si, tcfg.huber, proj)
+        b = tracker.gn_step(T, Xf, tgt, si, tcfg.huber, proj)
+        ref = tracker.gn_step_plain(T, Xf, tgt, si, tcfg.huber, proj)
+        errs = [rel_err(a[sl], ref[sl]) for sl in
+                (slice(0, 49), slice(49, 56), slice(56, 57))]
+        if not (torch.equal(a, b) and max(errs) <= 1e-5):
+            raise AssertionError(f"gn_step {mode}: rel err H/g/cost {errs}, "
+                                 f"two calls equal: {torch.equal(a, b)}")
+        rec("gn_step", f"{mode} N={n}", float((a - ref).abs().max()),
+            lambda: tracker.gn_step(T, Xf, tgt, si, tcfg.huber, proj),
+            lambda: tracker.gn_step_plain(T, Xf, tgt, si, tcfg.huber, proj),
+            None, n * (12 + 8 * d) + 57 * 4 + 32,
+            # per row: residual + weight ~25, A (7), A A^T (56), g (14)
+            n * (40 + d * 105), "fp32",
+            "mast3r_slam_tpu/slam/tracker.py:60 (_gn_step_t with _act_t, "
+            "_ray_dist_t and the pose Jacobians, XLA)",
+            "mast3r_slam_tpu_torch/csrc/gn_step.cu",
+            tolerance="1e-5 of the largest entry of each of H, g, cost",
+            ref_max_abs=float(ref.abs().max()), max_rel_err=max(errs),
+            two_calls_bit_equal=True)
+
+    # 7. ba_edge_terms: three modes, 8 edges, every 4th and every point
+    n_kf, E = 4, 8
+    bcfg0 = ba.BAConfig()
+    v, u = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    Xs = []
+    for k in range(n_kf):
+        z = 3.0 + 0.5 * np.sin(u / 40.0 + k) + 0.01 * rng.standard_normal(
+            u.shape)
+        Xs.append(np.stack([(u - w / 2) / (0.8 * w) * z,
+                            (v - h / 2) / (0.8 * w) * z, z], -1).reshape(n, 3))
+    Xs = f32(np.stack(Xs))
+    Cs = f32(rng.uniform(-0.3, 5.0, (n_kf, n)))
+    Tk = sim3.exp(f32(0.02 * rng.standard_normal((n_kf, 7))))
+    ii = i32([0, 1, 1, 2, 2, 3, 0, 3])
+    jj = i32([1, 0, 2, 1, 3, 2, 3, 0])
+    idx = i32(np.clip(np.arange(n)[None] + rng.integers(-3, 4, (E, n)), 0,
+                      n - 1))
+    valid = torch.from_numpy(rng.random((E, n)) > 0.1).to(dev)
+    Q = f32(rng.uniform(1.0, 4.5, (E, n)))
+    mask = torch.ones(E, device=dev)
+    mask[5] = 0.0
+    Tij = sim3.rel(Tk[ii.long()], Tk[jj.long()]).contiguous()
+    calib = ba.CalibArgs(0.8 * w, 0.8 * w, w / 2.0, h / 2.0, w, h)
+    for stride in (4, 1):
+        cfg = bcfg0._replace(point_stride=stride)
+        pre = ba._edge_prep(Xs, Cs, ii, jj, idx, valid, stride)
+        Pp = pre.safe_idx.shape[1]
+        for mode in ba.MODES:
+            args = (mode, Tij, pre, valid, Q, mask, stride, cfg,
+                    calib if mode == "calib" else None)
+            S, g = ba.ba_edge_terms(*args)
+            S2, g2 = ba.ba_edge_terms(*args)
+            Sp, gp = ba.ba_edge_terms_plain(*args)
+            same = torch.equal(S, S2) and torch.equal(g, g2)
+            errs = [rel_err(S, Sp), rel_err(g, gp)]
+            if not (same and max(errs) <= 1e-5
+                    and float(S[5].abs().max()) == 0.0):
+                raise AssertionError(
+                    f"ba_edge_terms {mode} stride {stride}: rel err S/g "
+                    f"{errs}, two calls equal: {same}")
+            nr = 4 if mode == "rays" else 3
+            rec("ba_edge_terms", f"{mode} E={E} P={Pp} (stride {stride})",
+                float((S - Sp).abs().max()),
+                lambda: ba.ba_edge_terms(*args),
+                lambda: ba.ba_edge_terms_plain(*args), None,
+                E * Pp * (32 + 4 + 1 + (4 if mode == "calib" else 0))
+                + E * (32 + 4 + 56 * 4),
+                E * Pp * (60 + nr * 105), "fp32",
+                "mast3r_slam_tpu/slam/ba.py:203 (_edge_terms with "
+                "_edge_terms_rays :320, _calib :358, _points :340, XLA)",
+                "mast3r_slam_tpu_torch/csrc/ba_edge_terms.cu", plain_reps=5,
+                tolerance="1e-5 of the largest entry of each of S0, g0",
+                ref_max_abs=float(Sp.abs().max()), max_rel_err=max(errs),
+                two_calls_bit_equal=True)
 
 
 # -- phase 3: main path --------------------------------------------------------
 
 
-def run_slam(preset_cfg, params, model_cfg, n_frames, traj):
-    """Drive ``n_frames`` through make_frame/process_frame; returns the
-    system and per-frame wall times (ms, each ending in a sync)."""
+def run_slam(preset_cfg, params, model_cfg, n_frames, kf_every, K=None):
+    """Drive ``n_frames`` through make_frame / process_frame and drain the
+    backend after every frame, as ``SLAMSystem.run`` of the JAX package
+    does. Returns the system, the per-frame frontend wall times and one
+    (wall ms, GN iterations) per backend step (each time ends in a sync)."""
     import numpy as np
     import torch
 
@@ -267,32 +445,50 @@ def run_slam(preset_cfg, params, model_cfg, n_frames, traj):
     from mast3r_slam_tpu_torch.slam.system import SLAMSystem
 
     cfg = preset_cfg
-    cfg["tracking"] = dict(cfg["tracking"], kf_every=KF_EVERY)
+    cfg["tracking"] = dict(cfg["tracking"], kf_every=kf_every)
     cfg["runtime"] = dict(cfg.get("runtime", {}), tracking_window=1)
+    cfg["use_calib"] = K is not None
     h, w = model_cfg.img_size
-    system = SLAMSystem(params, model_cfg, cfg, (h, w), keyframe_capacity=16,
+    system = SLAMSystem(params, model_cfg, cfg, (h, w), K=K,
+                        keyframe_capacity=16, edge_capacity=EDGE_CAPACITY,
                         model_module=oracle_timing, device="cuda")
     rng = np.random.default_rng(1234)
     frames = [oracle_timing.make_frame_image(i, h, w, rng)
               for i in range(n_frames)]
-    times = []
+    times, backend = [], []
     for i in range(n_frames):
         t0 = time.perf_counter()
         system.process_frame(system.make_frame(i, frames[i]))
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return system, times
+        t1 = time.perf_counter()
+        times.append((t1 - t0) * 1e3)
+        while system.backend_step():
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            backend.append(((t2 - t1) * 1e3,
+                            system.factor_graph.last_solve_iters))
+            t1 = t2
+    return system, times, backend
 
 
-def assert_healthy(system, n_frames, traj, label):
+def assert_healthy(system, n_frames, kf_every, traj, label):
     from mast3r_slam_tpu_torch.eval.ate import aligned_rmse
     from mast3r_slam_tpu_torch.slam.frame import Mode
 
     st = system.stats
+    fg = system.factor_graph
     problems = []
-    expect_kf = len(range(0, n_frames, KF_EVERY))
+    system.check_invariants()      # flushes the deferred edge gates
+    expect_kf = len(range(0, n_frames, kf_every))
     if st["keyframes"] != expect_kf:
         problems.append(f"keyframes {st['keyframes']} != {expect_kf}")
+    if fg.n_edges != 2 * (expect_kf - 1) or int(fg.n_edges_dev) != fg.n_edges:
+        problems.append(f"edges {fg.n_edges} (device {int(fg.n_edges_dev)}) "
+                        f"!= {2 * (expect_kf - 1)}")
+    if fg.edges_dropped:
+        problems.append(f"{fg.edges_dropped} edges dropped")
+    if system.backend_queue:
+        problems.append(f"backend queue not drained: {system.backend_queue}")
     if st["skipped"] or st["frames_reloc"]:
         problems.append(f"skipped/reloc: {st}")
     if system.mode != Mode.TRACKING:
@@ -307,6 +503,59 @@ def assert_healthy(system, n_frames, traj, label):
     if problems:
         raise AssertionError(f"unhealthy {label} run: " + "; ".join(problems))
     return rmse, extent
+
+
+def backend_split(system):
+    """Isolated CUDA-event times (ms) of one backend step's parts on the
+    run's final graph: building one consecutive edge, the once-per-solve
+    gather, and per GN iteration the edge terms and assemble + solve."""
+    import torch
+
+    from mast3r_slam_tpu_torch.slam import ba
+    from mast3r_slam_tpu_torch.slam import factor_graph as fgmod
+
+    fg, kfs = system.factor_graph, system.keyframes
+    Kb, (ii, jj, idx, vm, Q, mask, n_kf) = fg._solve_args()
+    cfg = fg.ba_cfg
+    img_size = (kfs.h, kfs.w)
+    T, Xs, Cs = kfs.T_WC[:Kb], kfs.X[:Kb], kfs.average_confs(Kb)
+    mode, calib = "rays", None
+    if system.use_calib:
+        mode, calib = "calib", ba._calib_args(fg.K, img_size)
+        Xs = fgmod.constrain_all(Xs, fg.K, img_size)
+
+    dev, P = fg.device, idx.shape[1]
+    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
+    scratch = (z((3,), torch.int32), z((3,), torch.int32),
+               z((3, P), torch.int32), z((3, P), torch.bool),
+               z((3, P), torch.float32))       # capacity 2 + the sentinel
+    e0 = z((), torch.int32)
+    out = {"edges": int(mask.sum()), "keyframes": Kb,
+           "points_per_edge": len(range(0, P, cfg.point_stride))}
+    if system._reuse_consec:
+        row = (idx[0].long(), vm[0], Q[0])     # the tracker's match, as kept
+        out["edge_build_tracked"] = time_ms(
+            lambda: fgmod._add_tracked_edge_body(scratch, 0, 1, *row, e0))
+    else:
+        one = lambda v, dt: torch.tensor([v], dtype=dt, device=dev)
+        out["edge_build_decode_match"] = time_ms(
+            lambda: fgmod._add_factors_body(
+                scratch, fg.params, kfs.feat, kfs.pos, one(0, torch.int64),
+                one(1, torch.int64), one(True, torch.bool), e0,
+                float(fg.cfg.min_match_frac), False, float(fg.cfg.Q_conf),
+                fg.model_cfg, fg.mcfg, fg.downsample, fg.cfg.matcher,
+                fg.model_mod), reps=5)
+    prep = lambda: ba._edge_prep(Xs, Cs, ii, jj, idx, vm, cfg.point_stride)
+    out["gather_per_solve"] = time_ms(prep)
+    pre = prep()
+    terms = lambda: ba._edge_terms(mode, T, Xs, Cs, ii, jj, idx, vm, Q, mask,
+                                   cfg, pre, calib)
+    out["edge_terms_per_iter"] = time_ms(terms)
+    H, g = terms()
+    out["assemble_solve_per_iter"] = time_ms(
+        lambda: ba._assemble_and_solve(H, g, ii, jj, n_kf, Kb, cfg.pin,
+                                       cfg.solver))
+    return out
 
 
 def stage_split(params, model_cfg, mcfg, tcfg):
@@ -429,25 +678,38 @@ def main():
     # phase 2: every kernel against its plain version
     records = check_kernels(model_cfg, orc)
 
-    # phase 3: the main path, tpu_fast presets
+    # phase 3: the main path, tpu_fast presets; frontend and backend
+    def drive(label, preset, n_frames, kf_every, expect, K=None):
+        _kernels.reset_launch_counts()
+        system, times, backend = run_slam(preset, params, model_cfg,
+                                          n_frames, kf_every, K)
+        launches = dict(_kernels.LAUNCHES)
+        rmse, extent = assert_healthy(system, n_frames, kf_every, traj, label)
+        missing = sorted(k for k in expect if launches[k] <= 0)
+        if missing:
+            raise AssertionError(f"{label} run never launched {missing}: "
+                                 f"{launches}")
+        med = statistics.median(times[1:])
+        fg = system.factor_graph
+        log(f"{label} main path: {n_frames} frames, stats {system.stats}, "
+            f"edges {fg.n_edges} (dropped {fg.edges_dropped}), launches "
+            f"{launches}, keyframe RMSE after BA {rmse:.6f} of extent "
+            f"{extent:.6f}")
+        log(f"{label} frontend ms per frame (tracked): median {med:.3f}, all "
+            f"{[round(t, 3) for t in times]}; frames/s {1e3 / med:.3f}")
+        log(f"{label} backend ms per keyframe (wall, GN iterations): "
+            f"{[(round(t, 3), it) for t, it in backend]}")
+        log(f"{label} backend split (isolated, ms): "
+            + json.dumps(backend_split(system)))
+        return system, med, launches
+
     torch.cuda.reset_peak_memory_stats()
-    _kernels.reset_launch_counts()
-    system, times = run_slam(tpu_fast_config(), params, model_cfg, N_FAST,
-                             traj)
-    launches = dict(_kernels.LAUNCHES)
-    rmse, extent = assert_healthy(system, N_FAST, traj, "tpu_fast")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched on the main path: "
-                             f"{launches}")
-    tracked = times[1:]
-    med = statistics.median(tracked)
-    log(f"tpu_fast main path: {N_FAST} frames, stats {system.stats}, "
-        f"launches {launches}, keyframe RMSE {rmse:.6f} of extent "
-        f"{extent:.6f}")
-    log(f"per-frame ms (tracked frames): median {med:.3f}, all "
-        f"{[round(t, 3) for t in times]}; frames/s {1e3 / med:.3f}")
+    system, med, launches = drive("tpu_fast", tpu_fast_config(), N_FAST,
+                                  KF_FAST, FRONTEND | BA_KERNELS)
     log(f"peak device memory: "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"(edge buffers at capacity {EDGE_CAPACITY}: "
+        f"{(EDGE_CAPACITY + 1) * h * w * 9 / 2**20:.0f} MiB)")
     split = stage_split(params, model_cfg, system.tracker.mcfg,
                         system.tracker.tcfg)
     log("stage split (isolated, ms): " + json.dumps(split))
@@ -456,24 +718,29 @@ def main():
     busy["device_idle_share"] = 1.0 - busy["device_busy_ms"] / med
     log("one tracked frame under the profiler: " + json.dumps(busy))
 
-    # the base presets: radius 3, dilation 5, 10 LM iterations
-    _kernels.reset_launch_counts()
-    sys_b, times_b = run_slam(base_config(), params, model_cfg, N_BASE, traj)
-    launches_b = dict(_kernels.LAUNCHES)
-    rmse_b, extent_b = assert_healthy(sys_b, N_BASE, traj, "base")
-    if min(launches_b.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched on the base path: "
-                             f"{launches_b}")
-    log(f"base main path: {N_BASE} frames, stats {sys_b.stats}, launches "
-        f"{launches_b}, keyframe RMSE {rmse_b:.6f} of extent {extent_b:.6f}, "
-        f"per-frame ms median {statistics.median(times_b[1:]):.3f}")
+    # the base presets: radius 3, dilation 5, 10 LM iterations; edges by
+    # symmetric decode + match, bundle adjustment on every point
+    every = set(_kernels.SOURCES)
+    sys_b, _, launches_b = drive("base", base_config(), N_BASE, KF_BASE,
+                                 every)
     split_b = stage_split(params, model_cfg, sys_b.tracker.mcfg,
                           sys_b.tracker.tcfg)
     log("stage split base (isolated, ms): " + json.dumps(split_b))
 
+    # calibrated base run: pixel + log-depth residuals, the oracle's pinhole
+    f = 0.8 * w
+    K = [[f, 0.0, w / 2.0], [0.0, f, h / 2.0], [0.0, 0.0, 1.0]]
+    _, _, launches_c = drive("calib", base_config(), N_CALIB, KF_CALIB, every,
+                             K=K)
+
     for r in records:
-        r["launches"] = launches[r["name"]]
-        r["launches_base_run"] = launches_b[r["name"]]
+        runs = (launches[r["name"]], launches_b[r["name"]],
+                launches_c[r["name"]])
+        r["launches"] = sum(runs)
+        (r["launches_tpu_fast_run"], r["launches_base_run"],
+         r["launches_calib_run"]) = runs
+        if r["launches"] <= 0:
+            raise AssertionError(f"kernel {r['name']} was launched by no run")
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

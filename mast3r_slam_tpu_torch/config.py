@@ -2,9 +2,12 @@
 the typed tracker/matcher configs.
 
 Counterpart of ``mast3r_slam_tpu/config.py``. The port keeps its own
-``TrackerConfig`` and ``MatchingConfig`` (same fields and defaults as
-``mast3r_slam_tpu/slam/tracker.py:31`` and
-``mast3r_slam_tpu/slam/factor_graph.py:261``). ``yaml`` is imported inside
+``TrackerConfig``, ``MatchingConfig``, ``BAConfig`` and
+``FactorGraphConfig`` (same fields and defaults as
+``mast3r_slam_tpu/slam/tracker.py:31``,
+``mast3r_slam_tpu/slam/factor_graph.py:261``,
+``mast3r_slam_tpu/slam/ba.py:40`` and
+``mast3r_slam_tpu/slam/factor_graph.py:29``). ``yaml`` is imported inside
 ``load_config`` only: ``base_config()`` and ``tpu_fast_config()`` give the
 two presets as Python dicts, so a machine without PyYAML runs the port.
 """
@@ -63,6 +66,44 @@ class MatchingConfig(NamedTuple):
     coarse_iter: int = 0
     separable_refine: bool = False
     refine_dtype: str = "bfloat16"
+
+
+class BAConfig(NamedTuple):
+    """Global-optimization hyperparameters (the ``local_opt`` block)."""
+
+    pin: int = 1
+    max_iters: int = 10
+    C_conf: float = 0.0
+    Q_conf: float = 1.5
+    sigma_ray: float = 0.003
+    sigma_dist: float = 10.0
+    sigma_pixel: float = 1.0
+    sigma_depth: float = 10.0
+    sigma_point: float = 0.05
+    delta_norm: float = 1e-8
+    pixel_border: int = -10
+    depth_eps: float = 1e-6
+    point_chunk: int = 8192   # the JAX scan's chunk; parsed, unused here
+    solver: str = "fp32"      # "fp32": equilibrated Cholesky on the device;
+                              # "fp64_host": fp64 Cholesky on the host
+    point_stride: int = 1     # use every s-th measurement pixel per edge
+
+
+class FactorGraphConfig(NamedTuple):
+    """Edge-buffer and gating settings. ``edge_bucket_floor``,
+    ``kf_bucket_floor`` and ``pad_edge_batch`` bound the JAX package's
+    compiled shapes; they are parsed for parity and unused here."""
+
+    edge_capacity: int = 256    # initial buffer size; doubles on demand
+    max_edge_capacity: int = 0  # hard cap (0 = unbounded); beyond it new
+                                # edges are dropped and counted
+    edge_bucket_floor: int = 8
+    kf_bucket_floor: int = 8
+    pad_edge_batch: bool = True
+    Q_conf: float = 1.5
+    min_match_frac: float = 0.1
+    matcher: str = "iter_proj"  # "dense" is not ported yet
+    ba_backend: str = "dense"   # the sharded backends are not ported yet
 
 
 def _yaml_loader():
@@ -186,4 +227,35 @@ def make_matching_config(cfg: dict) -> MatchingConfig:
         coarse_iter=int(m.get("coarse_iter", 0)),
         separable_refine=bool(m.get("separable_refine", False)),
         refine_dtype=str(m.get("refine_dtype", "bfloat16")),
+    )
+
+
+def make_ba_config(cfg: dict, point_chunk: int = 8192) -> BAConfig:
+    o = cfg["local_opt"]
+    return BAConfig(
+        pin=int(o["pin"]), max_iters=int(o["max_iters"]),
+        C_conf=float(o["C_conf"]), Q_conf=float(o["Q_conf"]),
+        sigma_ray=float(o["sigma_ray"]), sigma_dist=float(o["sigma_dist"]),
+        sigma_pixel=float(o["sigma_pixel"]), sigma_depth=float(o["sigma_depth"]),
+        delta_norm=float(o["delta_norm"]), pixel_border=int(o["pixel_border"]),
+        depth_eps=float(o["depth_eps"]), point_chunk=point_chunk,
+        solver=str(o.get("solver", "fp32")),
+        point_stride=int(o.get("point_stride", 1)),
+    )
+
+
+def make_factor_graph_config(cfg: dict, edge_capacity: int = 256
+                             ) -> FactorGraphConfig:
+    o = cfg["local_opt"]
+    rt = cfg.get("runtime", {})
+    return FactorGraphConfig(
+        edge_capacity=edge_capacity,
+        max_edge_capacity=int(rt.get("max_edge_capacity", 0)),
+        edge_bucket_floor=int(rt.get("edge_bucket_floor", 8)),
+        kf_bucket_floor=int(rt.get("kf_bucket_floor", 8)),
+        pad_edge_batch=bool(rt.get("pad_edge_batch", True)),
+        Q_conf=float(o["Q_conf"]),
+        min_match_frac=float(o["min_match_frac"]),
+        matcher=str(o.get("matcher", "iter_proj")),
+        ba_backend=str(cfg.get("parallel", {}).get("ba_backend", "dense")),
     )

@@ -14,6 +14,8 @@ reference checkpoint names, so the mapping is the one
   and ``dec_blocks2``.
 
 ``oracle_params_from_jax`` carries the oracle's scene/trajectory arrays.
+``slam_state_from_jax`` carries a keyframe store's and a factor graph's
+arrays, so both packages' solvers can start from one state.
 """
 
 from __future__ import annotations
@@ -138,3 +140,52 @@ def oracle_params_from_jax(tree, device="cuda") -> dict:
     dev = resolve_device(device)
     return {k: (float(np.asarray(v)) if k == "pix_noise" else _t(v).to(dev))
             for k, v in tree.items()}
+
+
+def _rows(a, n):
+    """The first n rows as a torch tensor (bf16 arrays go through fp32:
+    numpy's bfloat16 is not a dtype torch reads)."""
+    a = np.asarray(a[:n])
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a))
+
+
+KEYFRAME_FIELDS = ("dataset_idx", "T_WC", "X", "C", "N", "N_updates", "feat",
+                   "pos", "score")
+EDGE_FIELDS = ("ii", "jj", "idx_ii2jj", "valid_match", "Q")
+
+
+def slam_state_from_jax(kf_arrays: dict, fg_arrays: dict, keyframes,
+                        factor_graph=None):
+    """Fill the port's ``KeyframeStore`` and ``FactorGraph`` in place from
+    the numpy arrays of the JAX package's.
+
+    ``kf_arrays``: ``n_size`` and any of ``KEYFRAME_FIELDS`` (capacity-padded
+    arrays of ``mast3r_slam_tpu/slam/frame.py::KeyframeStore``);
+    ``fg_arrays``: ``n_edges`` and ``EDGE_FIELDS`` (of
+    ``mast3r_slam_tpu/slam/factor_graph.py::FactorGraph``). The active rows
+    are copied; the port's buffers grow where they are too small for the
+    edges."""
+    n = int(kf_arrays["n_size"])
+    if n > keyframes.capacity:
+        raise ValueError(f"{n} keyframes do not fit a capacity of "
+                         f"{keyframes.capacity}")
+    keyframes.n_size = n
+    for name in KEYFRAME_FIELDS:
+        if name in kf_arrays:
+            dst = getattr(keyframes, name)
+            dst[:n] = _rows(kf_arrays[name], n).to(device=dst.device,
+                                                   dtype=dst.dtype)
+    if factor_graph is None:
+        return
+    fg = factor_graph
+    e = int(fg_arrays["n_edges"])
+    if not fg.ensure_capacity(e):
+        raise ValueError(f"{e} edges exceed max_edge_capacity")
+    for name in EDGE_FIELDS:
+        dst = getattr(fg, name)
+        dst[:e] = _rows(fg_arrays[name], e).to(device=dst.device,
+                                               dtype=dst.dtype)
+    fg.n_edges = fg.n_edges_ub = e
+    fg.n_edges_dev = torch.full((), e, dtype=torch.int32, device=fg.device)

@@ -218,7 +218,25 @@ def inference_asymmetric(model, feat_f, pos_f, feat_k, pos_k, cfg):
                  for k in ("pts3d", "conf", "desc", "desc_conf"))
 
 
-def inference_symmetric(*args, **kwargs):
-    raise NotImplementedError(
-        "inference_symmetric (backend edge decoding) is not ported yet; "
-        "see ROADMAP.md queue 1")
+def symmetric_from_decode(decode, params, feat_i, pos_i, feat_j, pos_j, cfg):
+    """Both decode directions of edge (i, j) as one ``decode`` batch of 2b:
+    decode (i|j) gives (ii, ji), decode (j|i) gives (jj, ij). Returns a
+    dict of (b, h, w, ...) maps Xii, Xji, Xjj, Xij and the same for C, D,
+    Q."""
+    b = feat_i.shape[0]
+    res1, res2 = decode(params, torch.cat([feat_i, feat_j]),
+                        torch.cat([pos_i, pos_j]),
+                        torch.cat([feat_j, feat_i]),
+                        torch.cat([pos_j, pos_i]), cfg)
+    out = {}
+    for c, k in (("X", "pts3d"), ("C", "conf"), ("D", "desc"),
+                 ("Q", "desc_conf")):
+        out[c + "ii"], out[c + "jj"] = res1[k][:b], res1[k][b:]
+        out[c + "ji"], out[c + "ij"] = res2[k][:b], res2[k][b:]
+    return out
+
+
+def inference_symmetric(model, feat_i, pos_i, feat_j, pos_j, cfg):
+    """Symmetric two-view decode of a batch of edges (``mast3r.py:311``)."""
+    return symmetric_from_decode(decode_pair, model, feat_i, pos_i, feat_j,
+                                 pos_j, cfg)

@@ -2,9 +2,10 @@
 
 Counterpart of ``mast3r_slam_tpu/models/oracle.py``: the same inference
 surface (``encode`` / ``decode_pair`` / ``inference_mono`` /
-``inference_asymmetric``) computed by a closed-form raycast of a synthetic
-scene (sphere(s) before a background plane) from a known trajectory. The
-frame id travels in the encoder features (token 0, last channel).
+``inference_asymmetric`` / ``inference_symmetric``) computed by a
+closed-form raycast of a synthetic scene (sphere(s) before a background
+plane) from a known trajectory. The frame id travels in the encoder
+features (token 0, last channel).
 
 ``make_params`` draws its random arrays with numpy from ``seed`` (the JAX
 package draws them with ``jax.random``, so the two differ for one seed;
@@ -18,7 +19,8 @@ import torch
 
 from .._device import exact_fp32, resolve_device
 from ..lie import sim3
-from .mast3r import MASt3RConfig, downsample_maps, normalize_frames
+from .mast3r import (MASt3RConfig, downsample_maps, normalize_frames,
+                     symmetric_from_decode)
 
 
 def make_params(traj_WC, desc_dim: int = 8, sphere_center=(0.0, 0.0, 4.0),
@@ -193,6 +195,7 @@ def inference_asymmetric(params, feat_f, pos_f, feat_k, pos_k, cfg):
                  for k in ("pts3d", "conf", "desc", "desc_conf"))
 
 
-def inference_symmetric(*args, **kwargs):
-    raise NotImplementedError(
-        "inference_symmetric is not ported yet; see ROADMAP.md queue 1")
+def inference_symmetric(params, feat_i, pos_i, feat_j, pos_j, cfg):
+    """Symmetric two-view decode of a batch of edges (``oracle.py:252``)."""
+    return symmetric_from_decode(decode_pair, params, feat_i, pos_i, feat_j,
+                                 pos_j, cfg)

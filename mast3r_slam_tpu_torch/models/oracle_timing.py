@@ -89,6 +89,10 @@ def inference_asymmetric(params, feat_f, pos_f, feat_k, pos_k, cfg):
     return tuple(_carry(o, t) for o in orc)
 
 
-def inference_symmetric(*args, **kwargs):
-    raise NotImplementedError(
-        "inference_symmetric is not ported yet; see ROADMAP.md queue 1")
+def inference_symmetric(params, feat_i, pos_i, feat_j, pos_j, cfg):
+    real = mast3r.inference_symmetric(params["net"], feat_i, pos_i,
+                                      feat_j, pos_j, cfg)
+    orc = oracle.inference_symmetric(params["orc"], feat_i, pos_i,
+                                     feat_j, pos_j, cfg)
+    t = _total(*real.values())
+    return {k: _carry(v, t) for k, v in orc.items()}

@@ -2,7 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` for Hopper
 (``sm_90a``) into ``build/torch_kernels/lib<name>.so``, a shared library
-with a plain C interface that ``ctypes`` loads. Nothing is built at import
+with a plain C interface that ``ctypes`` loads. A library is rebuilt when
+its own source or a shared header (``csrc/*.cuh``) is newer than it, not
+when another kernel's source changed. Nothing is built at import
 time, and nothing is built for CPU tensors: the wrappers take the plain
 PyTorch versions there. ``build_all()`` starts one ``nvcc`` per source at
 once so a fresh checkout builds in the time of the slowest file.
@@ -33,6 +35,12 @@ SOURCES = {
                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]),
     "refine_matches": ("refine_matches_launch",
                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I, _I, _I, _P]),
+    "take_along": ("take_along_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "gn_step": ("gn_step_launch",
+                [_P] * 6 + [_I, _I] + [_F] * 9 + [_P]),
+    "ba_edge_terms": ("ba_edge_terms_launch",
+                      [_P] * 10 + [_I] * 7 + [_F] * 15 + [_P]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -69,8 +77,8 @@ def _stale(name):
     so = _lib_path(name)
     if not so.exists():
         return True
-    newest = max(p.stat().st_mtime for p in CSRC.glob("*.cu*"))
-    return so.stat().st_mtime < newest
+    deps = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return so.stat().st_mtime < max(p.stat().st_mtime for p in deps)
 
 
 def _start_build(name):

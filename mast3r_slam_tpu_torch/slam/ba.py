@@ -1,0 +1,477 @@
+"""Global pose-graph Gauss-Newton over keyframe Sim(3) poses.
+
+Counterpart of ``mast3r_slam_tpu/slam/ba.py``. Per GN iteration:
+
+* ``ba_edge_terms``: per edge, the robustly weighted sums S0 = sum J^T J
+  (7x7) and g0 = sum J^T r (7) over the edge's matched points with respect
+  to the relative pose Tij. On CUDA tensors this is the hand-written kernel
+  ``csrc/ba_edge_terms.cu`` (it replaces the chunked ``lax.scan`` of
+  matmuls in ``_edge_terms``, ``ba.py:203-298``); on CPU tensors
+  ``ba_edge_terms_plain``.
+* ``_edge_terms``: the per-edge conjugation with the inverse adjoint,
+  S = M S0 M^T, and the [[S, -S], [-S, S]] block of the 14x14 edge Hessian.
+* ``_assemble`` / ``_solve``: scatter into the dense 7K x 7K system, Jacobi
+  equilibration and an fp32 Cholesky on the device (or fp64 on the host).
+
+The one random-access operation, the gather of keyframe i's points at the
+match indices, runs once per solve (``_edge_prep``) through the
+``gather_rows`` kernel. The GN loop is a Python loop; the step norm is the
+one host read per iteration. The JAX package's point chunks,
+component-major stacks and power-of-two shape buckets were ways to fit the
+TPU compiler and are not carried over.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import geometry, robust
+from .._device import exact_fp32
+from ..config import BAConfig
+from ..lie import sim3
+from ..ops import _kernels, gather
+
+__all__ = ["BAConfig", "BAResult", "ba_edge_terms", "ba_edge_terms_plain",
+           "gauss_newton_rays", "gauss_newton_calib", "gauss_newton_points"]
+
+MODES = ("rays", "calib", "points")
+_N_ROWS = {"rays": 4, "calib": 3, "points": 3}
+_HUBER_K = 1.345          # robust.huber's default, as ba.py:268 calls it
+_BLOCKS_PER_EDGE = 32     # upper bound of the kernel's blocks per edge
+
+
+class BAResult(NamedTuple):
+    T_WC: torch.Tensor   # (K, 8) updated poses
+    iters: int           # GN iterations executed
+
+
+class EdgePre(NamedTuple):
+    """Loop-invariant per-edge data (``_edge_prep``): P' = P / stride
+    measurement pixels per edge."""
+    XCi: torch.Tensor       # (E, P', 4) [X, C] of keyframe i at the match
+    XCj: torch.Tensor       # (E, P', 4) [X, C] of keyframe j's pixels
+    safe_idx: torch.Tensor  # (E, P') int32 match index, 0 where invalid
+
+
+class CalibArgs(NamedTuple):
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    w: int
+    h: int
+
+
+def _gather_points(XC, ii, idx):
+    """XCi[e, p] = XC[ii[e], idx[e, p]] as one flat 4-wide row gather
+    (``ba.py:72``): XC (K, P, 4) [X, C], ii (E,), idx (E, P') int32."""
+    K, P, _ = XC.shape
+    flat_idx = (ii[:, None].to(torch.int32) * P + idx).reshape(-1)
+    return gather.gather_rows(XC.reshape(K * P, 4), flat_idx).reshape(
+        *idx.shape, 4)
+
+
+def _edge_prep(Xs, Cs, ii, jj, idx, valid_match, stride: int = 1) -> EdgePre:
+    """Gathered matched points and confidences (``ba.py:301``). ``stride``
+    subsamples the measurement pixels (the j side); the i-side gather
+    indices stay full-map indices."""
+    XC = torch.cat([Xs, Cs[..., None]], dim=-1)
+    XC_j = XC
+    if stride > 1:
+        idx = idx[:, ::stride]
+        valid_match = valid_match[:, ::stride]
+        XC_j = XC[:, ::stride]
+    safe_idx = torch.where(valid_match, idx.to(torch.int32),
+                           torch.zeros((), dtype=torch.int32,
+                                       device=idx.device)).contiguous()
+    return EdgePre(_gather_points(XC, ii, safe_idx),
+                   XC_j[jj.to(torch.int64)].contiguous(), safe_idx)
+
+
+def _sigmas(mode, cfg: BAConfig):
+    if mode == "rays":
+        return [1.0 / cfg.sigma_ray] * 3 + [1.0 / cfg.sigma_dist]
+    if mode == "calib":
+        return [1.0 / cfg.sigma_pixel] * 2 + [1.0 / cfg.sigma_depth]
+    return [1.0 / cfg.sigma_point] * 3
+
+
+# -- plain version: component-major, as the JAX package writes it ------------
+
+
+def _act_t_b(T, Xt):
+    """Batched Sim3 action on column points: T (E, 8), Xt (E, 3, P)."""
+    t, q, s = sim3.parts(T)
+    R = sim3.quat_to_matrix(q)
+    return s[..., None] * (R @ Xt) + t[..., None]
+
+
+def _ray_dist_t_b(Yt):
+    d = torch.sqrt(torch.sum(Yt * Yt, dim=1))
+    r = Yt / d[:, None]
+    return torch.cat([r, d[:, None]], dim=1), d, r
+
+
+def _stack_rows(rows):
+    """[[comp (E, P)] * 7] * r -> (E, r, 7, P)."""
+    return torch.stack([torch.stack(row, dim=1) for row in rows], dim=1)
+
+
+def _ray_jac_t_b(d, r):
+    di = 1.0 / d
+    rx, ry, rz = r[:, 0], r[:, 1], r[:, 2]
+    z = torch.zeros_like(d)
+    return _stack_rows([
+        [(1.0 - rx * rx) * di, -rx * ry * di, -rx * rz * di, z, rz, -ry, z],
+        [-rx * ry * di, (1.0 - ry * ry) * di, -ry * rz * di, -rz, z, rx, z],
+        [-rx * rz * di, -ry * rz * di, (1.0 - rz * rz) * di, ry, -rx, z, z],
+        [rx, ry, rz, z, z, z, d],
+    ])
+
+
+def _point_jac_t_b(Yt):
+    x, y, zc = Yt[:, 0], Yt[:, 1], Yt[:, 2]
+    z = torch.zeros_like(x)
+    one = torch.ones_like(x)
+    return _stack_rows([
+        [one, z, z, z, zc, -y, x],
+        [z, one, z, -zc, z, x, y],
+        [z, z, one, y, -x, z, zc],
+    ])
+
+
+def _calib_jac_t_b(Yt, fx, fy, z_eps):
+    x, y, zc = Yt[:, 0], Yt[:, 1], Yt[:, 2]
+    valid = zc > z_eps
+    zi = torch.where(valid, 1.0 / torch.where(valid, zc, torch.ones_like(zc)),
+                     torch.zeros_like(zc))
+    xz = x * zi
+    yz = y * zi
+    z = torch.zeros_like(zi)
+    one = valid.to(zi.dtype)
+    return _stack_rows([
+        [fx * zi, z, -fx * xz * zi,
+         -fx * xz * yz, fx * (one + xz * xz), -fx * yz, z],
+        [z, fy * zi, -fy * yz * zi,
+         -fy * (one + yz * yz), fy * xz * yz, fy * xz, z],
+        [z, z, zi, yz, -xz, z, one],
+    ])
+
+
+def _residual(mode, Tij, Xj_t, Xi_t, safe_idx, cfg, calib):
+    """err (E, r, P), J_theta (E, r, 7, P), extra_valid (E, P) or None
+    (``ba.py:327``, ``:347``, ``:367``)."""
+    Y = _act_t_b(Tij, Xj_t)
+    if mode == "rays":
+        rd_i, _, _ = _ray_dist_t_b(Xi_t)
+        rd_j, d, r = _ray_dist_t_b(Y)
+        return rd_j - rd_i, _ray_jac_t_b(d, r), None
+    if mode == "points":
+        return Y - Xi_t, _point_jac_t_b(Y), None
+    c = calib
+    border, z_eps = cfg.pixel_border, cfg.depth_eps
+    u_t = (safe_idx % c.w).to(Y.dtype)
+    v_t = torch.div(safe_idx, c.w, rounding_mode="floor").to(Y.dtype)
+    x, y, zc = Y[:, 0], Y[:, 1], Y[:, 2]
+    valid_z = zc > z_eps
+    z_safe = torch.where(valid_z, zc, torch.ones_like(zc))
+    z_inv = 1.0 / z_safe
+    u = c.fx * x * z_inv + c.cx
+    v = c.fy * y * z_inv + c.cy
+    valid_proj = ((u > border) & (u < c.w - 1 - border)
+                  & (v > border) & (v < c.h - 1 - border) & valid_z)
+    logz = torch.where(valid_z, torch.log(z_safe), torch.zeros_like(zc))
+    zi = Xi_t[:, 2]
+    valid_zi = zi > z_eps
+    log_zi = torch.where(
+        valid_zi, torch.log(torch.where(valid_zi, zi, torch.ones_like(zi))),
+        torch.zeros_like(zi))
+    err = torch.stack([u - u_t, v - v_t, logz - log_zi], dim=1)
+    return err, _calib_jac_t_b(Y, c.fx, c.fy, z_eps), valid_proj & valid_zi
+
+
+def ba_edge_terms_plain(mode, Tij, pre: EdgePre, valid_match, Q, edge_mask,
+                        stride, cfg: BAConfig, calib: CalibArgs = None):
+    """Plain version of ``ba_edge_terms`` (``ba.py:252-285`` without the
+    chunk scan)."""
+    vm = valid_match[:, ::stride]
+    Qs = Q[:, ::stride]
+    Xi_t = pre.XCi[..., 0:3].transpose(1, 2)
+    Xj_t = pre.XCj[..., 0:3].transpose(1, 2)
+    Ci, Cj = pre.XCi[..., 3], pre.XCj[..., 3]
+    err, J_theta, extra = _residual(mode, Tij, Xj_t, Xi_t, pre.safe_idx, cfg,
+                                    calib)
+    valid = vm & (Qs > cfg.Q_conf) & (Ci > cfg.C_conf) & (Cj > cfg.C_conf)
+    if extra is not None:
+        valid = valid & extra
+    sigma = Q.new_tensor(_sigmas(mode, cfg))[None, :, None]
+    sqrt_w = torch.where(valid[:, None, :],
+                         sigma * torch.sqrt(Qs)[:, None, :],
+                         torch.zeros((), dtype=Q.dtype, device=Q.device))
+    w = robust.huber(sqrt_w * err, _HUBER_K) * sqrt_w * sqrt_w
+    w = w * edge_mask[:, None, None]
+    rw = torch.sqrt(w)
+    A = rw[:, :, None, :] * J_theta                       # (E, r, 7, P)
+    E = A.shape[0]
+    A2 = A.permute(0, 2, 1, 3).reshape(E, 7, -1)          # (E, 7, r P)
+    S0 = A2 @ A2.transpose(1, 2)
+    g0 = (A2 @ (rw * err).reshape(E, -1, 1))[..., 0]
+    return S0, g0
+
+
+# -- the kernel's wrapper -----------------------------------------------------
+
+
+def ba_edge_terms(mode, Tij, pre: EdgePre, valid_match, Q, edge_mask, stride,
+                  cfg: BAConfig, calib: CalibArgs = None):
+    """Per-edge S0 (E, 7, 7) and g0 (E, 7) with respect to Tij.
+
+    mode: "rays", "calib" (needs ``calib``) or "points". Tij (E, 8);
+    ``pre`` from ``_edge_prep`` at the same ``stride``; valid_match (E, P)
+    bool and Q (E, P) at full width (read at every ``stride``-th column);
+    edge_mask (E,)."""
+    if mode not in MODES:
+        raise ValueError(f"ba_edge_terms: unknown mode {mode!r}")
+    if mode == "calib" and calib is None:
+        raise ValueError("ba_edge_terms: mode 'calib' needs calib")
+    if Tij.device.type == "cpu":
+        return ba_edge_terms_plain(mode, Tij, pre, valid_match, Q, edge_mask,
+                                   stride, cfg, calib)
+    f32 = torch.float32
+    E, Pp = pre.safe_idx.shape
+    P_full = Q.shape[1]
+    _kernels.check_cuda(Tij, "ba_edge_terms Tij", f32, 2, 8)
+    _kernels.check_cuda(pre.XCi, "ba_edge_terms XCi", f32, 3, 4)
+    _kernels.check_cuda(pre.XCj, "ba_edge_terms XCj", f32, 3, 4)
+    _kernels.check_cuda(pre.safe_idx, "ba_edge_terms safe_idx", torch.int32, 2)
+    _kernels.check_cuda(valid_match, "ba_edge_terms valid_match", torch.bool,
+                        2, P_full)
+    _kernels.check_cuda(Q, "ba_edge_terms Q", f32, 2)
+    _kernels.check_cuda(edge_mask, "ba_edge_terms edge_mask", f32, 1, E)
+    if (pre.XCi.shape[:2] != (E, Pp) or pre.XCj.shape[:2] != (E, Pp)
+            or Tij.shape[0] != E or Q.shape[0] != E
+            or valid_match.shape[0] != E
+            or Pp != len(range(0, P_full, stride))):
+        raise ValueError("ba_edge_terms: edge/point counts disagree")
+    if pre.XCi.data_ptr() % 16 or pre.XCj.data_ptr() % 16:
+        raise ValueError("ba_edge_terms: point buffers must be 16-byte "
+                         "aligned")
+    bpe = max(1, min(_BLOCKS_PER_EDGE, -(-Pp // 256)))
+    part = torch.empty((E, bpe, 35), dtype=f32, device=Tij.device)
+    S0 = torch.empty((E, 7, 7), dtype=f32, device=Tij.device)
+    g0 = torch.empty((E, 7), dtype=f32, device=Tij.device)
+    sig = _sigmas(mode, cfg) + [0.0]
+    c = calib if calib is not None else CalibArgs(1.0, 1.0, 0.0, 0.0, 1, 1)
+    border = cfg.pixel_border
+    p = _kernels.ptr
+    _kernels.launch(
+        "ba_edge_terms", p(Tij), p(pre.XCi), p(pre.XCj), p(pre.safe_idx),
+        p(valid_match), p(Q), p(edge_mask), p(part), p(S0), p(g0),
+        E, Pp, P_full, int(stride), bpe, MODES.index(mode), int(c.w),
+        sig[0], sig[1], sig[2], sig[3], float(cfg.Q_conf), float(cfg.C_conf),
+        _HUBER_K, c.fx, c.fy, c.cx, c.cy, float(border),
+        float(c.w - 1 - border), float(c.h - 1 - border),
+        float(cfg.depth_eps))
+    return S0, g0
+
+
+# -- per-edge blocks, assembly, solve -----------------------------------------
+
+
+def _adj_inv_matrix(T):
+    """The 7x7 matrix M with M v == sim3.apply_adj_inv_T(T, v): T (E, 8)
+    (``ba.py:180``). The inverse-adjoint map is linear per edge, so the
+    per-point accumulation runs on the raw relative-pose Jacobian and is
+    conjugated once per edge."""
+    t, q, s = sim3.parts(T)
+    R = sim3.quat_to_matrix(q)
+    s_inv = (1.0 / s)[..., None]
+    E = T.shape[0]
+    z31 = T.new_zeros((E, 3, 1))
+    top = torch.cat([s_inv * R, torch.zeros_like(R), z31], dim=-1)
+    mid = torch.cat([s_inv * (sim3.skew(t) @ R), R, z31], dim=-1)
+    tR = (t[:, None, :] @ R)                               # (E, 1, 3)
+    bot = torch.cat([s_inv * tR, T.new_zeros((E, 1, 3)),
+                     T.new_ones((E, 1, 1))], dim=-1)
+    return torch.cat([top, mid, bot], dim=-2)
+
+
+def _edge_terms(mode, T_WCs, Xs, Cs, ii, jj, idx, valid_match, Q, edge_mask,
+                cfg: BAConfig, pre: EdgePre = None, calib: CalibArgs = None):
+    """(E, 14, 14) edge Hessians and (E, 14) gradients; rows/cols 0:7 are
+    pose i, 7:14 pose j (``ba.py:203``)."""
+    iil, jjl = ii.to(torch.int64), jj.to(torch.int64)
+    Ti = T_WCs[iil]
+    Tij = sim3.rel(Ti, T_WCs[jjl]).contiguous()
+    if pre is None:
+        pre = _edge_prep(Xs, Cs, ii, jj, idx, valid_match,
+                         stride=cfg.point_stride)
+    S0, g0 = ba_edge_terms(mode, Tij, pre, valid_match, Q, edge_mask,
+                           cfg.point_stride, cfg, calib)
+    M = _adj_inv_matrix(Ti)
+    S = M @ S0 @ M.transpose(1, 2)
+    gj = (M @ g0[..., None])[..., 0]
+    H = torch.cat([torch.cat([S, -S], dim=-1),
+                   torch.cat([-S, S], dim=-1)], dim=-2)
+    return H, torch.cat([-gj, gj], dim=-1)
+
+
+def _calib_args(K_mat, img_size) -> CalibArgs:
+    """Intrinsics as host floats: one read per solve."""
+    fx, fy, cx, cy = (float(v) for v in
+                      torch.stack(geometry.decompose_K(K_mat)).cpu())
+    return CalibArgs(fx, fy, cx, cy, int(img_size[1]), int(img_size[0]))
+
+
+def _edge_terms_rays(T_WCs, Xs, Cs, ii, jj, idx, valid_match, Q, edge_mask,
+                     cfg: BAConfig, pre=None):
+    """Ray + distance residual (``ba.py:320``)."""
+    return _edge_terms("rays", T_WCs, Xs, Cs, ii, jj, idx, valid_match, Q,
+                       edge_mask, cfg, pre)
+
+
+def _edge_terms_points(T_WCs, Xs, Cs, ii, jj, idx, valid_match, Q, edge_mask,
+                       cfg: BAConfig, pre=None):
+    """3D point-difference residual (``ba.py:340``)."""
+    return _edge_terms("points", T_WCs, Xs, Cs, ii, jj, idx, valid_match, Q,
+                       edge_mask, cfg, pre)
+
+
+def _edge_terms_calib(T_WCs, Xs, Cs, K_mat, ii, jj, idx, valid_match, Q,
+                      edge_mask, img_size, cfg: BAConfig, pre=None):
+    """Pixel + log-depth residual (``ba.py:358``)."""
+    return _edge_terms("calib", T_WCs, Xs, Cs, ii, jj, idx, valid_match, Q,
+                       edge_mask, cfg, pre, _calib_args(K_mat, img_size))
+
+
+def _assemble(H_edges, g_edges, ii, jj, n_kf: int, K_cap: int, pin: int):
+    """Scatter edge blocks into the dense 7K x 7K system (``ba.py:394``).
+    Pinned poses (index < pin) and inactive slots (>= n_kf) land in a
+    sentinel slot that is cut off. ``index_put_`` with ``accumulate`` sums
+    in a fixed order on CUDA, unlike ``index_add_``."""
+    D = 7
+    iil, jjl = ii.to(torch.int64), jj.to(torch.int64)
+    si = torch.where((iil >= pin) & (iil < n_kf), iil,
+                     torch.full_like(iil, K_cap))
+    sj = torch.where((jjl >= pin) & (jjl < n_kf), jjl,
+                     torch.full_like(jjl, K_cap))
+    Hb = H_edges.new_zeros((K_cap + 1, K_cap + 1, D, D))
+    Hb.index_put_((si, si), H_edges[:, 0:7, 0:7], accumulate=True)
+    Hb.index_put_((si, sj), H_edges[:, 0:7, 7:14], accumulate=True)
+    Hb.index_put_((sj, si), H_edges[:, 7:14, 0:7], accumulate=True)
+    Hb.index_put_((sj, sj), H_edges[:, 7:14, 7:14], accumulate=True)
+    gb = g_edges.new_zeros((K_cap + 1, D))
+    gb.index_put_((si,), g_edges[:, 0:7], accumulate=True)
+    gb.index_put_((sj,), g_edges[:, 7:14], accumulate=True)
+    Hd = Hb[:K_cap, :K_cap].permute(0, 2, 1, 3).reshape(K_cap * D, K_cap * D)
+    return Hd, gb[:K_cap].reshape(K_cap * D)
+
+
+def _host_cholesky_fp64(Hd, gd):
+    """fp64 Cholesky solve on the host (``ba.py:432``); zeros when the
+    factorization fails or the solution is not finite."""
+    import scipy.linalg as sla
+
+    H = Hd.detach().cpu().numpy().astype(np.float64)
+    g = gd.detach().cpu().numpy().astype(np.float64)
+    try:
+        dx = sla.cho_solve(sla.cho_factor(H, lower=True), g)
+    except (np.linalg.LinAlgError, ValueError):
+        return np.zeros_like(g, dtype=np.float32)
+    if not np.all(np.isfinite(dx)):
+        return np.zeros_like(g, dtype=np.float32)
+    return dx.astype(np.float32)
+
+
+def _solve(Hd, gd, n_kf: int, K_cap: int, pin: int, solver: str = "fp32"):
+    """Cholesky solve of the assembled system (``ba.py:452``): identity
+    diagonals for pinned and inactive rows, Jacobi equilibration, a 1e-8
+    ridge; a failed or non-finite solve gives dx = 0. Returns
+    (dx (K_cap, 7), free (K_cap,) bool)."""
+    D = 7
+    kf_ids = torch.arange(K_cap, device=Hd.device)
+    free = (kf_ids >= pin) & (kf_ids < n_kf)
+    free_rows = free.repeat_interleave(D)
+    Hd = Hd + torch.diag((~free_rows).to(Hd.dtype))
+    gd = torch.where(free_rows, gd, torch.zeros_like(gd))
+
+    if solver == "fp64_host":
+        dx = torch.from_numpy(_host_cholesky_fp64(Hd, gd)).to(Hd.device)
+        return -dx.reshape(K_cap, D), free
+    if solver != "fp32":
+        raise ValueError(f"unknown BA solver {solver!r}")
+
+    d = torch.sqrt(torch.clamp(torch.diagonal(Hd), min=1e-12))
+    d_inv = 1.0 / d
+    Hs = Hd * d_inv[:, None] * d_inv[None, :]
+    Hs = Hs + 1e-8 * torch.eye(K_cap * D, dtype=Hd.dtype, device=Hd.device)
+    L, info = torch.linalg.cholesky_ex(Hs)
+    dx = torch.cholesky_solve((gd * d_inv)[:, None], L)[:, 0] * d_inv
+    dx = -dx.reshape(K_cap, D)
+    ok = (info == 0) & torch.all(torch.isfinite(dx))
+    return torch.where(ok, dx, torch.zeros_like(dx)), free
+
+
+def _assemble_and_solve(H_edges, g_edges, ii, jj, n_kf, K_cap, pin,
+                        solver: str = "fp32"):
+    Hd, gd = _assemble(H_edges, g_edges, ii, jj, n_kf, K_cap, pin)
+    return _solve(Hd, gd, n_kf, K_cap, pin, solver)
+
+
+def _gauss_newton(mode, T_WCs, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
+                  edge_mask, n_kf, cfg: BAConfig, calib=None) -> BAResult:
+    exact_fp32()
+    n_kf = int(n_kf)
+    K_cap = T_WCs.shape[0]
+    pre = _edge_prep(Xs, Cs, ii, jj, idx_ii2jj, valid_match,
+                     stride=cfg.point_stride)
+    T = T_WCs
+    it = 0
+    while it < cfg.max_iters:
+        H, g = _edge_terms(mode, T, Xs, Cs, ii, jj, idx_ii2jj, valid_match,
+                           Q, edge_mask, cfg, pre, calib)
+        dx, free = _assemble_and_solve(H, g, ii, jj, n_kf, K_cap, cfg.pin,
+                                       cfg.solver)
+        T = torch.where(free[:, None], sim3.retr(T, dx), T)
+        delta_norm = torch.linalg.vector_norm(
+            torch.where(free[:, None], dx, torch.zeros_like(dx)))
+        it += 1
+        if bool(delta_norm < cfg.delta_norm):   # the iteration's host read
+            break
+    return BAResult(T, it)
+
+
+@torch.no_grad()
+def gauss_newton_rays(T_WCs, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
+                      edge_mask, n_kf, cfg: BAConfig) -> BAResult:
+    """Global GN on ray + distance residuals (``ba.py:493``).
+
+    Capacity-padded arguments: T_WCs (K, 8); Xs (K, P, 3); Cs (K, P);
+    ii, jj (E,) two-way edge endpoints; idx_ii2jj (E, P) int32;
+    valid_match (E, P) bool; Q (E, P); edge_mask (E,); n_kf the active
+    keyframe count."""
+    return _gauss_newton("rays", T_WCs, Xs, Cs, ii, jj, idx_ii2jj,
+                         valid_match, Q, edge_mask, n_kf, cfg)
+
+
+@torch.no_grad()
+def gauss_newton_points(T_WCs, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
+                        edge_mask, n_kf, cfg: BAConfig) -> BAResult:
+    """Global GN on 3D point-difference residuals (``ba.py:530``)."""
+    return _gauss_newton("points", T_WCs, Xs, Cs, ii, jj, idx_ii2jj,
+                         valid_match, Q, edge_mask, n_kf, cfg)
+
+
+@torch.no_grad()
+def gauss_newton_calib(T_WCs, Xs, Cs, K_mat, ii, jj, idx_ii2jj, valid_match,
+                       Q, edge_mask, n_kf, img_size,
+                       cfg: BAConfig) -> BAResult:
+    """Global GN on pixel + log-depth residuals (``ba.py:560``). ``Xs``
+    must already lie on the calibrated rays
+    (``geometry.constrain_points_to_ray``)."""
+    return _gauss_newton("calib", T_WCs, Xs, Cs, ii, jj, idx_ii2jj,
+                         valid_match, Q, edge_mask, n_kf, cfg,
+                         _calib_args(K_mat, img_size))

@@ -1,0 +1,445 @@
+"""Keyframe factor graph: edge proposal, gating and global-GN dispatch.
+
+Counterpart of ``mast3r_slam_tpu/slam/factor_graph.py``. Edges live in
+capacity-padded device buffers that grow by doubling. Candidate edges are
+decoded batched through the two-view model (``inference_symmetric``) and
+matched in both directions by the ``iter_proj`` + ``refine_matches``
+kernels; the consecutive edge can instead be built from the tracker's
+existing match (``add_tracked_edge``). The confidence lookup of the gate is
+the ``take_along`` kernel, the solvers are ``slam/ba.py``.
+
+The JAX package writes edge rows with functional scatters and drops a row
+by routing it out of bounds. Here the buffers are updated in place and own
+one extra row past ``capacity``: a dropped row is routed to that sentinel
+row, so no write needs the host to know how many rows were kept. The
+device keeps its own edge count (``n_edges_dev``) for the same reason:
+``add_factors(defer=True)`` followed by a solve needs no host read.
+
+Not ported yet (raise ``NotImplementedError``; see ROADMAP.md):
+``matcher="dense"`` (``ops/dense_matcher.py``) and the sharded BA backends
+(``ba_backend`` other than ``"dense"``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import geometry
+from ..config import BAConfig, FactorGraphConfig, MatchingConfig
+from ..models import mast3r
+from ..ops import gather, matching
+from . import ba
+from .frame import KeyframeStore
+
+__all__ = ["FactorGraph", "FactorGraphConfig", "MatchingConfig",
+           "constrain_all"]
+
+_TODO = "is not ported yet; see ROADMAP.md queue 1"
+
+
+@torch.no_grad()
+def _match_edges_symmetric(params, cfg, mcfg, feat_i, pos_i, feat_j, pos_j,
+                           ds: int = 1, matcher: str = "iter_proj",
+                           model_mod=mast3r):
+    """Decode + match both directions of a batch of candidate edges
+    (``factor_graph.py:61``). Returns idx_i2j, idx_j2i (b, P) int32;
+    valid_match_j, valid_match_i (b, P, 1); Qii/Qjj/Qji/Qij (b, P)."""
+    if matcher != "iter_proj":
+        raise NotImplementedError(
+            f"local_opt.matcher={matcher!r} (the dense edge matcher) {_TODO}")
+    out = model_mod.inference_symmetric(params, feat_i, pos_i, feat_j,
+                                        pos_j, cfg)
+    if ds > 1:
+        out = {k: mast3r.downsample_maps(v, ds=ds)[0] for k, v in out.items()}
+    b = feat_i.shape[0]
+    X11 = torch.cat([out["Xii"], out["Xjj"]], dim=0)
+    X21 = torch.cat([out["Xji"], out["Xij"]], dim=0)
+    D11 = torch.cat([out["Dii"], out["Djj"]], dim=0)
+    D21 = torch.cat([out["Dji"], out["Dij"]], dim=0)
+    kw = mcfg._asdict()
+    kw["subpixel"] = False   # BA gathers by index
+    # edge matches start cold (no warm-start index): keep the full LM
+    # budget even when the tracking preset trims max_iter
+    kw["max_iter"] = max(int(kw["max_iter"]), 10)
+    idx, valid = matching.match(X11, X21, D11, D21, **kw)
+    idx = idx.to(torch.int32)
+    hw = X11.shape[1] * X11.shape[2]
+    flat = lambda a: a.reshape(b, hw).contiguous()
+    return {
+        "idx_i2j": idx[:b].contiguous(), "idx_j2i": idx[b:].contiguous(),
+        "valid_match_j": valid[:b], "valid_match_i": valid[b:],
+        "Qii": flat(out["Qii"]), "Qjj": flat(out["Qjj"]),
+        "Qji": flat(out["Qji"]), "Qij": flat(out["Qij"]),
+    }
+
+
+def _gate_edges(m, Q_conf):
+    """Paired descriptor confidences and bidirectional match fractions
+    (``factor_graph.py:117``)."""
+    Qj = torch.sqrt(gather.take_along(m["Qii"], m["idx_i2j"], 1) * m["Qji"])
+    Qi = torch.sqrt(gather.take_along(m["Qjj"], m["idx_j2i"], 1) * m["Qij"])
+    valid_j = m["valid_match_j"][..., 0] & (Qj > Q_conf)
+    valid_i = m["valid_match_i"][..., 0] & (Qi > Q_conf)
+    return (Qj, Qi, valid_j.float().mean(dim=1), valid_i.float().mean(dim=1))
+
+
+def _pairs(a, bwd):
+    """Interleave forward and backward rows: (b, ...) x 2 -> (2b, ...)."""
+    return torch.stack([a, bwd], dim=1).reshape(2 * a.shape[0], *a.shape[1:])
+
+
+@torch.no_grad()
+def _add_factors_body(bufs, params, feat, pos, ii_arr, jj_arr, consec, e0,
+                      min_match_frac, strict, Q_conf, cfg, mcfg, ds, matcher,
+                      model_mod):
+    """The add_factors pipeline without a host read: pair-feature gather ->
+    symmetric decode -> match -> confidence gate -> masked two-way append,
+    the keep decision taken on the device (``factor_graph.py:137``).
+
+    ``bufs`` = (ii, jj, idx, valid_match, Q) edge buffers with E_cap + 1
+    rows, written in place: dropped rows (gated out, or past a hard
+    capacity) go to the sentinel row E_cap. ``e0`` is the 0-d device edge
+    count. Returns (fracs (2, b), n_new 0-d int32)."""
+    ii_buf, jj_buf, idx_buf, vm_buf, Q_buf = bufs
+    m = _match_edges_symmetric(
+        params, cfg, mcfg, feat.index_select(0, ii_arr),
+        pos.index_select(0, ii_arr), feat.index_select(0, jj_arr),
+        pos.index_select(0, jj_arr), ds, matcher, model_mod)
+    Qj, Qi, frac_j, frac_i = _gate_edges(m, Q_conf)
+
+    invalid = (torch.minimum(frac_j, frac_i) < min_match_frac) & ~consec
+    keep = ~invalid
+    if strict:
+        keep = keep & ~invalid.any()
+
+    E_cap = ii_buf.shape[0] - 1
+    kprefix = torch.cumsum(keep, 0) - keep.to(torch.int64)   # rank among kept
+    rows_fwd = e0.to(torch.int64) + 2 * kprefix
+    # a pair that does not fit whole is dropped whole
+    rows_fwd = torch.where(keep & (rows_fwd + 1 < E_cap), rows_fwd,
+                           torch.full_like(rows_fwd, E_cap))
+    rows = torch.clamp(_pairs(rows_fwd, rows_fwd + 1), max=E_cap)
+
+    i32, j32 = ii_arr.to(torch.int32), jj_arr.to(torch.int32)
+    ii_buf[rows] = _pairs(i32, j32)
+    jj_buf[rows] = _pairs(j32, i32)
+    idx_buf[rows] = _pairs(m["idx_i2j"], m["idx_j2i"])
+    vm_buf[rows] = _pairs(m["valid_match_j"][..., 0],
+                          m["valid_match_i"][..., 0])
+    Q_buf[rows] = _pairs(Qj, Qi)
+    # post-append edge count on the device (mirrors the host's fits-clamp)
+    fits = torch.clamp((E_cap - e0) // 2, min=0)
+    n_new = e0 + 2 * torch.minimum(keep.sum().to(torch.int32), fits)
+    return torch.stack([frac_j, frac_i]), n_new
+
+
+@torch.no_grad()
+def _add_tracked_edge_body(bufs, i, j, idx_j_per_i, valid_i, Q_i, e0):
+    """Append the two-way consecutive edge (i, j) from an existing
+    frame -> keyframe tracker match: no decode, no matching
+    (``factor_graph.py:212``).
+
+    ``idx_j_per_i`` (P,): for each pixel of keyframe i's grid the matched
+    pixel in keyframe j's grid. Edge row (ii=j, jj=i) takes it as it is;
+    row (ii=i, jj=j) gets the scatter-inverse, where the smallest i-pixel
+    wins a collision. The pair is atomic: if both rows do not fit, neither
+    is written (both go to the sentinel row) and the count stays put.
+    Returns n_new (0-d int32)."""
+    ii_buf, jj_buf, idx_buf, vm_buf, Q_buf = bufs
+    P = idx_j_per_i.shape[0]
+    E_cap = ii_buf.shape[0] - 1
+    dev = idx_j_per_i.device
+    ar = torch.arange(P, dtype=torch.int32, device=dev)
+    idx32 = idx_j_per_i.to(torch.int32)
+    src = torch.where(valid_i, idx_j_per_i.to(torch.int64),
+                      torch.full((), P, dtype=torch.int64, device=dev))
+    inv = torch.full((P + 1,), P, dtype=torch.int32, device=dev)
+    inv = inv.scatter_reduce_(0, src, ar, "amin", include_self=True)[:P]
+    valid_inv = inv < P
+    inv_safe = torch.where(valid_inv, inv, torch.zeros_like(inv))
+    Q_inv = torch.where(valid_inv, Q_i[inv_safe.to(torch.int64)],
+                        torch.zeros_like(Q_i))
+
+    fits = (e0 + 2) <= E_cap
+    e64 = e0.to(torch.int64)
+    rows = torch.where(fits, torch.stack([e64, e64 + 1]),
+                       torch.full((2,), E_cap, dtype=torch.int64, device=dev))
+    ij = torch.tensor([[j, i], [i, j]], dtype=torch.int32, device=dev)
+    ii_buf[rows] = ij[0]
+    jj_buf[rows] = ij[1]
+    idx_buf[rows] = torch.stack([idx32, inv_safe])
+    vm_buf[rows] = torch.stack([valid_i, valid_inv])
+    Q_buf[rows] = torch.stack([Q_i, Q_inv])
+    return torch.where(fits, e0 + 2, e0)
+
+
+class FactorGraph:
+    """Host-side edge bookkeeping over device buffers
+    (``factor_graph.py:284``).
+
+    Edge arrays ``ii``, ``jj``, ``idx_ii2jj``, ``valid_match``, ``Q`` are
+    (capacity, ...) views with ``n_edges`` active rows."""
+
+    def __init__(self, params, model_cfg, keyframes: KeyframeStore,
+                 cfg: FactorGraphConfig, ba_cfg: BAConfig,
+                 mcfg: MatchingConfig, K=None, downsample: int = 1,
+                 model_module=mast3r):
+        if cfg.ba_backend != "dense":
+            raise NotImplementedError(
+                f"parallel.ba_backend={cfg.ba_backend!r} (sharded bundle "
+                f"adjustment) {_TODO}")
+        self.device = keyframes.X.device
+        self.downsample = downsample
+        self.model_mod = model_module
+        self.params = params
+        self.model_cfg = model_cfg
+        self.frames = keyframes
+        self.cfg = cfg
+        self.ba_cfg = ba_cfg
+        self.mcfg = mcfg
+        self.K = K
+
+        E, P = cfg.edge_capacity, keyframes.X.shape[1]
+        self.capacity = E           # grows by doubling; see ensure_capacity
+        self.edges_dropped = 0      # non-zero only with a max_edge_capacity
+        self.n_edges = 0
+        # the device keeps its own post-append edge count so add_factors
+        # and the following solve need no read of the match fractions; the
+        # host applies the same gate arithmetic later (flush)
+        self.n_edges_dev = torch.zeros((), dtype=torch.int32,
+                                       device=self.device)
+        self.n_edges_ub = 0          # host upper bound on the device count
+        self._pending: list = []     # deferred gate readbacks, FIFO
+        self.last_solve_iters = 0    # GN iterations of the newest solve
+        z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=self.device)
+        # one extra row: the sentinel that swallows dropped writes
+        self._bufs = (z((E + 1,), torch.int32), z((E + 1,), torch.int32),
+                      z((E + 1, P), torch.int32), z((E + 1, P), torch.bool),
+                      z((E + 1, P), torch.float32))
+
+    ii = property(lambda self: self._bufs[0][:self.capacity])
+    jj = property(lambda self: self._bufs[1][:self.capacity])
+    idx_ii2jj = property(lambda self: self._bufs[2][:self.capacity])
+    valid_match = property(lambda self: self._bufs[3][:self.capacity])
+    Q = property(lambda self: self._bufs[4][:self.capacity])
+
+    def ensure_capacity(self, n_edges: int) -> bool:
+        """Grow the edge buffers (doubling) until they hold ``n_edges``;
+        False if a configured ``max_edge_capacity`` prevents it."""
+        mx = self.cfg.max_edge_capacity
+        while self.capacity < n_edges:
+            new_cap = self.capacity * 2
+            if mx and new_cap > mx:
+                return False
+
+            def grow(a):
+                out = a.new_zeros((new_cap + 1,) + a.shape[1:])
+                out[:self.capacity] = a[:self.capacity]
+                return out
+
+            self._bufs = tuple(grow(a) for a in self._bufs)
+            self.capacity = new_cap
+        return True
+
+    # -- edge construction ---------------------------------------------------
+
+    def add_factors(self, ii, jj, min_match_frac, is_reloc=False,
+                    defer=False):
+        """Propose edges (i, j); returns True if any edge was accepted
+        (``factor_graph.py:398``).
+
+        Capacity is grown for the worst case (all candidates kept) before
+        the device work, since the keep count exists only on the device; at
+        a hard ``max_edge_capacity`` the device drops the rows that do not
+        fit and the host mirrors that arithmetic for ``edges_dropped``.
+
+        ``defer=True``: skip the readback of the match fractions; the
+        device's ``n_edges_dev`` feeds the next solve's edge mask, and the
+        readback is queued for a later ``flush()``. Returns True meaning
+        "dispatched". Strict (relocalization) proposals always run
+        synchronously."""
+        if not ii:
+            return False
+        if is_reloc:
+            defer = False
+        if not defer:
+            self.flush()
+        nb = len(ii)
+        ii_np = np.asarray(ii, dtype=np.int64)
+        jj_np = np.asarray(jj, dtype=np.int64)
+        consec = ii_np == jj_np - 1
+
+        # worst case over everything in flight; False = capped, the device
+        # clamps by dropping
+        self.ensure_capacity(self.n_edges_ub + 2 * nb)
+        dev = self.device
+        fracs, self.n_edges_dev = _add_factors_body(
+            self._bufs, self.params, self.frames.feat, self.frames.pos,
+            torch.from_numpy(ii_np).to(dev), torch.from_numpy(jj_np).to(dev),
+            torch.from_numpy(consec).to(dev), self.n_edges_dev,
+            float(min_match_frac), bool(is_reloc), float(self.cfg.Q_conf),
+            self.model_cfg, self.mcfg, self.downsample, self.cfg.matcher,
+            self.model_mod)
+
+        rec = (fracs, nb, consec, float(min_match_frac), self.capacity,
+               bool(is_reloc))
+        if defer:
+            self._pending.append(rec)
+            self.n_edges_ub = min(self.n_edges_ub + 2 * nb, self.capacity)
+            return True
+        ok = self._apply_gate(rec)
+        self.n_edges_ub = self.n_edges
+        return ok
+
+    def add_tracked_edge(self, i, j, idx_j_per_i, valid, Q):
+        """Append the consecutive edge (i, j) from the tracker's existing
+        match. Consecutive edges are gate-exempt, so the host count
+        advances without a readback; the record still rides the FIFO so
+        deferred gates of earlier ``add_factors`` calls reconcile in
+        order."""
+        self.ensure_capacity(self.n_edges_ub + 2)
+        self.n_edges_dev = _add_tracked_edge_body(
+            self._bufs, int(i), int(j), idx_j_per_i, valid.to(torch.bool),
+            Q.to(torch.float32), self.n_edges_dev)
+        rec = ("fixed", self.capacity)
+        if self._pending:
+            self._pending.append(rec)
+        else:
+            self._apply_gate(rec)
+        self.n_edges_ub = min(self.n_edges_ub + 2, self.capacity)
+        return True
+
+    def _apply_gate(self, rec):
+        """Host mirror of the device gate (the same fp32 arithmetic):
+        reconciles n_edges / edges_dropped with the rows the device wrote.
+        Applied in dispatch order."""
+        if rec[0] == "fixed":       # unconditional pair (add_tracked_edge)
+            cap_at_dispatch = rec[1]
+            if cap_at_dispatch - self.n_edges < 2:
+                self.edges_dropped += 2
+                print("FactorGraph: max_edge_capacity reached; dropping "
+                      f"a tracked consecutive edge (total dropped "
+                      f"{self.edges_dropped})")
+                return False
+            self.n_edges += 2
+            return True
+        fracs, nb, consec, min_match_frac, cap_at_dispatch, is_reloc = rec
+        fr = fracs.cpu().numpy()            # the one sync of the pipeline
+        frac_j, frac_i = fr[0, :nb], fr[1, :nb]
+        invalid = np.minimum(frac_j, frac_i) < np.float32(min_match_frac)
+        invalid = (~consec) & invalid
+        if invalid.any() and is_reloc:
+            return False
+        keep = int((~invalid).sum())
+        if keep == 0:
+            return False
+        fits = max((cap_at_dispatch - self.n_edges) // 2, 0)
+        if keep > fits:
+            # mirrors the device's dropped rows exactly
+            self.edges_dropped += 2 * (keep - fits)
+            print("FactorGraph: max_edge_capacity "
+                  f"{self.cfg.max_edge_capacity} reached; dropping "
+                  f"{2 * (keep - fits)} edges "
+                  f"(total dropped {self.edges_dropped})")
+            keep = fits
+            if keep == 0:
+                return False
+        self.n_edges += 2 * keep
+        return True
+
+    def flush(self):
+        """Apply all deferred edge-gate readbacks (the host's bookkeeping
+        catches up with the device's edge count)."""
+        while self._pending:
+            self._apply_gate(self._pending.pop(0))
+        self.n_edges_ub = self.n_edges
+
+    def _append_edge(self, i, j, idx, valid, Q):
+        """Write one edge row directly (tests and tools)."""
+        e = self.n_edges
+        if e >= self.capacity:
+            raise RuntimeError("edge buffer full")
+        ii_buf, jj_buf, idx_buf, vm_buf, Q_buf = self._bufs
+        ii_buf[e] = int(i)
+        jj_buf[e] = int(j)
+        idx_buf[e] = idx.to(torch.int32)
+        vm_buf[e] = valid
+        Q_buf[e] = Q
+        self.n_edges = e + 1
+        self.n_edges_dev = torch.full((), self.n_edges, dtype=torch.int32,
+                                      device=self.device)
+        self.n_edges_ub = self.n_edges
+
+    @property
+    def edge_mask(self):
+        self.flush()
+        return (torch.arange(self.capacity, device=self.device)
+                < self.n_edges).to(torch.float32)
+
+    def unique_kf_idx(self):
+        self.flush()
+        e = self.n_edges
+        if not e:
+            return np.array([], dtype=np.int64)
+        return np.unique(np.concatenate([self.ii[:e].cpu().numpy(),
+                                         self.jj[:e].cpu().numpy()]))
+
+    # -- solvers -------------------------------------------------------------
+
+    def _buckets(self):
+        """Active edge and keyframe counts a solve runs on: the solvers get
+        the leading ``Eb`` edge rows and ``Kb`` keyframes, not the whole
+        capacity, which bounds their work. (The JAX package rounds both up
+        to powers of two so that few shapes are compiled; nothing is
+        compiled per shape here.)"""
+        Eb = min(max(self.n_edges, self.n_edges_ub), self.capacity)
+        return Eb, len(self.frames)
+
+    def _adopt_poses(self, T, Kb):
+        self.frames.T_WC[:Kb] = T      # in-place leading-row write
+
+    def _solve_args(self):
+        Eb, Kb = self._buckets()
+        # with deferred add_factors in flight the device's edge count is
+        # the authoritative one; otherwise the host's is (covers tests and
+        # tools that assign n_edges directly)
+        if self._pending:
+            mask = (torch.arange(Eb, device=self.device)
+                    < self.n_edges_dev).to(torch.float32)
+        else:
+            mask = self.edge_mask[:Eb]
+        return Kb, (self.ii[:Eb], self.jj[:Eb], self.idx_ii2jj[:Eb],
+                    self.valid_match[:Eb], self.Q[:Eb], mask,
+                    len(self.frames))
+
+    def _nothing_to_solve(self):
+        return ((self.n_edges == 0 and self.n_edges_ub == 0)
+                or len(self.frames) <= self.ba_cfg.pin)
+
+    def solve_GN_rays(self):
+        if self._nothing_to_solve():
+            return
+        Kb, args = self._solve_args()
+        res = ba.gauss_newton_rays(
+            self.frames.T_WC[:Kb], self.frames.X[:Kb],
+            self.frames.average_confs(Kb), *args, self.ba_cfg)
+        self.last_solve_iters = res.iters
+        self._adopt_poses(res.T_WC, Kb)
+
+    def solve_GN_calib(self):
+        if self._nothing_to_solve():
+            return
+        img_size = (self.frames.h, self.frames.w)
+        Kb, args = self._solve_args()
+        Xs = constrain_all(self.frames.X[:Kb], self.K, img_size)
+        res = ba.gauss_newton_calib(
+            self.frames.T_WC[:Kb], Xs, self.frames.average_confs(Kb),
+            self.K, *args, img_size, self.ba_cfg)
+        self.last_solve_iters = res.iters
+        self._adopt_poses(res.T_WC, Kb)
+
+
+def constrain_all(Xs, K, img_size):
+    """Every keyframe's points onto its calibrated pixel rays: (K, P, 3)."""
+    return geometry.constrain_points_to_ray(img_size, Xs, K)

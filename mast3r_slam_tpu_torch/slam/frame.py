@@ -186,3 +186,10 @@ class KeyframeStore:
         if self.n_size == 0:
             return None
         return self.get_frame(self.n_size - 1)
+
+    def average_confs(self, rows: Optional[int] = None):
+        """Average confidences C / N of the first ``rows`` slots (default:
+        all), (rows, P); inactive rows -> 0."""
+        rows = self.capacity if rows is None else rows
+        N = torch.clamp(self.N[:rows], min=1).to(self.C.dtype)
+        return self.C[:rows] / N[:, None]

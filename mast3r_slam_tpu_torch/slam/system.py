@@ -1,18 +1,24 @@
-"""SLAM system: the per-frame tracking frontend and the mode machine.
+"""SLAM system: the per-frame tracking frontend, the backend step and the
+mode machine.
 
-Counterpart of the frontend of ``mast3r_slam_tpu/slam/system.py``:
-``_track_gate_pre`` (:78), ``_track_frame_body`` (:101), the fused path
-of ``TrackerRunner`` (:442) and ``SLAMSystem.make_frame`` /
-``process_frame`` (:744, :764) with the INIT, TRACKING and RELOC modes.
+Counterpart of ``mast3r_slam_tpu/slam/system.py``: ``_track_gate_pre``
+(:78), ``_track_frame_body`` (:101), the fused path of ``TrackerRunner``
+(:442), ``SLAMSystem.make_frame`` / ``process_frame`` (:744, :764) with the
+INIT, TRACKING and RELOC modes, and ``backend_step`` (:993) without
+retrieval: every promoted keyframe is queued, gets its consecutive edge
+(from the tracker's match, or by a symmetric decode + match) and a global
+Sim(3) bundle adjustment over all keyframes (``slam/factor_graph.py``,
+``slam/ba.py``).
 
 Per tracked frame the host waits for the device once per Gauss-Newton
 iteration (the 7x7 normal equations come to the host, ``slam/tracker.py``)
-and once for the five frame stats.
+and once for the five frame stats; per backend step once per BA iteration
+(the step norm).
 
 Not in this slice (each raises ``NotImplementedError``; see ROADMAP.md):
 the windowed driver (``runtime.tracking_window > 1``), the step-by-step
-tracking path, the backend (``backend_step``: factor graph, global BA,
-retrieval and with it relocalization) and ``run()``.
+tracking path, retrieval with loop closures and relocalization, a separate
+backend device, and ``run()``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from ..lie import sim3
 from ..models import mast3r
 from ..ops import matching
 from . import tracker as tracker_mod
+from .factor_graph import FactorGraph
 from .frame import Frame, KeyframeStore, Mode, _score, fuse_pointmap
 
 _TODO = "is not ported yet; see ROADMAP.md queue 1"
@@ -167,6 +174,10 @@ class TrackerRunner:
         self.model_mod = model_mod
         self.idx_f2k = None
         self.last_stats = {}
+        # (idx_f2k, valid, Qk) of the most recently promoted frame against
+        # its previous keyframe: the consecutive-edge reuse path of
+        # SLAMSystem.process_frame takes it
+        self.last_match = None
 
     def reset_idx(self):
         self.idx_f2k = None
@@ -223,21 +234,27 @@ class TrackerRunner:
         else:
             new_kf = min(st[1], st[2]) < self.tcfg.match_frac_thresh
         if new_kf:
+            self.last_match = (idx_f2k, vmk, Qk)
             self.reset_idx()
         return bool(new_kf), False
 
 
 class SLAMSystem:
-    """The frontend with the reference's mode machine
+    """Frontend and backend with the reference's mode machine
     (INIT -> TRACKING <-> RELOC)."""
 
     def __init__(self, params, model_cfg, config: dict, img_shape,
                  retrieval_params=None, K=None, keyframe_capacity=None,
-                 model_module=mast3r, device="cuda"):
+                 edge_capacity=None, model_module=mast3r, device="cuda"):
         if retrieval_params is not None:
             raise NotImplementedError(f"retrieval {_TODO}")
         self.device = resolve_device(device)
         rt = config.get("runtime", {})
+        if rt.get("backend_device", "none") not in (None, "none", "None", 0,
+                                                    False, ""):
+            raise NotImplementedError(
+                f"runtime.backend_device (a second device for the backend) "
+                f"{_TODO}")
         self.window = int(rt.get("tracking_window", 1))
         if self.window > 1:
             raise NotImplementedError(
@@ -256,6 +273,7 @@ class SLAMSystem:
                 K = K / ds * torch.tensor([[1.0, 1, 1], [1, 1, 1],
                                            [ds, ds, ds]], device=self.device)
         kf_cap = keyframe_capacity or int(rt.get("keyframe_capacity", 512))
+        e_cap = edge_capacity or int(rt.get("edge_capacity", 1024))
         self.config = config
         self.model_cfg = model_cfg
         self.model_mod = model_module
@@ -275,7 +293,20 @@ class SLAMSystem:
                                                    "median"),
             use_calib=self.use_calib, K=K, model_mod=model_module)
         self.tracker.downsample = ds
+        self.factor_graph = FactorGraph(
+            params, model_cfg, self.keyframes,
+            config_mod.make_factor_graph_config(config, e_cap),
+            config_mod.make_ba_config(config), self.tracker.mcfg, K=K,
+            downsample=ds, model_module=model_module)
         self.mode = Mode.INIT
+        self.backend_queue: list = []
+        # kf store idx -> (idx_f2k, valid, Qk), the tracker's match of the
+        # promoted frame against its previous keyframe: lets the backend
+        # build the consecutive edge without a symmetric decode + match
+        # (local_opt.reuse_consec_edge)
+        self._reuse_consec = bool(config.get("local_opt", {})
+                                  .get("reuse_consec_edge", False))
+        self._consec_match: dict = {}
         self.reloc_pending = False
         self.current_frame: Optional[Frame] = None
         self.stats = {"skipped": 0, "keyframes": 0, "loop_closures": 0,
@@ -327,6 +358,7 @@ class SLAMSystem:
             self._mono_init(frame)
             self.keyframes.append(frame)
             self.stats["keyframes"] += 1
+            self.backend_queue.append(len(self.keyframes) - 1)
             self.mode = Mode.TRACKING
             self.current_frame = frame
             return self.mode
@@ -341,6 +373,10 @@ class SLAMSystem:
             if new_kf:
                 self.keyframes.append(frame)
                 self.stats["keyframes"] += 1
+                self.backend_queue.append(len(self.keyframes) - 1)
+                cm, self.tracker.last_match = self.tracker.last_match, None
+                if self._reuse_consec and cm is not None:
+                    self._consec_match[len(self.keyframes) - 1] = cm
             return self.mode
 
         if self.mode == Mode.RELOC:
@@ -354,10 +390,72 @@ class SLAMSystem:
 
         raise RuntimeError(f"invalid mode {self.mode}")
 
+    def check_invariants(self):
+        """Runtime checks of the store and the graph (``system.py:938``);
+        raises ``AssertionError`` naming the broken invariant."""
+        def need(cond, what):
+            if not cond:
+                raise AssertionError(what)
+
+        kf, fg = self.keyframes, self.factor_graph
+        need(0 <= kf.n_size <= kf.capacity, "keyframe count out of range")
+        fg.flush()
+        need(0 <= fg.n_edges <= fg.capacity, "edge count out of range")
+        n = kf.n_size
+        if n:
+            T = kf.T_WC[:n].cpu().numpy()
+            need(np.all(np.isfinite(T)), "non-finite keyframe pose")
+            q = np.linalg.norm(T[:, 3:7], axis=-1)
+            need(np.all(np.abs(q - 1.0) < 1e-2), "denormalized quaternion")
+            need(np.all(T[:, 7] > 0), "non-positive scale")
+        e = fg.n_edges
+        if e:
+            ii = fg.ii[:e].cpu().numpy()
+            jj = fg.jj[:e].cpu().numpy()
+            need(ii.min() >= 0 and ii.max() < max(n, 1),
+                 "edge endpoint ii out of range")
+            need(jj.min() >= 0 and jj.max() < max(n, 1),
+                 "edge endpoint jj out of range")
+
     def backend_step(self, flush_deferred=True):
-        raise NotImplementedError(
-            f"the backend (factor graph, global BA, retrieval, "
-            f"relocalization) {_TODO}")
+        """Process one backend task (``system.py:993``): the queued
+        keyframe's consecutive edge and a global optimization. Returns True
+        if work was done.
+
+        ``flush_deferred=False`` skips the flush of deferred edge-gate
+        readbacks (a caller draining several queued keyframes flushes once
+        before stepping)."""
+        if flush_deferred:
+            self.factor_graph.flush()
+        if self.reloc_pending:
+            raise NotImplementedError(
+                f"relocalization (needs retrieval) {_TODO}")
+        if not self.backend_queue:
+            return False
+        idx = self.backend_queue[0]
+
+        # consecutive edge: reuse the tracker's frame->keyframe match when
+        # one was captured, else decode + match the pair
+        cm = (self._consec_match.pop(idx, None)
+              if self._reuse_consec else None)
+        if cm is not None and idx > 0:
+            self.factor_graph.add_tracked_edge(idx - 1, idx, *cm)
+        elif cm is None and idx > 0:
+            # deferred gate: no host read here; the solve below masks by
+            # the device's edge count and the match fractions are read at
+            # the next backend step's flush
+            self.factor_graph.add_factors(
+                [idx - 1], [idx],
+                float(self.config["local_opt"]["min_match_frac"]),
+                defer=True)
+
+        if self.use_calib:
+            self.factor_graph.solve_GN_calib()
+        else:
+            self.factor_graph.solve_GN_rays()
+
+        self.backend_queue.pop(0)
+        return True
 
     def run(self, *args, **kwargs):
         raise NotImplementedError(f"SLAMSystem.run {_TODO}")

@@ -3,8 +3,13 @@
 Counterpart of ``mast3r_slam_tpu/slam/tracker.py``: the ray + distance
 residual (uncalibrated) and the pixel + log-depth residual (calibrated),
 in the JAX package's component-major layout ((d, N) residuals, (d, 7, N)
-Jacobians). Plain PyTorch in this slice; the normal-equation reduction is
-the next main-path kernel (ROADMAP.md queue 2).
+Jacobians).
+
+One linearization (act, residual, Jacobian, Huber weight, reduction to the
+7x7 normal equations and the cost) is ``gn_step``: on CUDA tensors the
+hand-written kernel ``csrc/gn_step.cu``, which replaces the XLA
+``_gn_step_t`` (``tracker.py:60``) and the elementwise chain in front of
+it; on CPU tensors ``gn_step_plain``, the component-major PyTorch version.
 
 The JAX ``lax.while_loop`` (:171-195) becomes a Python loop split between
 the device and the host. Per iteration the device builds the residuals and
@@ -26,9 +31,11 @@ from .. import geometry, robust
 from .._device import exact_fp32
 from ..config import TrackerConfig
 from ..lie import sim3
+from ..ops import _kernels
 
 __all__ = ["TrackerConfig", "TrackResult", "opt_pose_ray_dist_sim3",
-           "opt_pose_calib_sim3", "calib_measurements"]
+           "opt_pose_calib_sim3", "calib_measurements", "gn_step",
+           "gn_step_plain", "CalibProj"]
 
 
 class TrackResult(NamedTuple):
@@ -112,7 +119,81 @@ def _calib_pose_jacobian_t(Yt, K, z_eps):
     return torch.stack([torch.stack(r) for r in rows])
 
 
-def _run_gn(residual_fn, T_init, cfg: TrackerConfig):
+class CalibProj(NamedTuple):
+    """Pinhole projection constants of the calibrated residual, as host
+    floats (read once per solve, not per iteration)."""
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    w: int
+    h: int
+    border: int
+    z_eps: float
+
+
+def gn_step_plain(T, Xf, tgt_t, si_t, huber_k, calib: CalibProj = None):
+    """Plain version of ``gn_step``: T (8,), Xf (N, 3) frame points,
+    tgt_t (d, N) keyframe targets, si_t (d, N) sqrt-information ->
+    (57,) [H (49), g (7), cost]."""
+    Yt = _act_t(T, Xf.T)
+    if calib is None:
+        rd_f_t, d, rt = _ray_dist_t(Yt)
+        w_t, r_t = si_t, tgt_t - rd_f_t
+        J_t = -_ray_dist_pose_jacobian_t(d, rt)
+    else:
+        c = calib
+        x, y, zc = Yt[0], Yt[1], Yt[2]
+        valid_z = zc > c.z_eps
+        z_safe = torch.where(valid_z, zc, torch.ones_like(zc))
+        zi = 1.0 / z_safe
+        u = c.fx * x * zi + c.cx
+        v = c.fy * y * zi + c.cy
+        valid_proj = ((u > c.border) & (u < c.w - 1 - c.border)
+                      & (v > c.border) & (v < c.h - 1 - c.border) & valid_z)
+        logz = torch.where(valid_z, torch.log(z_safe), torch.zeros_like(zc))
+        w_t, r_t = valid_proj[None] * si_t, tgt_t - torch.stack([u, v, logz])
+        K = Yt.new_tensor([[c.fx, 0.0, c.cx], [0.0, c.fy, c.cy],
+                           [0.0, 0.0, 1.0]])
+        J_t = -_calib_pose_jacobian_t(Yt, K, c.z_eps)
+    H, g, cost = _normal_eqs_t(w_t, r_t, J_t, huber_k)
+    return torch.cat([H.reshape(-1), g, cost[None]])
+
+
+def gn_step(T, Xf, tgt_t, si_t, huber_k, calib: CalibProj = None):
+    """One Gauss-Newton linearization of the tracker: the 7x7 normal
+    equations and the cost as one (57,) tensor [H, g, cost].
+
+    T (8,); Xf (N, 3) frame points; tgt_t (d, N) [ray, dist] targets, or
+    [u, v, log z] with ``calib``; si_t (d, N) sqrt-information with the
+    match validity folded in."""
+    if T.device.type == "cpu":
+        return gn_step_plain(T, Xf, tgt_t, si_t, huber_k, calib)
+    f32 = torch.float32
+    d = 4 if calib is None else 3
+    n = Xf.shape[0]
+    _kernels.check_cuda(T, "gn_step T", f32, 1, 8)
+    _kernels.check_cuda(Xf, "gn_step Xf", f32, 2, 3)
+    _kernels.check_cuda(tgt_t, "gn_step targets", f32, 2, n)
+    _kernels.check_cuda(si_t, "gn_step sqrt-information", f32, 2, n)
+    if tgt_t.shape[0] != d or si_t.shape[0] != d:
+        raise ValueError(f"gn_step: expected {d} residual rows, got "
+                         f"{tuple(tgt_t.shape)} and {tuple(si_t.shape)}")
+    part = torch.empty((264, 36), dtype=f32, device=T.device)
+    out = torch.empty((57,), dtype=f32, device=T.device)
+    c = calib if calib is not None else CalibProj(1.0, 1.0, 0.0, 0.0, 1, 1,
+                                                  0, 0.0)
+    _kernels.launch(
+        "gn_step", _kernels.ptr(T), _kernels.ptr(Xf), _kernels.ptr(tgt_t),
+        _kernels.ptr(si_t), _kernels.ptr(part), _kernels.ptr(out), n,
+        int(calib is not None), float(huber_k), c.fx, c.fy, c.cx, c.cy,
+        float(c.border), float(c.w - 1 - c.border),
+        float(c.h - 1 - c.border), float(c.z_eps))
+    return out
+
+
+def _run_gn(step_fn, T_init, cfg: TrackerConfig):
+    """``step_fn(T)`` -> (57,) [H, g, cost] on T's device."""
     dev = T_init.device
     T = T_init
     T_h = T_init.cpu()
@@ -121,10 +202,8 @@ def _run_gn(residual_fn, T_init, cfg: TrackerConfig):
     failed = False
     it = 0
     while it < cfg.max_iters:
-        sqrt_info, r, J = residual_fn(T)
-        H, g, cost_d = _normal_eqs_t(sqrt_info, r, J, cfg.huber)
         # the iteration's one device->host copy: H, g and the cost
-        hg = torch.cat([H.reshape(-1), g, cost_d[None]]).cpu()
+        hg = step_fn(T).cpu()
         H_h, g_h, cost = hg[:49].reshape(7, 7), hg[49:56], hg[56]
         tau, ok = _solve7(H_h, g_h)
         if bool(ok):
@@ -151,14 +230,10 @@ def opt_pose_ray_dist_sim3(Xf, Xk, T_CkCf_init, Qk, valid,
     sQ = (torch.sqrt(Qk) * valid)[:, 0]
     si_t = torch.stack([sQ / cfg.sigma_ray] * 3 + [sQ / cfg.sigma_dist])
     rd_k_t, _, _ = _ray_dist_t(Xk.T)
-    Xf_t = Xf.T
-
-    def residual(T):
-        Yt = _act_t(T, Xf_t)
-        rd_f_t, d, rt = _ray_dist_t(Yt)
-        return si_t, rd_k_t - rd_f_t, -_ray_dist_pose_jacobian_t(d, rt)
-
-    return _run_gn(residual, T_CkCf_init, cfg)
+    Xf = Xf.contiguous()
+    return _run_gn(
+        lambda T: gn_step(T, Xf, rd_k_t, si_t, cfg.huber),
+        T_CkCf_init, cfg)
 
 
 @torch.no_grad()
@@ -168,29 +243,18 @@ def opt_pose_calib_sim3(Xf, Xk, T_CkCf_init, Qk, valid, meas_k,
     exact_fp32()
     sQ = (torch.sqrt(Qk) * valid)[:, 0]
     si_t = torch.stack([sQ / cfg.sigma_pixel] * 2 + [sQ / cfg.sigma_depth])
-    Xf_t = Xf.T
-    meas_k_t = meas_k.T
-    valid_meas = valid_meas_k[:, 0]
+    # (valid_proj & valid_meas) * si == valid_proj * (valid_meas * si): the
+    # keyframe's own validity does not depend on the pose, fold it in once
+    si_t = valid_meas_k[:, 0][None] * si_t
     h, w = img_size
-    fx, fy, cx, cy = geometry.decompose_K(K)
-    border, z_eps = cfg.pixel_border, cfg.depth_eps
-
-    def residual(T):
-        Yt = _act_t(T, Xf_t)
-        x, y, zc = Yt[0], Yt[1], Yt[2]
-        valid_z = zc > z_eps
-        z_safe = torch.where(valid_z, zc, torch.ones_like(zc))
-        zi = 1.0 / z_safe
-        u = fx * x * zi + cx
-        v = fy * y * zi + cy
-        valid_proj = ((u > border) & (u < w - 1 - border) & (v > border)
-                      & (v < h - 1 - border) & valid_z)
-        logz = torch.where(valid_z, torch.log(z_safe), torch.zeros_like(zc))
-        pz_t = torch.stack([u, v, logz])
-        w_t = (valid_proj & valid_meas)[None] * si_t
-        return w_t, meas_k_t - pz_t, -_calib_pose_jacobian_t(Yt, K, z_eps)
-
-    return _run_gn(residual, T_CkCf_init, cfg)
+    fx, fy, cx, cy = (float(v) for v in
+                      torch.stack(geometry.decompose_K(K)).cpu())
+    calib = CalibProj(fx, fy, cx, cy, w, h, cfg.pixel_border, cfg.depth_eps)
+    Xf = Xf.contiguous()
+    meas_k_t = meas_k.T.contiguous()
+    return _run_gn(
+        lambda T: gn_step(T, Xf, meas_k_t, si_t, cfg.huber, calib),
+        T_CkCf_init, cfg)
 
 
 def calib_measurements(Xk, K, img_size, depth_eps: float):

@@ -44,6 +44,34 @@ def test_typed_configs_equal_field_by_field(builtin):
     assert jm._fields == tm._fields and tuple(jm) == tuple(tm)
 
 
+@pytest.mark.parametrize("name", sorted(
+    p.name for p in (REPO / "configs").glob("*.yaml")))
+def test_backend_configs_equal_field_by_field(name):
+    """``make_ba_config`` / ``make_factor_graph_config`` on every preset
+    that has a ``local_opt`` block (``intrinsics.yaml`` has none)."""
+    cfg = tconfig.load_config(REPO / "configs" / name)
+    if "local_opt" not in cfg:
+        with pytest.raises(KeyError):
+            tconfig.make_ba_config(cfg)
+        return
+    jb = jconfig.make_ba_config(cfg, point_chunk=4096)
+    tb = tconfig.make_ba_config(cfg, point_chunk=4096)
+    jf = jconfig.make_factor_graph_config(cfg, 64)
+    tf = tconfig.make_factor_graph_config(cfg, 64)
+    assert jb._fields == tb._fields and tuple(jb) == tuple(tb)
+    assert jf._fields == tf._fields and tuple(jf) == tuple(tf)
+
+
+def test_backend_config_defaults_match():
+    from mast3r_slam_tpu.slam.ba import BAConfig
+    from mast3r_slam_tpu.slam.factor_graph import FactorGraphConfig
+
+    assert BAConfig._fields == tconfig.BAConfig._fields
+    assert tuple(BAConfig()) == tuple(tconfig.BAConfig())
+    assert FactorGraphConfig._fields == tconfig.FactorGraphConfig._fields
+    assert tuple(FactorGraphConfig()) == tuple(tconfig.FactorGraphConfig())
+
+
 def test_typed_config_defaults_match():
     from mast3r_slam_tpu.slam.factor_graph import MatchingConfig
     from mast3r_slam_tpu.slam.tracker import TrackerConfig

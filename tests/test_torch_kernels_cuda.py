@@ -5,7 +5,10 @@ run ``python -m pytest tests/test_torch_kernels_cuda.py``.
 
 Tolerances: the kernels are built with -fmad=false and keep the plain
 versions' operation order, so floats agree to 1e-6 (observed: exactly) and
-integer outputs and converged flags are equal."""
+integer outputs and converged flags are equal. The gathers copy and are
+exact. The two reductions (``gn_step``, ``ba_edge_terms``) sum fp32 terms
+in another order than the plain matmuls: 1e-5 of the largest entry, and
+two calls on the same inputs give the same bits."""
 
 import numpy as np
 import pytest
@@ -84,6 +87,158 @@ def test_refine_matches_matches_plain(cuda, dtype, radius, dil):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("b", [2, 4])
+def test_matcher_kernels_at_edge_batch(cuda, b):
+    """The backend matches both directions of its candidate edges as one
+    batch of 2b: every batch row must read its own rays, descriptors and
+    queries."""
+    from mast3r_slam_tpu_torch.ops import gradient, matching
+
+    h, w, f = 48, 64, 24
+    n = h * w
+    X = torch.cat([_rays(cuda, seed=s) for s in range(b)])
+    rays = gradient.prep_rays_grad(X)
+    assert float((rays - gradient.prep_rays_grad_plain(X)).abs().max()) <= 1e-6
+    pts = gradient.l2_normalize(
+        torch.cat([_rays(cuda, seed=10 + s) for s in range(b)])
+        .reshape(b, n, 3)).contiguous()
+    g = torch.Generator(device="cpu").manual_seed(b)
+    p0 = (torch.rand(b, n, 2, generator=g)
+          * torch.tensor([w - 1.0, h - 1.0])).to(cuda)
+    a, ca = matching.iter_proj(rays, pts, p0, 10)
+    ref, cref = matching.iter_proj_plain(rays, pts, p0, 10)
+    assert float((a - ref).abs().max()) <= 1e-6
+    assert torch.equal(ca, cref)
+    assert float((a[0] - a[1]).abs().max()) > 1.0    # rows really differ
+
+    D = torch.nn.functional.normalize(
+        torch.randn(b, h, w, f, generator=g), dim=-1).to(cuda)
+    Qd = torch.nn.functional.normalize(
+        torch.randn(b, n, f, generator=g), dim=-1).to(cuda)
+    p1 = torch.stack([a[..., 0].clamp(0, w - 1), a[..., 1].clamp(0, h - 1)],
+                     -1).to(torch.int32).contiguous()
+    for cast in (lambda x: x.to(torch.bfloat16), matching._quantize_int8):
+        got = matching.refine_matches(cast(D), cast(Qd), p1, 3, 5)
+        assert torch.equal(
+            got, matching.refine_matches_plain(cast(D), cast(Qd), p1, 3, 5))
+
+
+@pytest.mark.parametrize("R,C,N", [(4096, 256, 1024), (8 * 768, 4, 5000),
+                                   (100, 7, 333)])
+def test_gather_rows_matches_plain(cuda, R, C, N):
+    from mast3r_slam_tpu_torch.ops import _kernels, gather
+
+    rng = np.random.default_rng(R)
+    table = torch.from_numpy(rng.standard_normal((R, C)).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, R, N).astype(np.int32)).to(cuda)
+    n0 = _kernels.LAUNCHES["gather_rows"]
+    got = gather.gather_rows(table, idx)
+    assert _kernels.LAUNCHES["gather_rows"] == n0 + 1
+    assert torch.equal(got, gather.gather_rows_plain(table, idx))
+
+
+@pytest.mark.parametrize("axis,tshape,ishape", [
+    (0, (1024, 128), (1024, 128)), (0, (40, 9), (17, 9)),
+    (1, (2, 6144), (2, 6144)), (1, (3, 50), (3, 21))])
+def test_take_along_matches_plain(cuda, axis, tshape, ishape):
+    from mast3r_slam_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(axis + tshape[1])
+    t = torch.from_numpy(rng.standard_normal(tshape).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, tshape[axis], ishape).astype(
+        np.int32)).to(cuda)
+    assert torch.equal(gather.take_along(t, idx, axis),
+                       gather.take_along_plain(t, idx, axis))
+    with pytest.raises(ValueError):
+        gather.take_along(t, idx[:, :-1].contiguous(), 0 if axis == 0 else 2)
+
+
+def _tracker_problem(dev, n=6000, seed=0):
+    rng = np.random.default_rng(seed)
+    Xk = rng.standard_normal((n, 3)).astype(np.float32) + [0, 0, 4.0]
+    Xf = Xk + 0.01 * rng.standard_normal((n, 3))
+    Xf[::97] += 1.0                               # outliers: Huber's branch
+    si = rng.uniform(0.0, 30.0, (4, n)) * (rng.random((1, n)) > 0.1)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    T = torch.tensor([0.02, -0.01, 0.03, 0.0, 0.0099995, 0.0, 0.99995, 1.02],
+                     device=dev)
+    return T, f(Xf), f(Xk.astype(np.float32)), f(si)
+
+
+@pytest.mark.parametrize("calib", [False, True])
+def test_gn_step_matches_plain(cuda, calib):
+    from mast3r_slam_tpu_torch.slam import tracker
+
+    T, Xf, Xk, si = _tracker_problem(cuda)
+    if calib:
+        proj = tracker.CalibProj(300.0, 300.0, 256.0, 192.0, 512, 384, -10,
+                                 1e-6)
+        z = Xk[:, 2]
+        tgt = torch.stack([300.0 * Xk[:, 0] / z + 256.0,
+                           300.0 * Xk[:, 1] / z + 192.0, torch.log(z)])
+        si = si[:3].contiguous()
+    else:
+        proj = None
+        tgt, _, _ = tracker._ray_dist_t(Xk.T)
+    tgt = tgt.contiguous()
+    a = tracker.gn_step(T, Xf, tgt, si, 1.345, proj)
+    b = tracker.gn_step(T, Xf, tgt, si, 1.345, proj)
+    ref = tracker.gn_step_plain(T, Xf, tgt, si, 1.345, proj)
+    assert torch.equal(a, b)
+    for sl in (slice(0, 49), slice(49, 56), slice(56, 57)):
+        scale = float(ref[sl].abs().max())
+        assert float((a[sl] - ref[sl]).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("stride", [1, 4])
+@pytest.mark.parametrize("mode", ["rays", "calib", "points"])
+def test_ba_edge_terms_matches_plain(cuda, mode, stride):
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.slam import ba
+
+    rng = np.random.default_rng(stride)
+    h, w, n_kf = 48, 64, 4
+    P = h * w
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    v, u = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    Xs = []
+    for k in range(n_kf):
+        z = 3.0 + 0.5 * np.sin(u / 9.0 + k) + 0.01 * rng.standard_normal(
+            u.shape)
+        Xs.append(np.stack([(u - 32) / 60.0 * z, (v - 24) / 60.0 * z, z],
+                           -1).reshape(P, 3))
+    Xs = f(np.stack(Xs))
+    Xs[2, 7, 2] = -1.0                      # a point behind the camera
+    Cs = f(rng.uniform(-0.3, 5.0, (n_kf, P)))
+    T = sim3.exp(f(0.05 * rng.standard_normal((n_kf, 7))))
+    ii = torch.tensor([0, 1, 1, 2, 2, 3, 0, 3], dtype=torch.int32, device=cuda)
+    jj = torch.tensor([1, 0, 2, 1, 3, 2, 3, 0], dtype=torch.int32, device=cuda)
+    E = 8
+    idx = torch.from_numpy(np.clip(
+        np.arange(P)[None] + rng.integers(-2, 3, (E, P)), 0, P - 1).astype(
+            np.int32)).to(cuda)
+    valid = torch.from_numpy(rng.random((E, P)) > 0.1).to(cuda)
+    Q = f(rng.uniform(1.0, 4.5, (E, P)))
+    mask = torch.ones(E, device=cuda)
+    mask[5] = 0.0
+    cfg = ba.BAConfig(point_stride=stride)
+    calib = (ba.CalibArgs(60.0, 60.0, 32.0, 24.0, w, h) if mode == "calib"
+             else None)
+    pre = ba._edge_prep(Xs, Cs, ii, jj, idx, valid, stride)
+    Tij = sim3.rel(T[ii.long()], T[jj.long()]).contiguous()
+    args = (mode, Tij, pre, valid, Q, mask, stride, cfg, calib)
+    S, g = ba.ba_edge_terms(*args)
+    S2, g2 = ba.ba_edge_terms(*args)
+    Sp, gp = ba.ba_edge_terms_plain(*args)
+    assert torch.equal(S, S2) and torch.equal(g, g2)
+    assert float((S - Sp).abs().max()) <= 1e-5 * float(Sp.abs().max())
+    assert float((g - gp).abs().max()) <= 1e-5 * float(gp.abs().max())
+    assert float(S[5].abs().max()) == 0.0
+    assert torch.equal(S, S.transpose(1, 2))
+
+
 def test_wrappers_refuse_bad_inputs(cuda):
     from mast3r_slam_tpu_torch.ops import matching
 
@@ -95,3 +250,8 @@ def test_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):                     # not contiguous
         matching.iter_proj(img, torch.zeros(1, 4, 6, device=cuda)[..., :3],
                            torch.zeros(1, 4, 2, device=cuda))
+    from mast3r_slam_tpu_torch.ops import gather
+
+    with pytest.raises(ValueError):                     # int64 indices
+        gather.gather_rows(torch.zeros(8, 4, device=cuda),
+                           torch.zeros(3, dtype=torch.int64, device=cuda))

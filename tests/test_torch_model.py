@@ -80,6 +80,21 @@ def test_inference_mono_and_asymmetric_match_jax(models):
         _close(t, j)
 
 
+def test_inference_symmetric_matches_jax(models):
+    """Both decode directions as one decoder batch of 2b, b = 2 edges."""
+    jcfg, tcfg, params, model = models
+    img = _frames(jcfg, 3, 6)
+    fj, pj = jm.encode(params, jnp.asarray(img), jcfg)
+    ft = torch.from_numpy(np.array(fj))
+    pt = torch.from_numpy(np.array(pj)).long()
+    outj = jm.inference_symmetric(params, fj[:2], pj[:2], fj[1:], pj[1:], jcfg)
+    outt = tm.inference_symmetric(model, ft[:2], pt[:2], ft[1:], pt[1:], tcfg)
+    assert sorted(outt) == sorted(outj) and len(outt) == 16
+    for k in outj:
+        assert outt[k].shape == outj[k].shape, k
+        _close(outt[k], outj[k])
+
+
 def test_downsample_and_mono_ds():
     jcfg, tcfg, params, model = _models("tiny", seed=3)
     img = _frames(jcfg, 1, 4)
@@ -121,5 +136,6 @@ def test_init_params_with_generator_is_seeded():
     img = torch.from_numpy(_frames(cfg, 1, 0))
     feat, pos = tm.encode(a, img, cfg)
     assert torch.isfinite(feat).all()
-    with pytest.raises(NotImplementedError):
-        tm.inference_symmetric(a, feat, pos, feat, pos, cfg)
+    out = tm.inference_symmetric(a, feat, pos, feat, pos, cfg)
+    assert len(out) == 16
+    assert all(torch.isfinite(v).all() for v in out.values())

@@ -66,10 +66,12 @@ def _cfg(mod, preset):
     return cfg
 
 
-def _drive(system, make_image, n):
+def _drive(system, make_image, n, backend=False):
     poses = []
     for i in range(n):
         system.process_frame(system.make_frame(i, make_image(i)))
+        while backend and system.backend_step():
+            pass
         poses.append(np.asarray(system.current_frame.T_WC))
     return np.stack(poses)
 
@@ -90,6 +92,22 @@ def fixture():
     return jp, tp, runs
 
 
+@pytest.fixture(scope="module")
+def backend_runs(fixture):
+    """The JAX systems of ``fixture`` run again with the backend."""
+    jp, _, _ = fixture
+    runs = {}
+    for preset in ("base", "tpu_fast"):
+        s = JSystem(jp, JCFG, _cfg(jconfig, preset), (H, W),
+                    keyframe_capacity=16, edge_capacity=64,
+                    model_module=joracle)
+        poses = _drive(s, lambda i: joracle.make_frame_image(i, H, W),
+                       N_FRAMES, backend=True)
+        s.factor_graph.flush()
+        runs[preset] = (s, poses)
+    return runs
+
+
 def _replay_module(jp):
     """A port model module that returns the JAX oracle's outputs (as torch
     tensors): isolates the frontend from the oracle's own rounding."""
@@ -106,7 +124,11 @@ def _replay_module(jp):
             joracle.inference_mono(jp, j(f), j(pos), JCFG, ds)),
         inference_asymmetric=lambda p, ff, pf, fk, pk, cfg: t(
             joracle.inference_asymmetric(jp, j(ff), j(pf), j(fk), j(pk),
-                                         JCFG)))
+                                         JCFG)),
+        inference_symmetric=lambda p, fi, pi, fj, pj, cfg: {
+            k: torch.from_numpy(np.array(v)) for k, v in
+            joracle.inference_symmetric(jp, j(fi), j(pi), j(fj), j(pj),
+                                        JCFG).items()})
 
 
 def _compare(sj, pj, st, pt, pose_tol, map_tol):
@@ -149,6 +171,57 @@ def test_port_oracle_slam_matches_jax(fixture, preset):
     _compare(sj, pj, st, pt, pose_tol=5e-4, map_tol=1e-3)
 
 
+def _compare_backend(sj, st):
+    fj, ft = sj.factor_graph, st.factor_graph
+    ft.flush()
+    st.check_invariants()
+    assert not st.backend_queue and not sj.backend_queue
+    assert ft.n_edges == fj.n_edges > 0
+    assert int(ft.n_edges_dev) == int(fj.n_edges_dev)
+    assert ft.edges_dropped == fj.edges_dropped == 0
+    e = ft.n_edges
+    np.testing.assert_array_equal(ft.ii[:e].numpy(), np.asarray(fj.ii[:e]))
+    np.testing.assert_array_equal(ft.jj[:e].numpy(), np.asarray(fj.jj[:e]))
+    same = (ft.idx_ii2jj[:e].numpy() == np.asarray(fj.idx_ii2jj[:e])).mean()
+    assert same > 0.999
+
+
+@pytest.mark.parametrize("preset", ["base", "tpu_fast"])
+def test_backend_slice_matches_jax_on_identical_geometry(fixture,
+                                                         backend_runs, preset):
+    """Frontend + backend. ``tpu_fast`` leaves ``local_opt.matcher: dense``
+    in place: its consecutive edges come from the tracker's match, so the
+    dense matcher is never reached (reaching it raises)."""
+    jp, _, _ = fixture
+    sj, pj = backend_runs[preset]
+    st = TSystem(None, TCFG, _cfg(tconfig, preset), (H, W),
+                 keyframe_capacity=16, edge_capacity=64,
+                 model_module=_replay_module(jp), device="cpu")
+    pt = _drive(st, lambda i: toracle.make_frame_image(i, H, W), N_FRAMES,
+                backend=True)
+    _compare(sj, pj, st, pt, pose_tol=2e-4, map_tol=1e-4)
+    _compare_backend(sj, st)
+    assert st.factor_graph.cfg.matcher == (
+        "dense" if preset == "tpu_fast" else "iter_proj")
+
+
+@pytest.mark.parametrize("preset", ["base", "tpu_fast"])
+def test_backend_slice_port_oracle_matches_jax(fixture, backend_runs, preset):
+    _, tp, runs = fixture
+    sj, pj = backend_runs[preset]
+    st = TSystem(tp, TCFG, _cfg(tconfig, preset), (H, W),
+                 keyframe_capacity=16, edge_capacity=64,
+                 model_module=toracle, device="cpu")
+    pt = _drive(st, lambda i: toracle.make_frame_image(i, H, W), N_FRAMES,
+                backend=True)
+    _compare(sj, pj, st, pt, pose_tol=1e-3, map_tol=1e-3)
+    _compare_backend(sj, st)
+    # the backend moved the keyframe poses away from the frontend-only run
+    k = len(st.keyframes)
+    front = np.asarray(runs[preset][0].keyframes.T_WC[:k])
+    assert np.abs(st.keyframes.T_WC[:k].numpy() - front).max() > 1e-5
+
+
 def test_port_oracle_outputs_match_jax(fixture):
     jp, tp, _ = fixture
     imgs = [joracle.make_frame_image(i, H, W) for i in (3, 5)]
@@ -161,6 +234,23 @@ def test_port_oracle_outputs_match_jax(fixture):
     ot = toracle.inference_asymmetric(tp, *ft[0], *ft[1], TCFG)
     for a, b in zip(oj, ot):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-4)
+
+
+def test_port_oracle_symmetric_matches_jax(fixture):
+    """``inference_symmetric`` of the oracle: both directions of two edges
+    (atol 1e-4, the oracle tolerance above)."""
+    jp, tp, _ = fixture
+    ids = jnp.asarray([2, 4, 5])
+    fj, pj = joracle.encode_fid(jp, ids, JCFG)
+    ft, pt = toracle.encode_fid(tp, torch.tensor([2, 4, 5]), TCFG)
+    oj = joracle.inference_symmetric(jp, fj[:2], pj[:2], fj[1:], pj[1:], JCFG)
+    ot = toracle.inference_symmetric(tp, ft[:2], pt[:2], ft[1:], pt[1:], TCFG)
+    assert sorted(ot) == sorted(oj)
+    for k in oj:
+        np.testing.assert_allclose(ot[k].numpy(), np.asarray(oj[k]),
+                                   atol=1e-4, err_msg=k)
+    # Xji is view j's map in view i's frame: it is not view i's own map
+    assert float((ot["Xji"] - ot["Xii"]).abs().max()) > 1e-2
 
 
 def test_oracle_timing_tiny_network_slice():
@@ -190,6 +280,9 @@ def test_oracle_timing_tiny_network_slice():
     real = tot.inference_asymmetric(pt_params, f_ot, p_ot, f_ot, p_ot, tcfg)
     orc = toracle.inference_asymmetric(orc_t, f_ot, p_ot, f_ot, p_ot, tcfg)
     assert all(torch.equal(a, b) for a, b in zip(real, orc))
+    sym_r = tot.inference_symmetric(pt_params, f_ot, p_ot, f_ot, p_ot, tcfg)
+    sym_o = toracle.inference_symmetric(orc_t, f_ot, p_ot, f_ot, p_ot, tcfg)
+    assert all(torch.equal(sym_r[k], sym_o[k]) for k in sym_o)
     # NaN from the network never reaches the oracle outputs
     nan_total = tot._total(torch.tensor([1.0, float("nan")]))
     assert torch.isfinite(nan_total)
@@ -212,9 +305,15 @@ def test_left_out_parts_raise():
     cfg["runtime"]["tracking_window"] = 1
     with pytest.raises(NotImplementedError):
         TSystem(None, TCFG, cfg, (H, W), retrieval_params={}, device="cpu")
+    cfg["runtime"]["backend_device"] = 1
+    with pytest.raises(NotImplementedError, match="backend_device"):
+        TSystem(None, TCFG, cfg, (H, W), model_module=toracle, device="cpu")
+    cfg["runtime"]["backend_device"] = "none"
     s = TSystem(None, TCFG, cfg, (H, W), keyframe_capacity=4,
                 model_module=toracle, device="cpu")
-    with pytest.raises(NotImplementedError):
+    assert s.backend_step() is False          # nothing queued: no work
+    s.reloc_pending = True                    # relocalization needs retrieval
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         s.backend_step()
     with pytest.raises(NotImplementedError):
         s.run(None)

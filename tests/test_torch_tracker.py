@@ -9,6 +9,7 @@ import torch
 
 from mast3r_slam_tpu.lie import sim3 as js
 from mast3r_slam_tpu.slam import tracker as jt
+from mast3r_slam_tpu_torch import geometry
 from mast3r_slam_tpu_torch.slam import tracker as tt
 
 # the suite runs several test processes side by side on a few cores;
@@ -106,3 +107,65 @@ def test_solve7_flags_singular_and_nonfinite():
     tau, ok = tt._solve7(torch.eye(7) * 2.0, torch.ones(7))
     assert bool(ok)
     np.testing.assert_allclose(tau.numpy(), np.full(7, 0.5), atol=1e-6)
+
+
+@pytest.mark.parametrize("d", [4, 3])
+def test_normal_equations_match_jax_gn_step(d):
+    """``_normal_eqs_t`` + ``_solve7`` == JAX ``_gn_step_t`` (:60) on random
+    component-major residuals and Jacobians: step and cost to 1e-5 relative
+    (the same fp32 sums in another order)."""
+    rng = np.random.default_rng(d)
+    n = 700
+    r_t = rng.standard_normal((d, n)).astype(np.float32)
+    J_t = rng.standard_normal((d, 7, n)).astype(np.float32)
+    si_t = (rng.uniform(0.0, 3.0, (d, n)) * (rng.random((1, n)) > 0.2)).astype(
+        np.float32)
+    tau_j, cost_j, ok_j = jt._gn_step_t(*_j(si_t, r_t, J_t), 1.345)
+    H, g, cost = tt._normal_eqs_t(*_t(si_t, r_t, J_t), 1.345)
+    tau, ok = tt._solve7(H, g)
+    assert bool(ok) and bool(ok_j)
+    tau_j = np.asarray(tau_j)
+    np.testing.assert_allclose(tau.numpy(), tau_j, rtol=0,
+                               atol=1e-5 * np.abs(tau_j).max())
+    np.testing.assert_allclose(float(cost), float(cost_j), rtol=1e-5)
+    np.testing.assert_allclose(H.numpy(), H.numpy().T, atol=0)
+
+
+@pytest.mark.parametrize("calib", [False, True])
+def test_gn_step_plain_is_the_pieces(calib):
+    """``gn_step_plain`` (the plain version of the ``gn_step`` kernel) packs
+    [H, g, cost] of the residual + Jacobian + ``_normal_eqs_t`` pipeline."""
+    Xf, Xk, Qk, valid = _t(*_problem(5))
+    cfg = tt.TrackerConfig()
+    T = torch.tensor([0.02, -0.01, 0.03, 0.0, 0.01, 0.0, 1.0, 1.02])
+    T[3:7] /= T[3:7].norm()
+    sQ = (torch.sqrt(Qk) * valid)[:, 0]
+    if calib:
+        proj = tt.CalibProj(30.0, 30.0, 16.0, 12.0, W, H, cfg.pixel_border,
+                            cfg.depth_eps)
+        si = torch.stack([sQ / cfg.sigma_pixel] * 2 + [sQ / cfg.sigma_depth])
+        meas, _ = tt.calib_measurements(Xk, torch.from_numpy(K), (H, W),
+                                        cfg.depth_eps)
+        tgt = meas.T.contiguous()
+        Y = tt._act_t(T, Xf.T)
+        pz, vp = geometry.project_calib(Y.T, torch.from_numpy(K), (H, W),
+                                        border=cfg.pixel_border,
+                                        z_eps=cfg.depth_eps)
+        J = -tt._calib_pose_jacobian_t(Y, torch.from_numpy(K), cfg.depth_eps)
+        ref = tt._normal_eqs_t(vp.T * si, tgt - pz.T, J, cfg.huber)
+    else:
+        proj = None
+        si = torch.stack([sQ / cfg.sigma_ray] * 3 + [sQ / cfg.sigma_dist])
+        tgt, _, _ = tt._ray_dist_t(Xk.T)
+        rd, dd, rr = tt._ray_dist_t(tt._act_t(T, Xf.T))
+        ref = tt._normal_eqs_t(si, tgt - rd,
+                               -tt._ray_dist_pose_jacobian_t(dd, rr),
+                               cfg.huber)
+    out = tt.gn_step(T, Xf, tgt, si, cfg.huber, proj)
+    assert out.shape == (57,)
+    scale = float(ref[0].abs().max())
+    np.testing.assert_allclose(out[:49].reshape(7, 7).numpy(), ref[0].numpy(),
+                               rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(out[49:56].numpy(), ref[1].numpy(), rtol=0,
+                               atol=1e-5 * float(ref[1].abs().max()))
+    np.testing.assert_allclose(float(out[56]), float(ref[2]), rtol=1e-5)
