@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Device: the GPU's name and power limit, and the build of the CUDA
    kernels of ``mast3r_slam_tpu_torch/csrc`` (one ``nvcc`` per source, in
-   parallel, into ``build/torch_kernels/``).
+   parallel, into ``build/torch_kernels/``) and of the native ASMK
+   inverted file (``g++``, same directory).
 2. Kernels: each kernel against its plain PyTorch version, on the GPU, at
    the main path's shapes under both matcher presets (integer outputs,
    converged flags and gathered values exactly equal, floats within the
@@ -31,6 +32,16 @@ Phases (any failure exits non-zero and prints no result line):
    graph invariants, Sim(3)-aligned keyframe RMSE after bundle adjustment
    under 0.06 of the trajectory's extent) and must have launched the
    kernels of its path; every kernel must be launched by some run.
+4. Loop closure and relocalization at full width, with a seeded random
+   retrieval head (1024 -> 1024) and a 65,536 x 1024 codebook, the native
+   inverted file, ``tpu_fast`` as its YAML states it (dense edge matcher,
+   consecutive edges from the tracker's match, every 4th point): a **loop**
+   run of 33 frames at ``kf_every=4`` with ``backend_prefetch()`` before
+   every frame (9 keyframes, loop closures found and kept as edges), and
+   three **teleport** runs of 9 frames (4 good frames, then a jump of 60
+   units): relocalizing forever (``reinit_after=0``), re-initializing
+   after two failures (``reinit_after=2``), and a camera that returns to
+   the mapped scene and relocalizes.
 
 Output: per-frame, per-stage and per-keyframe backend times, peak memory,
 then a line
@@ -54,9 +65,15 @@ PEAK_OPS = {"fp32": 67e12,      # FLOP/s outside the tensor cores
 N_FAST, KF_FAST = 17, 4
 N_BASE, KF_BASE = 5, 2
 N_CALIB, KF_CALIB = 5, 2
+N_LOOP, KF_LOOP = 33, 4
+KF_TELEPORT = 2
 EDGE_CAPACITY = 64
-FRONTEND = {"scharr_rays", "iter_proj", "refine_matches", "gn_step"}
+EDGE_CAPACITY_LOOP = 256            # configs/base.yaml's
+CODEBOOK = 65536
+FRONTEND = {"scharr_rays", "iter_proj", "refine_matches", "gn_step",
+            "rope_qk"}
 BA_KERNELS = {"gather_rows", "ba_edge_terms"}
+LOOP_KERNELS = FRONTEND | BA_KERNELS | {"coarse_correlate", "take_along"}
 
 
 def log(*a):
@@ -90,11 +107,13 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=20, trials=3):
+def device_ms(fn, reps=20, trials=3, host=None):
     """Device time of one ``fn()`` call in ms with the launch queue kept
     full: a device-side sleep holds the stream while the host enqueues
     ``reps`` calls, so the events see the calls back to back, not the host's
-    launch cost. Median over ``trials``."""
+    launch cost. Median over ``trials``. ``host``: a list that receives the
+    host's time to enqueue one call (ms), which is what a launch-bound
+    caller pays."""
     import torch
 
     fn()
@@ -103,6 +122,8 @@ def device_ms(fn, reps=20, trials=3):
     for _ in range(reps):
         fn()
     host_s = time.perf_counter() - t0
+    if host is not None:
+        host.append(host_s / reps * 1e3)
     torch.cuda.synchronize()
     times = []
     for _ in range(trials):
@@ -132,6 +153,30 @@ def make_traj(n, step_scale=1.0):
         xi = torch.tensor([0.03, 0.01 * np.sin(i / 5.0), 0.008, 0.0, 0.012,
                            0.002, 0.0], dtype=torch.float32) * step_scale
         Ts.append(sim3.mul(Ts[-1], sim3.exp(xi)))
+    return torch.stack(Ts)
+
+
+def teleport_traj(n_good, n_bad, n_back=0):
+    """Smooth motion, then a jump of 60 units to a disjoint scene region,
+    where tracking must fail (``tests/test_failure_paths.py::
+    _teleport_traj``); with ``n_back`` the camera then reappears next to
+    its last good pose and moves on slowly."""
+    import torch
+
+    from mast3r_slam_tpu_torch.lie import sim3
+
+    step = torch.tensor([0.15, 0.0, 0.03, 0.0, 0.05, 0.0, 0.0])
+    Ts = [sim3.identity()]
+    for _ in range(1, n_good):
+        Ts.append(sim3.mul(Ts[-1], sim3.exp(step)))
+    last_good = Ts[-1]
+    far = sim3.exp(torch.tensor([60.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]))
+    Ts.append(sim3.mul(far, Ts[-1]))
+    for _ in range(1, n_bad):
+        Ts.append(sim3.mul(Ts[-1], sim3.exp(step)))
+    for _ in range(n_back):
+        last_good = sim3.mul(last_good, sim3.exp(0.3 * step))
+        Ts.append(last_good)
     return torch.stack(Ts)
 
 
@@ -167,13 +212,15 @@ def check_kernels(model_cfg, orc):
         bound_ops: the operations on inputs of type ops_type."""
         t_bytes = bound_bytes / MEM_BW * 1e3
         t_ops = bound_ops / PEAK_OPS[ops_type] * 1e3
-        ms = device_ms(kernel)
+        host_k, host_p = [], []
+        ms = device_ms(kernel, host=host_k)
         r = {"name": name, "variant": variant, "route": "cuda",
              "source": source, "replaces": replaces, "launches": 0,
              "max_abs_err": err, "tolerance": tolerance, "ms": ms,
              "kernel_ms": ms,
              "call_ms": time_ms(kernel),
-             "plain_ms": device_ms(plain, reps=plain_reps),
+             "plain_ms": device_ms(plain, reps=plain_reps, host=host_p),
+             "host_enqueue_ms": host_k[0], "plain_host_enqueue_ms": host_p[0],
              "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "library_ms": None if lib is None else device_ms(lib), **extra}
@@ -267,8 +314,118 @@ def check_kernels(model_cfg, orc):
                 "window_gather.py:183 refine_matches_full_unfold, XLA)",
                 "mast3r_slam_tpu_torch/csrc/refine_matches.cu", plain_reps=3)
     check_backend_kernels(rec, X, n)
+    check_loop_kernels(rec, model_cfg, D)
     torch.cuda.synchronize()
     return records
+
+
+def check_loop_kernels(rec, model_cfg, D):
+    """``coarse_correlate`` at the dense edge matcher's shapes (b = 2: both
+    directions of one candidate edge; 12,288 query rows at ``query_stride``
+    4, 49,152 at 1) and ``rope_qk`` at the encoder's and decoder's shapes,
+    b = 1 (tracking) and 4 (two candidate edges)."""
+    import torch
+
+    from mast3r_slam_tpu_torch.models import rope
+    from mast3r_slam_tpu_torch.ops import dense_matcher
+
+    h, w = model_cfg.img_size
+    f = D.shape[-1]
+    stride = 4
+    hc, wc = h // stride, w // stride
+    nc = hc * wc
+    D11 = D.to(torch.bfloat16).contiguous()                 # (2, h, w, f)
+    Dc = D11[:, ::stride, ::stride].reshape(2, nc, f).contiguous()
+    D21_full = D11.flip(0)            # each view queried against the other
+    for qs in (4, 1):
+        D21 = D21_full[:, :, ::qs][:, ::2, ::2].reshape(2, -1, f).contiguous()
+        rows = D21.shape[1]
+        got = dense_matcher.coarse_correlate(D21, D11, stride)
+        ref = dense_matcher.coarse_correlate_plain(D21, D11, stride)
+        cells = ((got.long() // w) // stride * wc
+                 + (got.long() % w) // stride)
+        bad = 0
+        for r0 in range(0, rows, 2048):     # the stated tolerance, in tiles
+            sc = dense_matcher.coarse_scores_plain(D21[:, r0:r0 + 2048], D11,
+                                                   stride)
+            mine = torch.gather(sc, 2, cells[:, r0:r0 + 2048, None])[..., 0]
+            bad += int((mine != sc.max(dim=-1).values).sum())
+        share = float((got == ref).float().mean())
+        # planted unique winners: twice a cell's descriptor as the query, on
+        # a random descriptor image (the oracle's smooth field repeats
+        # itself, so its cells are no unique winners)
+        g = torch.Generator(device="cuda").manual_seed(rows)
+        Dr = torch.nn.functional.normalize(
+            torch.randn(2, h, w, f, generator=g, device="cuda"),
+            dim=-1).to(torch.bfloat16)
+        pick = torch.randint(0, nc, (2, 4096), generator=g, device="cuda")
+        cell_desc = Dr[:, ::stride, ::stride].reshape(2, nc, f).float()
+        planted = (2.0 * torch.gather(
+            cell_desc, 1, pick[..., None].expand(-1, -1, f))).to(
+                torch.bfloat16)
+        gp = dense_matcher.coarse_correlate(planted, Dr, stride)
+        expect = ((pick // wc * stride + stride // 2) * w
+                  + pick % wc * stride + stride // 2)
+        if bad or not torch.equal(gp.long(), expect):
+            raise AssertionError(
+                f"coarse_correlate rows {rows}: {bad} rows whose chosen "
+                f"cell does not hold the row's maximum score; planted "
+                f"winners equal: {torch.equal(gp.long(), expect)}")
+        ops = 2 * 2 * rows * nc * f
+
+        def library():
+            return torch.argmax(torch.bmm(D21, Dc.transpose(1, 2)), dim=-1)
+
+        rec("coarse_correlate",
+            f"b=2 rows={rows} cells={nc} f={f} (query_stride {qs})",
+            float(1.0 - share),
+            lambda: dense_matcher.coarse_correlate(D21, D11, stride),
+            lambda: dense_matcher.coarse_correlate_plain(D21, D11, stride),
+            library, (2 * rows + 2 * nc) * f * 2 + 2 * rows * 4, ops, "bf16",
+            "mast3r_slam_tpu/ops/dense_matcher.py:37 (coarse_correlate, XLA)",
+            "mast3r_slam_tpu_torch/csrc/coarse_correlate.cu", plain_reps=2,
+            tolerance="the chosen cell's bf16 score equals the row's "
+            "maximum on every row; planted winners exact; max_abs_err is the "
+            "share of rows whose index differs from the plain version's",
+            identical_index_share=share,
+            bound_ms_fp32_cores=ops / PEAK_OPS["fp32"] * 1e3,
+            library="torch.bmm (bf16, contiguous cells) + argmax")
+
+    n_tok = model_cfg.num_patches
+    ys = torch.arange(h // 16, device="cuda").repeat_interleave(w // 16)
+    xs = torch.arange(w // 16, device="cuda").repeat(h // 16)
+    pos = torch.stack([ys, xs], dim=-1)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for part, dim, heads in (("encoder", model_cfg.enc_embed_dim,
+                              model_cfg.enc_num_heads),
+                             ("decoder", model_cfg.dec_embed_dim,
+                              model_cfg.dec_num_heads)):
+        d = dim // heads
+        for b in (1, 4):
+            qkv = torch.randn(b, n_tok, 3, heads, d, generator=g,
+                              device="cuda")
+            q, k = (qkv[:, :, i].transpose(1, 2) for i in (0, 1))
+            tabs = rope.rope_tables(pos.expand(b, n_tok, 2), d,
+                                    model_cfg.rope_base, torch.float32)
+            err = 0.0
+            for dt in (torch.float32, torch.bfloat16):
+                a = rope.rope_qk(q, k, tabs, tabs, dt)
+                r = rope.rope_qk_plain(q, k, tabs, tabs, dt)
+                err = max(err, *(float((x.float() - y.float()).abs().max())
+                                 for x, y in zip(a, r)))
+            if err != 0.0:
+                raise AssertionError(f"rope_qk {part} b={b}: differs from "
+                                     f"the plain version by {err}")
+            el = b * heads * n_tok * d
+            rec("rope_qk", f"{part} q,k ({b},{heads},{n_tok},{d}) fp32 -> "
+                "fp32 (strided views of the qkv projection)", err,
+                lambda: rope.rope_qk(q, k, tabs, tabs, torch.float32),
+                lambda: rope.rope_qk_plain(q, k, tabs, tabs, torch.float32),
+                None, 2 * el * 8 + 2 * b * n_tok * d * 4, 2 * el * 3, "fp32",
+                "mast3r_slam_tpu/models/rope.py:33 (rope_2d on q and k, "
+                "models/vit.py:57-59 and :68-70, XLA)",
+                "mast3r_slam_tpu_torch/csrc/rope_qk.cu",
+                tolerance="bit-equal, fp32 and bf16 outputs")
 
 
 def check_backend_kernels(rec, X, n):
@@ -433,31 +590,40 @@ def check_backend_kernels(rec, X, n):
 # -- phase 3: main path --------------------------------------------------------
 
 
-def run_slam(preset_cfg, params, model_cfg, n_frames, kf_every, K=None):
+def run_slam(preset_cfg, params, model_cfg, n_frames, kf_every, K=None,
+             retrieval_params=None, edge_capacity=EDGE_CAPACITY,
+             reinit_after=0):
     """Drive ``n_frames`` through make_frame / process_frame and drain the
     backend after every frame, as ``SLAMSystem.run`` of the JAX package
-    does. Returns the system, the per-frame frontend wall times and one
-    (wall ms, GN iterations) per backend step (each time ends in a sync)."""
+    does; with retrieval, ``backend_prefetch()`` comes before every frame.
+    Returns the system, the per-frame frontend wall times and one (wall ms,
+    GN iterations, keyframes, edges on the device) per backend step (each
+    time ends in a sync)."""
     import numpy as np
     import torch
 
     from mast3r_slam_tpu_torch.models import oracle_timing
     from mast3r_slam_tpu_torch.slam.system import SLAMSystem
+    from mast3r_slam_tpu_torch.utils.metrics import Metrics
 
     cfg = preset_cfg
     cfg["tracking"] = dict(cfg["tracking"], kf_every=kf_every)
     cfg["runtime"] = dict(cfg.get("runtime", {}), tracking_window=1)
+    cfg["reloc"] = dict(cfg["reloc"], reinit_after=reinit_after)
     cfg["use_calib"] = K is not None
     h, w = model_cfg.img_size
     system = SLAMSystem(params, model_cfg, cfg, (h, w), K=K,
-                        keyframe_capacity=16, edge_capacity=EDGE_CAPACITY,
-                        model_module=oracle_timing, device="cuda")
+                        retrieval_params=retrieval_params,
+                        keyframe_capacity=16, edge_capacity=edge_capacity,
+                        model_module=oracle_timing, device="cuda",
+                        metrics=Metrics())
     rng = np.random.default_rng(1234)
     frames = [oracle_timing.make_frame_image(i, h, w, rng)
               for i in range(n_frames)]
     times, backend = [], []
     for i in range(n_frames):
         t0 = time.perf_counter()
+        system.backend_prefetch()
         system.process_frame(system.make_frame(i, frames[i]))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -466,12 +632,17 @@ def run_slam(preset_cfg, params, model_cfg, n_frames, kf_every, K=None):
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             backend.append(((t2 - t1) * 1e3,
-                            system.factor_graph.last_solve_iters))
+                            system.factor_graph.last_solve_iters,
+                            len(system.keyframes),
+                            int(system.factor_graph.n_edges_dev)))
             t1 = t2
     return system, times, backend
 
 
 def assert_healthy(system, n_frames, kf_every, traj, label):
+    """Health of a run that must track every frame. Without retrieval the
+    graph holds exactly the consecutive edges; with it, loop closures must
+    have been found and kept as edges on top of those."""
     from mast3r_slam_tpu_torch.eval.ate import aligned_rmse
     from mast3r_slam_tpu_torch.slam.frame import Mode
 
@@ -480,11 +651,21 @@ def assert_healthy(system, n_frames, kf_every, traj, label):
     problems = []
     system.check_invariants()      # flushes the deferred edge gates
     expect_kf = len(range(0, n_frames, kf_every))
+    consec = 2 * (expect_kf - 1)
     if st["keyframes"] != expect_kf:
         problems.append(f"keyframes {st['keyframes']} != {expect_kf}")
-    if fg.n_edges != 2 * (expect_kf - 1) or int(fg.n_edges_dev) != fg.n_edges:
-        problems.append(f"edges {fg.n_edges} (device {int(fg.n_edges_dev)}) "
-                        f"!= {2 * (expect_kf - 1)}")
+    if int(fg.n_edges_dev) != fg.n_edges:
+        problems.append(f"edges {fg.n_edges} != device {int(fg.n_edges_dev)}")
+    if system.retrieval is None and fg.n_edges != consec:
+        problems.append(f"edges {fg.n_edges} != {consec}")
+    if system.retrieval is not None:
+        if st["loop_closures"] <= 0 or fg.n_edges <= consec:
+            problems.append(f"no loop closure kept: {st['loop_closures']} "
+                            f"found, edges {fg.n_edges} vs {consec} "
+                            "consecutive")
+        if system.retrieval.native is None or system._retrieval_prefetch:
+            problems.append("retrieval did not run on the native IVF with "
+                            "every prefetch consumed")
     if fg.edges_dropped:
         problems.append(f"{fg.edges_dropped} edges dropped")
     if system.backend_queue:
@@ -556,6 +737,84 @@ def backend_split(system):
         lambda: ba._assemble_and_solve(H, g, ii, jj, n_kf, Kb, cfg.pin,
                                        cfg.solver))
     return out
+
+
+def loop_split(system):
+    """Isolated times (ms) of what a keyframe with loop closures adds, on
+    the loop run's final state: the retrieval update (prep + quantize on
+    the device, the readback, the host's query of the inverted file) and
+    the dense edge build (symmetric decode + ``match_dense`` + gate +
+    append) for 1, 2 and 3 candidate edges."""
+    import torch
+
+    from mast3r_slam_tpu_torch.slam import factor_graph as fgmod
+    from mast3r_slam_tpu_torch.slam import retrieval as rmod
+
+    fg, kfs, db = system.factor_graph, system.keyframes, system.retrieval
+    last = len(kfs) - 1
+    feat = kfs.feat[last]
+    ma = max(db.cfg.ma_query, db.cfg.ma_build)
+    prep = lambda: rmod.prep_and_quantize(db.rparams, feat, db.cfg.nfeat, ma)
+    out = {"prep_quantize_device": device_ms(prep, reps=10),
+           "codebook_mib": db.rparams["centroids"].numel() * 4 / 2**20}
+    feats, words = prep()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = (feats.cpu(), words.cpu(), None)
+    t1 = time.perf_counter()
+    rcfg = system.config["retrieval"]
+    for _ in range(3):
+        hits = db.update(None, add_after_query=False, k=int(rcfg["k"]),
+                         min_thresh=float(rcfg["min_thresh"]),
+                         prefetched=host)
+    t2 = time.perf_counter()
+    out["readback"] = (t1 - t0) * 1e3
+    out["host_ivf_query"] = (t2 - t1) * 1e3 / 3
+    out["query_hits_for_last_keyframe"] = hits
+
+    dev, P = fg.device, kfs.X.shape[1]
+    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
+    scratch = (z((7,), torch.int32), z((7,), torch.int32),
+               z((7, P), torch.int32), z((7, P), torch.bool),
+               z((7, P), torch.float32))       # capacity 6 + the sentinel
+    e0 = z((), torch.int32)
+    for nb in (1, 2, 3):
+        ii = torch.arange(nb, device=dev)
+        jj = torch.full((nb,), last, device=dev)
+        out[f"dense_edge_build_{nb}"] = time_ms(
+            lambda: fgmod._add_factors_body(
+                scratch, fg.params, kfs.feat, kfs.pos, ii, jj,
+                z((nb,), torch.bool), e0, float(fg.cfg.min_match_frac), False,
+                float(fg.cfg.Q_conf), fg.model_cfg, fg.mcfg, fg.downsample,
+                fg.cfg.matcher, fg.model_mod, fg.query_stride), reps=5)
+    out["query_stride"] = fg.query_stride
+    return out
+
+
+def assert_teleport(system, label, expect):
+    """``expect``: stat -> (comparison, value) and the end mode."""
+    import operator
+
+    from mast3r_slam_tpu_torch.slam.frame import Mode
+
+    system.check_invariants()
+    st, problems = system.stats, []
+    ops = {"==": operator.eq, ">=": operator.ge}
+    for key, (op, val) in expect["stats"].items():
+        if not ops[op](st[key], val):
+            problems.append(f"{key} {st[key]} not {op} {val}")
+    if system.mode != Mode[expect["mode"]]:
+        problems.append(f"end mode {system.mode}, expected {expect['mode']}")
+    if system.factor_graph.edges_dropped or system.backend_queue:
+        problems.append("dropped edges or an undrained backend queue")
+    events = [r["event"] for r in system.metrics.rows]
+    for ev, key in (("reloc_failed", "reloc_failed"), ("reinit", "reinits")):
+        if events.count(ev) != st[key]:
+            problems.append(f"{events.count(ev)} {ev} events for "
+                            f"{st[key]} counted")
+    if problems:
+        raise AssertionError(f"unhealthy {label} run: " + "; ".join(problems)
+                             + f"; stats {st}")
 
 
 def stage_split(params, model_cfg, mcfg, tcfg):
@@ -643,9 +902,11 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    from mast3r_slam_tpu_torch import native
     from mast3r_slam_tpu_torch.config import base_config, tpu_fast_config
     from mast3r_slam_tpu_torch.models import mast3r, oracle, oracle_timing
     from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.slam import retrieval
 
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -659,6 +920,10 @@ def main():
     for name, text in sorted(outs.items()):
         regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
         log(f"  {name}: {regs}")
+    t0 = time.perf_counter()
+    native.load()
+    log(f"native ASMK build: {time.perf_counter() - t0:.2f} s "
+        f"({native.lib_path().name} from {native.SOURCE.name})")
 
     model_cfg = mast3r.MASt3RConfig(head_dtype="bfloat16")
     h, w = model_cfg.img_size
@@ -669,7 +934,7 @@ def main():
     log(f"ViT-L MASt3R init: {time.perf_counter() - t0:.2f} s, "
         f"{sum(p.numel() for p in net.parameters()) / 1e6:.1f} M params")
 
-    n_traj = max(N_FAST, N_BASE) + 1      # one more frame for the profile
+    n_traj = max(N_FAST, N_BASE, N_LOOP) + 1   # one more for the profile
     traj = make_traj(n_traj).cuda()
     orc = oracle.make_params(traj, desc_dim=model_cfg.desc_dim, seed=0,
                              device="cuda")
@@ -679,11 +944,13 @@ def main():
     records = check_kernels(model_cfg, orc)
 
     # phase 3: the main path, tpu_fast presets; frontend and backend
-    def drive(label, preset, n_frames, kf_every, expect, K=None):
+    run_launches = {}       # run label -> kernel launches of that run
+
+    def drive(label, preset, n_frames, kf_every, expect, K=None, **kw):
         _kernels.reset_launch_counts()
         system, times, backend = run_slam(preset, params, model_cfg,
-                                          n_frames, kf_every, K)
-        launches = dict(_kernels.LAUNCHES)
+                                          n_frames, kf_every, K, **kw)
+        launches = run_launches[label] = dict(_kernels.LAUNCHES)
         rmse, extent = assert_healthy(system, n_frames, kf_every, traj, label)
         missing = sorted(k for k in expect if launches[k] <= 0)
         if missing:
@@ -697,8 +964,9 @@ def main():
             f"{extent:.6f}")
         log(f"{label} frontend ms per frame (tracked): median {med:.3f}, all "
             f"{[round(t, 3) for t in times]}; frames/s {1e3 / med:.3f}")
-        log(f"{label} backend ms per keyframe (wall, GN iterations): "
-            f"{[(round(t, 3), it) for t, it in backend]}")
+        log(f"{label} backend per keyframe (wall ms, GN iterations, "
+            f"keyframes, edges): "
+            f"{[(round(t, 3), it, k, e) for t, it, k, e in backend]}")
         log(f"{label} backend split (isolated, ms): "
             + json.dumps(backend_split(system)))
         return system, med, launches
@@ -720,7 +988,7 @@ def main():
 
     # the base presets: radius 3, dilation 5, 10 LM iterations; edges by
     # symmetric decode + match, bundle adjustment on every point
-    every = set(_kernels.SOURCES)
+    every = set(_kernels.SOURCES) - {"coarse_correlate"}   # loop run's
     sys_b, _, launches_b = drive("base", base_config(), N_BASE, KF_BASE,
                                  every)
     split_b = stage_split(params, model_cfg, sys_b.tracker.mcfg,
@@ -730,15 +998,76 @@ def main():
     # calibrated base run: pixel + log-depth residuals, the oracle's pinhole
     f = 0.8 * w
     K = [[f, 0.0, w / 2.0], [0.0, f, h / 2.0], [0.0, 0.0, 1.0]]
-    _, _, launches_c = drive("calib", base_config(), N_CALIB, KF_CALIB, every,
-                             K=K)
+    drive("calib", base_config(), N_CALIB, KF_CALIB, every, K=K)
+
+    # phase 4: loop closure and relocalization; tpu_fast as its YAML states
+    # it, a seeded random retrieval head at the published sizes
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rparams = retrieval.init_retrieval_params(
+        g, backbone_dim=model_cfg.enc_embed_dim, proj_dim=1024,
+        codebook_size=CODEBOOK, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    sys_l, _, _ = drive("loop", tpu_fast_config(), N_LOOP, KF_LOOP,
+                        LOOP_KERNELS, retrieval_params=rparams,
+                        edge_capacity=EDGE_CAPACITY_LOOP)
+    log("loop split (isolated, ms): " + json.dumps(loop_split(sys_l)))
+    log(f"loop peak device memory: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (codebook "
+        f"{CODEBOOK * 1024 * 4 / 2**20:.0f} MiB, edge buffers at capacity "
+        f"{EDGE_CAPACITY_LOOP}: "
+        f"{(EDGE_CAPACITY_LOOP + 1) * h * w * 9 / 2**20:.0f} MiB)")
+    del sys_l
+
+    teleports = {
+        "teleport_reloc": (teleport_traj(4, 5), 0, {
+            "mode": "RELOC", "stats": {
+                "skipped": (">=", 1), "reloc_failed": (">=", 2),
+                "frames_reloc": (">=", 2), "relocs": ("==", 0),
+                "reinits": ("==", 0)}}, set()),
+        "teleport_reinit": (teleport_traj(4, 5), 2, {
+            "mode": "TRACKING", "stats": {
+                "skipped": ("==", 1), "reloc_failed": ("==", 2),
+                "reinits": ("==", 1), "relocs": ("==", 0),
+                "frames_tracking": (">=", 2), "keyframes": (">=", 3)}},
+            set()),
+        # the camera comes back: the relocalization must succeed, through
+        # add_factors(is_reloc=True) and the dense matcher
+        "teleport_return": (teleport_traj(4, 2, 3), 0, {
+            "mode": "TRACKING", "stats": {
+                "skipped": ("==", 1), "relocs": ("==", 1),
+                "reloc_failed": ("==", 1), "reinits": ("==", 0),
+                "keyframes": (">=", 3)}},
+            {"coarse_correlate", "take_along"}),
+    }
+    for label, (traj_t, reinit_after, expect, must_launch) in (
+            teleports.items()):
+        orc_t = oracle.make_params(traj_t.cuda(), desc_dim=model_cfg.desc_dim,
+                                   seed=0, device="cuda")
+        _kernels.reset_launch_counts()
+        system, _, backend = run_slam(
+            tpu_fast_config(), oracle_timing.make_params(net, orc_t),
+            model_cfg, len(traj_t), KF_TELEPORT, retrieval_params=rparams,
+            edge_capacity=EDGE_CAPACITY_LOOP, reinit_after=reinit_after)
+        launches_t = run_launches[label] = dict(_kernels.LAUNCHES)
+        assert_teleport(system, label, expect)
+        missing = sorted(k for k in must_launch | {"rope_qk"}
+                         if launches_t[k] <= 0)
+        if missing:
+            raise AssertionError(f"{label} run never launched {missing}: "
+                                 f"{launches_t}")
+        events = [(r["event"], r["frame"]) for r in system.metrics.rows
+                  if r["event"] != "track"]
+        log(f"{label}: {len(traj_t)} frames, end mode {system.mode.name}, "
+            f"stats {system.stats}, edges {system.factor_graph.n_edges}, "
+            f"events {events}, launches {launches_t}, backend per step "
+            f"(wall ms, GN iterations, keyframes, edges): "
+            f"{[(round(t, 3), it, k, e) for t, it, k, e in backend]}")
+        del system
 
     for r in records:
-        runs = (launches[r["name"]], launches_b[r["name"]],
-                launches_c[r["name"]])
-        r["launches"] = sum(runs)
-        (r["launches_tpu_fast_run"], r["launches_base_run"],
-         r["launches_calib_run"]) = runs
+        r["launches_by_run"] = {label: ln[r["name"]]
+                                for label, ln in run_launches.items()}
+        r["launches"] = sum(r["launches_by_run"].values())
         if r["launches"] <= 0:
             raise AssertionError(f"kernel {r['name']} was launched by no run")
     print(json.dumps({"kernels": records}))

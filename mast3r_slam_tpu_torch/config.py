@@ -2,12 +2,13 @@
 the typed tracker/matcher configs.
 
 Counterpart of ``mast3r_slam_tpu/config.py``. The port keeps its own
-``TrackerConfig``, ``MatchingConfig``, ``BAConfig`` and
-``FactorGraphConfig`` (same fields and defaults as
+``TrackerConfig``, ``MatchingConfig``, ``BAConfig``,
+``FactorGraphConfig`` and ``RetrievalConfig`` (same fields and defaults as
 ``mast3r_slam_tpu/slam/tracker.py:31``,
 ``mast3r_slam_tpu/slam/factor_graph.py:261``,
-``mast3r_slam_tpu/slam/ba.py:40`` and
-``mast3r_slam_tpu/slam/factor_graph.py:29``). ``yaml`` is imported inside
+``mast3r_slam_tpu/slam/ba.py:40``,
+``mast3r_slam_tpu/slam/factor_graph.py:29`` and
+``mast3r_slam_tpu/slam/retrieval.py:31``). ``yaml`` is imported inside
 ``load_config`` only: ``base_config()`` and ``tpu_fast_config()`` give the
 two presets as Python dicts, so a machine without PyYAML runs the port.
 """
@@ -102,8 +103,29 @@ class FactorGraphConfig(NamedTuple):
     pad_edge_batch: bool = True
     Q_conf: float = 1.5
     min_match_frac: float = 0.1
-    matcher: str = "iter_proj"  # "dense" is not ported yet
+    matcher: str = "iter_proj"  # or "dense" (ops/dense_matcher.py)
     ba_backend: str = "dense"   # the sharded backends are not ported yet
+
+
+class RetrievalConfig(NamedTuple):
+    """ASMK scoring settings (the ``retrieval`` block, beside the query-time
+    ``k`` / ``min_thresh`` the system reads directly)."""
+
+    nfeat: int = 300
+    ma_build: int = 1
+    ma_query: int = 5
+    alpha: float = 3.0
+    similarity_threshold: float = 0.0
+
+
+class RelocConfig(NamedTuple):
+    """Relocalization settings (the ``reloc`` block). ``reinit_after`` > 0:
+    after that many failed attempts in a row, tracking restarts from the
+    current frame as a fresh keyframe; 0 keeps relocalizing forever."""
+
+    min_match_frac: float = 0.3
+    strict: bool = True
+    reinit_after: int = 0
 
 
 def _yaml_loader():
@@ -258,4 +280,27 @@ def make_factor_graph_config(cfg: dict, edge_capacity: int = 256
         min_match_frac=float(o["min_match_frac"]),
         matcher=str(o.get("matcher", "iter_proj")),
         ba_backend=str(cfg.get("parallel", {}).get("ba_backend", "dense")),
+    )
+
+
+def make_retrieval_config(cfg: dict) -> RetrievalConfig:
+    r = cfg.get("retrieval", {})
+    d = RetrievalConfig()
+    return RetrievalConfig(
+        nfeat=int(r.get("nfeat", d.nfeat)),
+        ma_build=int(r.get("ma_build", d.ma_build)),
+        ma_query=int(r.get("ma_query", d.ma_query)),
+        alpha=float(r.get("alpha", d.alpha)),
+        similarity_threshold=float(r.get("similarity_threshold",
+                                         d.similarity_threshold)),
+    )
+
+
+def make_reloc_config(cfg: dict) -> RelocConfig:
+    r = cfg.get("reloc", {})
+    d = RelocConfig()
+    return RelocConfig(
+        min_match_frac=float(r.get("min_match_frac", d.min_match_frac)),
+        strict=bool(r.get("strict", d.strict)),
+        reinit_after=int(r.get("reinit_after", d.reinit_after)),
     )

@@ -14,6 +14,7 @@ reference checkpoint names, so the mapping is the one
   and ``dec_blocks2``.
 
 ``oracle_params_from_jax`` carries the oracle's scene/trajectory arrays.
+``retrieval_params_from_jax`` carries the retrieval head and codebook.
 ``slam_state_from_jax`` carries a keyframe store's and a factor graph's
 arrays, so both packages' solvers can start from one state.
 """
@@ -140,6 +141,26 @@ def oracle_params_from_jax(tree, device="cuda") -> dict:
     dev = resolve_device(device)
     return {k: (float(np.asarray(v)) if k == "pix_noise" else _t(v).to(dev))
             for k, v in tree.items()}
+
+
+def retrieval_params_from_jax(tree, device="cuda") -> dict:
+    """JAX retrieval params (``slam/retrieval.init_retrieval_params`` or
+    ``convert_retrieval_checkpoint``, numpy leaves: ``prewhiten.{m,p}``,
+    ``projector.{w,b}``, ``postwhiten`` or None, ``centroids``) -> the
+    same tree of fp32 tensors on ``device``. Both packages apply the
+    matrices as ``x @ p`` and ``x @ w``, so nothing is transposed."""
+    from .._device import resolve_device
+
+    dev = resolve_device(device)
+
+    def walk(v):
+        if v is None:
+            return None
+        if isinstance(v, dict):
+            return {k: walk(x) for k, x in v.items()}
+        return _t(v).to(dev)
+
+    return walk(dict(tree))
 
 
 def _rows(a, n):

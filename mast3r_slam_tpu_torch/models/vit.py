@@ -5,6 +5,8 @@ reference checkpoint (``enc_blocks.i.attn.qkv``, ``dec_blocks``/
 ``dec_blocks2``, ...). Attention is plain PyTorch, as the JAX package
 writes it (``vit.py:37-45``): matmul, fp32 logits and softmax, matmul. The
 projections return fp32 (as JAX's ``linear`` does), so q, k and v are fp32.
+The rotary embedding of q and k and their cast to v's dtype are one call of
+``rope.rope_qk`` (a hand-written kernel on the GPU) per attention.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 from torch import nn
 
 from .layers import Mlp, layernorm, linear
-from .rope import apply_rope, rope_tables
+from .rope import rope_qk, rope_tables
 
 
 def _split_heads(x, num_heads):
@@ -48,9 +50,8 @@ class Attention(nn.Module):
         q = qkv[:, :, 0].transpose(1, 2)
         k = qkv[:, :, 1].transpose(1, 2)
         v = qkv[:, :, 2].transpose(1, 2)
-        q = apply_rope(q, xrope)
-        k = apply_rope(k, xrope)
-        out = _merge_heads(_sdpa(q.to(v.dtype), k.to(v.dtype), v))
+        q, k = rope_qk(q, k, xrope, xrope, v.dtype)
+        out = _merge_heads(_sdpa(q, k, v))
         return linear(self.proj, out, dtype)
 
 
@@ -66,9 +67,8 @@ class CrossAttention(nn.Module):
         q = _split_heads(linear(self.projq, q_in, dtype), num_heads)
         k = _split_heads(linear(self.projk, kv_in, dtype), num_heads)
         v = _split_heads(linear(self.projv, kv_in, dtype), num_heads)
-        q = apply_rope(q, qrope)
-        k = apply_rope(k, krope)
-        out = _merge_heads(_sdpa(q.to(v.dtype), k.to(v.dtype), v))
+        q, k = rope_qk(q, k, qrope, krope, v.dtype)
+        out = _merge_heads(_sdpa(q, k, v))
         return linear(self.proj, out, dtype)
 
 

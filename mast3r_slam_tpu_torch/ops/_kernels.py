@@ -28,6 +28,7 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 
 # kernel source name -> (C symbol, ctypes argtypes)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SOURCES = {
     "scharr_rays": ("scharr_rays_launch",
                     [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
@@ -41,6 +42,8 @@ SOURCES = {
                 [_P] * 6 + [_I, _I] + [_F] * 9 + [_P]),
     "ba_edge_terms": ("ba_edge_terms_launch",
                       [_P] * 10 + [_I] * 7 + [_F] * 15 + [_P]),
+    "coarse_correlate": ("coarse_correlate_launch", [_P] * 3 + [_I] * 6 + [_P]),
+    "rope_qk": ("rope_qk_launch", [_P] * 8 + [_L] * 8 + [_I] * 7 + [_P]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -3,10 +3,12 @@
 Counterpart of ``mast3r_slam_tpu/slam/factor_graph.py``. Edges live in
 capacity-padded device buffers that grow by doubling. Candidate edges are
 decoded batched through the two-view model (``inference_symmetric``) and
-matched in both directions by the ``iter_proj`` + ``refine_matches``
-kernels; the consecutive edge can instead be built from the tracker's
-existing match (``add_tracked_edge``). The confidence lookup of the gate is
-the ``take_along`` kernel, the solvers are ``slam/ba.py``.
+matched in both directions, by the ``iter_proj`` + ``refine_matches``
+kernels (``matcher="iter_proj"``) or by the dense matcher whose coarse
+stage is the ``coarse_correlate`` kernel (``matcher="dense"``,
+``ops/dense_matcher.py``); the consecutive edge can instead be built from
+the tracker's existing match (``add_tracked_edge``). The confidence lookup
+of the gate is the ``take_along`` kernel, the solvers are ``slam/ba.py``.
 
 The JAX package writes edge rows with functional scatters and drops a row
 by routing it out of bounds. Here the buffers are updated in place and own
@@ -15,9 +17,8 @@ row, so no write needs the host to know how many rows were kept. The
 device keeps its own edge count (``n_edges_dev``) for the same reason:
 ``add_factors(defer=True)`` followed by a solve needs no host read.
 
-Not ported yet (raise ``NotImplementedError``; see ROADMAP.md):
-``matcher="dense"`` (``ops/dense_matcher.py``) and the sharded BA backends
-(``ba_backend`` other than ``"dense"``).
+Not ported yet (raises ``NotImplementedError``; see ROADMAP.md): the
+sharded BA backends (``ba_backend`` other than ``"dense"``).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 from .. import geometry
 from ..config import BAConfig, FactorGraphConfig, MatchingConfig
 from ..models import mast3r
-from ..ops import gather, matching
+from ..ops import dense_matcher, gather, matching
 from . import ba
 from .frame import KeyframeStore
 
@@ -41,13 +42,13 @@ _TODO = "is not ported yet; see ROADMAP.md queue 1"
 @torch.no_grad()
 def _match_edges_symmetric(params, cfg, mcfg, feat_i, pos_i, feat_j, pos_j,
                            ds: int = 1, matcher: str = "iter_proj",
-                           model_mod=mast3r):
+                           model_mod=mast3r, query_stride: int = 1):
     """Decode + match both directions of a batch of candidate edges
     (``factor_graph.py:61``). Returns idx_i2j, idx_j2i (b, P) int32;
     valid_match_j, valid_match_i (b, P, 1); Qii/Qjj/Qji/Qij (b, P)."""
-    if matcher != "iter_proj":
-        raise NotImplementedError(
-            f"local_opt.matcher={matcher!r} (the dense edge matcher) {_TODO}")
+    if matcher not in ("iter_proj", "dense"):
+        raise ValueError(f"local_opt.matcher must be 'iter_proj' or "
+                         f"'dense', got {matcher!r}")
     out = model_mod.inference_symmetric(params, feat_i, pos_i, feat_j,
                                         pos_j, cfg)
     if ds > 1:
@@ -57,12 +58,23 @@ def _match_edges_symmetric(params, cfg, mcfg, feat_i, pos_i, feat_j, pos_j,
     X21 = torch.cat([out["Xji"], out["Xij"]], dim=0)
     D11 = torch.cat([out["Dii"], out["Djj"]], dim=0)
     D21 = torch.cat([out["Dji"], out["Dij"]], dim=0)
-    kw = mcfg._asdict()
-    kw["subpixel"] = False   # BA gathers by index
-    # edge matches start cold (no warm-start index): keep the full LM
-    # budget even when the tracking preset trims max_iter
-    kw["max_iter"] = max(int(kw["max_iter"]), 10)
-    idx, valid = matching.match(X11, X21, D11, D21, **kw)
+    if matcher == "dense":
+        # the preset's dilation budget is the depth of the fine search; only
+        # the points BA will read are matched (query_stride columns)
+        idx, valid = dense_matcher.match_dense(
+            X11, X21, D11, D21, dist_thresh=mcfg.dist_thresh,
+            fine_radius=mcfg.radius,
+            fine_dilation=max(int(mcfg.dilation_max), 1),
+            lambda_init=mcfg.lambda_init,
+            convergence_thresh=mcfg.convergence_thresh,
+            query_stride=query_stride)
+    else:
+        kw = mcfg._asdict()
+        kw["subpixel"] = False   # BA gathers by index
+        # edge matches start cold (no warm-start index): keep the full LM
+        # budget even when the tracking preset trims max_iter
+        kw["max_iter"] = max(int(kw["max_iter"]), 10)
+        idx, valid = matching.match(X11, X21, D11, D21, **kw)
     idx = idx.to(torch.int32)
     hw = X11.shape[1] * X11.shape[2]
     flat = lambda a: a.reshape(b, hw).contiguous()
@@ -74,14 +86,17 @@ def _match_edges_symmetric(params, cfg, mcfg, feat_i, pos_i, feat_j, pos_j,
     }
 
 
-def _gate_edges(m, Q_conf):
+def _gate_edges(m, Q_conf, query_stride: int = 1):
     """Paired descriptor confidences and bidirectional match fractions
-    (``factor_graph.py:117``)."""
+    (``factor_graph.py:117``). With query-strided edge matching only every
+    qs-th point can be valid; the fractions are normalized to the matched
+    subset so ``min_match_frac`` keeps its meaning."""
     Qj = torch.sqrt(gather.take_along(m["Qii"], m["idx_i2j"], 1) * m["Qji"])
     Qi = torch.sqrt(gather.take_along(m["Qjj"], m["idx_j2i"], 1) * m["Qij"])
     valid_j = m["valid_match_j"][..., 0] & (Qj > Q_conf)
     valid_i = m["valid_match_i"][..., 0] & (Qi > Q_conf)
-    return (Qj, Qi, valid_j.float().mean(dim=1), valid_i.float().mean(dim=1))
+    return (Qj, Qi, valid_j.float().mean(dim=1) * query_stride,
+            valid_i.float().mean(dim=1) * query_stride)
 
 
 def _pairs(a, bwd):
@@ -92,7 +107,7 @@ def _pairs(a, bwd):
 @torch.no_grad()
 def _add_factors_body(bufs, params, feat, pos, ii_arr, jj_arr, consec, e0,
                       min_match_frac, strict, Q_conf, cfg, mcfg, ds, matcher,
-                      model_mod):
+                      model_mod, query_stride: int = 1):
     """The add_factors pipeline without a host read: pair-feature gather ->
     symmetric decode -> match -> confidence gate -> masked two-way append,
     the keep decision taken on the device (``factor_graph.py:137``).
@@ -105,8 +120,8 @@ def _add_factors_body(bufs, params, feat, pos, ii_arr, jj_arr, consec, e0,
     m = _match_edges_symmetric(
         params, cfg, mcfg, feat.index_select(0, ii_arr),
         pos.index_select(0, ii_arr), feat.index_select(0, jj_arr),
-        pos.index_select(0, jj_arr), ds, matcher, model_mod)
-    Qj, Qi, frac_j, frac_i = _gate_edges(m, Q_conf)
+        pos.index_select(0, jj_arr), ds, matcher, model_mod, query_stride)
+    Qj, Qi, frac_j, frac_i = _gate_edges(m, Q_conf, query_stride)
 
     invalid = (torch.minimum(frac_j, frac_i) < min_match_frac) & ~consec
     keep = ~invalid
@@ -201,6 +216,17 @@ class FactorGraph:
         self.K = K
 
         E, P = cfg.edge_capacity, keyframes.X.shape[1]
+        # match only the points BA reads: at point_stride == s the solvers
+        # use idx/valid/Q[:, ::s] only, and a stride over the row-major flat
+        # point axis is a column stride, so the dense edge matcher can skip
+        # the other columns. Only when the strided query grid stays an even
+        # image (the matcher's pyramid needs that).
+        qs = int(ba_cfg.point_stride)
+        w = keyframes.w
+        self.query_stride = (
+            qs if (cfg.matcher == "dense" and qs > 1 and w % qs == 0
+                   and (w // qs) % 2 == 0 and keyframes.h % 2 == 0)
+            else 1)
         self.capacity = E           # grows by doubling; see ensure_capacity
         self.edges_dropped = 0      # non-zero only with a max_edge_capacity
         self.n_edges = 0
@@ -280,7 +306,7 @@ class FactorGraph:
             torch.from_numpy(consec).to(dev), self.n_edges_dev,
             float(min_match_frac), bool(is_reloc), float(self.cfg.Q_conf),
             self.model_cfg, self.mcfg, self.downsample, self.cfg.matcher,
-            self.model_mod)
+            self.model_mod, self.query_stride)
 
         rec = (fracs, nb, consec, float(min_match_frac), self.capacity,
                bool(is_reloc))

@@ -158,6 +158,9 @@ class KeyframeStore:
         self.set_frame(idx, frame)
         return idx
 
+    def pop_last(self):
+        self.n_size -= 1
+
     def set_frame(self, idx: int, frame: Frame):
         self.n_size = max(self.n_size, idx + 1)
         self.dataset_idx[idx] = frame.frame_id

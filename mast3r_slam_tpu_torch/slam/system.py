@@ -4,21 +4,24 @@ mode machine.
 Counterpart of ``mast3r_slam_tpu/slam/system.py``: ``_track_gate_pre``
 (:78), ``_track_frame_body`` (:101), the fused path of ``TrackerRunner``
 (:442), ``SLAMSystem.make_frame`` / ``process_frame`` (:744, :764) with the
-INIT, TRACKING and RELOC modes, and ``backend_step`` (:993) without
-retrieval: every promoted keyframe is queued, gets its consecutive edge
-(from the tracker's match, or by a symmetric decode + match) and a global
-Sim(3) bundle adjustment over all keyframes (``slam/factor_graph.py``,
-``slam/ba.py``).
+INIT, TRACKING and RELOC modes, ``backend_prefetch`` (:961) and
+``backend_step`` (:993): every promoted keyframe is queued, gets its
+consecutive edge (from the tracker's match, or by a symmetric decode +
+match), with a retrieval database (``slam/retrieval.py``) its loop-closure
+candidates, and a global Sim(3) bundle adjustment over all keyframes
+(``slam/factor_graph.py``, ``slam/ba.py``). A lost frame is relocalized
+against the retrieved keyframes (``_relocalize`` :1112), and after
+``reloc.reinit_after`` failures in a row tracking restarts from it
+(``_reinit_from_current`` :1089).
 
 Per tracked frame the host waits for the device once per Gauss-Newton
 iteration (the 7x7 normal equations come to the host, ``slam/tracker.py``)
 and once for the five frame stats; per backend step once per BA iteration
-(the step norm).
+(the step norm) and once for the retrieval features and word ids.
 
 Not in this slice (each raises ``NotImplementedError``; see ROADMAP.md):
 the windowed driver (``runtime.tracking_window > 1``), the step-by-step
-tracking path, retrieval with loop closures and relocalization, a separate
-backend device, and ``run()``.
+tracking path, a separate backend device, and ``run()``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from ..ops import matching
 from . import tracker as tracker_mod
 from .factor_graph import FactorGraph
 from .frame import Frame, KeyframeStore, Mode, _score, fuse_pointmap
+from .retrieval import RetrievalDatabase
 
 _TODO = "is not ported yet; see ROADMAP.md queue 1"
 
@@ -245,9 +249,8 @@ class SLAMSystem:
 
     def __init__(self, params, model_cfg, config: dict, img_shape,
                  retrieval_params=None, K=None, keyframe_capacity=None,
-                 edge_capacity=None, model_module=mast3r, device="cuda"):
-        if retrieval_params is not None:
-            raise NotImplementedError(f"retrieval {_TODO}")
+                 edge_capacity=None, model_module=mast3r, device="cuda",
+                 metrics=None):
         self.device = resolve_device(device)
         rt = config.get("runtime", {})
         if rt.get("backend_device", "none") not in (None, "none", "None", 0,
@@ -298,8 +301,14 @@ class SLAMSystem:
             config_mod.make_factor_graph_config(config, e_cap),
             config_mod.make_ba_config(config), self.tracker.mcfg, K=K,
             downsample=ds, model_module=model_module)
+        self.retrieval = (
+            RetrievalDatabase(retrieval_params,
+                              config_mod.make_retrieval_config(config))
+            if retrieval_params else None)
         self.mode = Mode.INIT
         self.backend_queue: list = []
+        # kf store idx -> handles of retrieval.prefetch (backend_prefetch)
+        self._retrieval_prefetch: dict = {}
         # kf store idx -> (idx_f2k, valid, Qk), the tracker's match of the
         # promoted frame against its previous keyframe: lets the backend
         # build the consecutive edge without a symmetric decode + match
@@ -313,6 +322,13 @@ class SLAMSystem:
                       "relocs": 0, "reloc_failed": 0, "reinits": 0,
                       "frames_tracking": 0, "frames_reloc": 0,
                       "frames_init": 0}
+        self._reloc_fail_streak = 0
+        # reinit_after: after N failed relocalization attempts in a row,
+        # restart tracking from the current frame's mono pointmap as a
+        # fresh keyframe; 0 = never (relocalize forever)
+        self.reloc_cfg = config_mod.make_reloc_config(config)
+        self.reinit_after = self.reloc_cfg.reinit_after
+        self.metrics = metrics
 
     def _to_uimg(self, img_np: np.ndarray) -> np.ndarray:
         if img_np.dtype == np.uint8:
@@ -377,11 +393,18 @@ class SLAMSystem:
                 cm, self.tracker.last_match = self.tracker.last_match, None
                 if self._reuse_consec and cm is not None:
                     self._consec_match[len(self.keyframes) - 1] = cm
+            if self.metrics is not None:
+                self.metrics.log(
+                    event="track", frame=frame.frame_id, new_kf=bool(new_kf),
+                    reloc=bool(try_reloc), n_kf=len(self.keyframes),
+                    n_edges=self.factor_graph.n_edges,
+                    edges_dropped=self.factor_graph.edges_dropped,
+                    **self.tracker.last_stats)
             return self.mode
 
         if self.mode == Mode.RELOC:
             # the mono pointmap for the relocalization attempt; the attempt
-            # itself runs in the backend (retrieval), not in this slice
+            # itself runs in the backend (backend_step -> _relocalize)
             self.stats["frames_reloc"] += 1
             self._mono_init(frame)
             self.current_frame = frame
@@ -417,10 +440,25 @@ class SLAMSystem:
             need(jj.min() >= 0 and jj.max() < max(n, 1),
                  "edge endpoint jj out of range")
 
+    def backend_prefetch(self):
+        """Enqueue the device half of the queued backend steps' retrieval
+        updates (prep + quantize, one small piece of work per queued
+        keyframe) and start their copies to the host, so that they sit in
+        the device queue before the next frame's network
+        (``system.py:961``). ``backend_step`` takes the handles; the
+        results equal the inline path's."""
+        if self.retrieval is None:
+            return
+        for idx in self.backend_queue:
+            if idx not in self._retrieval_prefetch:
+                self._retrieval_prefetch[idx] = self.retrieval.prefetch(
+                    self.keyframes.feat[idx])
+
     def backend_step(self, flush_deferred=True):
-        """Process one backend task (``system.py:993``): the queued
-        keyframe's consecutive edge and a global optimization. Returns True
-        if work was done.
+        """Process one backend task (``system.py:993``): a pending
+        relocalization, or the queued keyframe's edges (consecutive and
+        retrieved) and a global optimization. Returns True if work was
+        done.
 
         ``flush_deferred=False`` skips the flush of deferred edge-gate
         readbacks (a caller draining several queued keyframes flushes once
@@ -428,8 +466,23 @@ class SLAMSystem:
         if flush_deferred:
             self.factor_graph.flush()
         if self.reloc_pending:
-            raise NotImplementedError(
-                f"relocalization (needs retrieval) {_TODO}")
+            self.reloc_pending = False
+            if self._relocalize(self.current_frame):
+                self.mode = Mode.TRACKING
+                self.stats["relocs"] += 1
+                self._reloc_fail_streak = 0
+            else:
+                self.stats["reloc_failed"] += 1
+                self._reloc_fail_streak += 1
+                if self.metrics is not None:
+                    self.metrics.log(event="reloc_failed",
+                                     frame=self.current_frame.frame_id,
+                                     streak=self._reloc_fail_streak)
+                if self.reinit_after and (self._reloc_fail_streak
+                                          >= self.reinit_after):
+                    self._reinit_from_current()
+            return True
+
         if not self.backend_queue:
             return False
         idx = self.backend_queue[0]
@@ -438,24 +491,97 @@ class SLAMSystem:
         # one was captured, else decode + match the pair
         cm = (self._consec_match.pop(idx, None)
               if self._reuse_consec else None)
+        kf_idx = []
+        if cm is None and idx > 0:
+            kf_idx.append(idx - 1)
+
+        if self.retrieval is not None:
+            rcfg = self.config["retrieval"]
+            pref = self._retrieval_prefetch.pop(idx, None)
+            feat = None if pref is not None else self.keyframes.feat[idx]
+            inds = self.retrieval.update(
+                feat, add_after_query=True, k=int(rcfg["k"]),
+                min_thresh=float(rcfg["min_thresh"]), prefetched=pref)
+            lc = set(inds) - {idx - 1}
+            if lc:
+                self.stats["loop_closures"] += len(lc)
+            kf_idx += inds
+
+        drop = {idx} if cm is None else {idx, idx - 1}
+        kf_idx = list(set(kf_idx) - drop)
         if cm is not None and idx > 0:
             self.factor_graph.add_tracked_edge(idx - 1, idx, *cm)
-        elif cm is None and idx > 0:
+        if kf_idx:
             # deferred gate: no host read here; the solve below masks by
             # the device's edge count and the match fractions are read at
             # the next backend step's flush
             self.factor_graph.add_factors(
-                [idx - 1], [idx],
+                kf_idx, [idx] * len(kf_idx),
                 float(self.config["local_opt"]["min_match_frac"]),
                 defer=True)
 
+        self._solve()
+        self.backend_queue.pop(0)
+        return True
+
+    def _solve(self):
         if self.use_calib:
             self.factor_graph.solve_GN_calib()
         else:
             self.factor_graph.solve_GN_rays()
 
-        self.backend_queue.pop(0)
-        return True
+    def _reinit_from_current(self):
+        """Way out of a relocalization that keeps failing
+        (``system.py:1089``): restart tracking from the current frame's
+        mono pointmap as a fresh keyframe (a new, disconnected trajectory
+        segment; its pose keeps the last tracked value). Off unless
+        ``reloc.reinit_after`` > 0."""
+        frame = self.current_frame
+        print(f"Re-initializing from frame {frame.frame_id} after "
+              f"{self._reloc_fail_streak} failed relocalizations")
+        self._reloc_fail_streak = 0
+        self.stats["reinits"] += 1
+        # the RELOC branch of process_frame gave the frame its mono pointmap
+        self.keyframes.append(frame)
+        self.stats["keyframes"] += 1
+        self.backend_queue.append(len(self.keyframes) - 1)
+        self.tracker.reset_idx()
+        self.mode = Mode.TRACKING
+        if self.metrics is not None:
+            self.metrics.log(event="reinit", frame=frame.frame_id,
+                             n_kf=len(self.keyframes))
+
+    def _relocalize(self, frame: Frame):
+        """Match the lost frame against the retrieved keyframes
+        (``system.py:1112``); on success it becomes a keyframe seeded with
+        the best candidate's pose."""
+        if self.retrieval is None:
+            return False
+        rcfg = self.config["retrieval"]
+        kf_idx = self.retrieval.update(
+            frame.feat, add_after_query=False, k=int(rcfg["k"]),
+            min_thresh=float(rcfg["min_thresh"]))
+        if not kf_idx:
+            return False
+        self.keyframes.append(frame)
+        n_kf = len(self.keyframes)
+        print(f"RELOCALIZING against kf {n_kf - 1} and {kf_idx}")
+        ok = self.factor_graph.add_factors(
+            [n_kf - 1] * len(kf_idx), list(kf_idx),
+            self.reloc_cfg.min_match_frac, is_reloc=self.reloc_cfg.strict)
+        if ok:
+            self.retrieval.update(frame.feat, add_after_query=True,
+                                  k=int(rcfg["k"]),
+                                  min_thresh=float(rcfg["min_thresh"]))
+            # seed the pose from the best retrieved keyframe
+            self.keyframes.T_WC[n_kf - 1] = self.keyframes.T_WC[kf_idx[0]]
+            self.stats["keyframes"] += 1
+            self._solve()
+            print("Success! Relocalized")
+            return True
+        self.keyframes.pop_last()
+        print("Failed to relocalize")
+        return False
 
     def run(self, *args, **kwargs):
         raise NotImplementedError(f"SLAMSystem.run {_TODO}")

@@ -96,3 +96,54 @@ def test_port_imports_without_jax():
         "    importlib.import_module(m.name)\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+@pytest.mark.parametrize("block", [
+    {}, {"nfeat": 123, "ma_build": 2, "ma_query": 7, "alpha": 2.0,
+         "similarity_threshold": 0.125}])
+def test_retrieval_config_equals_jax(block):
+    """``make_retrieval_config``: the ``retrieval`` block reaches the ASMK
+    scoring settings; absent keys keep the defaults (nfeat 300, multiple
+    assignment 1 / 5, alpha 3, threshold 0)."""
+    from mast3r_slam_tpu.slam import retrieval as jretrieval
+
+    cfg = tconfig.base_config()
+    cfg["retrieval"] = dict(cfg["retrieval"], **block)
+    jr, tr = jconfig.make_retrieval_config(cfg), tconfig.make_retrieval_config(cfg)
+    assert jr._fields == tr._fields and tuple(jr) == tuple(tr)
+    assert tconfig.RetrievalConfig() == tuple(jretrieval.RetrievalConfig())
+    if block:
+        assert (tr.nfeat, tr.ma_build, tr.ma_query) == (123, 2, 7)
+        assert tr.alpha == 2.0 and tr.similarity_threshold == 0.125
+    else:
+        assert tr == tconfig.RetrievalConfig()
+    assert (cfg["retrieval"]["k"], cfg["retrieval"]["min_thresh"]) == (3, 5e-3)
+
+
+def test_reloc_block_and_system_wiring():
+    """The ``reloc`` block as ``SLAMSystem`` reads it: ``min_match_frac``
+    and ``strict`` from the preset, ``reinit_after`` 0 unless set; the
+    retrieval settings reach the database."""
+    from mast3r_slam_tpu_torch.models import mast3r as tmast3r
+    from mast3r_slam_tpu_torch.slam import retrieval as tretrieval
+    from mast3r_slam_tpu_torch.slam.system import SLAMSystem
+
+    cfg = tconfig.tpu_fast_config()
+    assert tconfig.make_reloc_config(cfg) == (0.3, True, 0)
+    cfg["reloc"] = dict(cfg["reloc"], reinit_after=3, strict=False)
+    assert tconfig.make_reloc_config(cfg) == tconfig.RelocConfig(0.3, False, 3)
+    cfg["retrieval"] = dict(cfg["retrieval"], nfeat=17)
+    cfg["runtime"]["tracking_window"] = 1
+    mcfg = tmast3r.MASt3RConfig(img_size=(64, 96), enc_embed_dim=64,
+                                desc_dim=8, dtype="float32")
+    rparams = tretrieval.init_retrieval_params(
+        torch.Generator().manual_seed(1), backbone_dim=64, proj_dim=32,
+        codebook_size=64, device="cpu")
+    system = SLAMSystem(None, mcfg, cfg, mcfg.img_size,
+                        retrieval_params=rparams, keyframe_capacity=4,
+                        edge_capacity=8, device="cpu")
+    assert system.reinit_after == 3
+    assert system.retrieval.cfg == tconfig.make_retrieval_config(cfg)
+    assert system.retrieval.cfg.nfeat == 17
+    assert system.factor_graph.cfg.matcher == "dense"
+    assert system.factor_graph.query_stride == 4

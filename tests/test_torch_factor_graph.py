@@ -127,10 +127,12 @@ def test_gate_edges_matches_jax():
     m["idx_j2i"] = rng.integers(0, P, (b, P)).astype(np.int32)
     m["valid_match_j"] = rng.random((b, P, 1)) > 0.3
     m["valid_match_i"] = rng.random((b, P, 1)) > 0.6
-    outj = jfg._gate_edges({k: jnp.asarray(v) for k, v in m.items()}, 1.5)
-    outt = tfg._gate_edges({k: _t(v) for k, v in m.items()}, 1.5)
-    for a, b_ in zip(outt, outj):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b_), rtol=1e-6)
+    for qs in (1, 4):
+        outj = jfg._gate_edges({k: jnp.asarray(v) for k, v in m.items()},
+                               1.5, qs)
+        outt = tfg._gate_edges({k: _t(v) for k, v in m.items()}, 1.5, qs)
+        for a, b_ in zip(outt, outj):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b_), rtol=1e-6)
 
 
 # -- add_factors with the oracle model ----------------------------------------
@@ -165,7 +167,8 @@ def _replay_module(jp):
     return types.SimpleNamespace(inference_symmetric=sym)
 
 
-def _jax_graph(jp, capacity=16, max_cap=0):
+def _jax_graph(jp, capacity=16, max_cap=0, matcher="iter_proj",
+               point_stride=1):
     kfs = JStore(8, H * W, JCFG.num_patches, JCFG.enc_embed_dim, (H, W),
                  donate=False)
     traj = _traj()
@@ -178,12 +181,14 @@ def _jax_graph(jp, capacity=16, max_cap=0):
     return jfg.FactorGraph(
         jp, JCFG, kfs,
         jfg.FactorGraphConfig(edge_capacity=capacity,
-                              max_edge_capacity=max_cap),
-        jba.BAConfig(max_iters=2, point_chunk=1024),
+                              max_edge_capacity=max_cap, matcher=matcher),
+        jba.BAConfig(max_iters=2, point_chunk=1024,
+                     point_stride=point_stride),
         jfg.MatchingConfig(**MCFG_KW), model_module=joracle)
 
 
-def _port_graph(tp, model_module, capacity=16, max_cap=0, matcher="iter_proj"):
+def _port_graph(tp, model_module, capacity=16, max_cap=0, matcher="iter_proj",
+                point_stride=1):
     kfs = TStore(8, H * W, TCFG.num_patches, TCFG.enc_embed_dim, (H, W),
                  device="cpu")
     traj = _t(_traj())
@@ -197,8 +202,8 @@ def _port_graph(tp, model_module, capacity=16, max_cap=0, matcher="iter_proj"):
         tp, TCFG, kfs,
         FactorGraphConfig(edge_capacity=capacity, max_edge_capacity=max_cap,
                           matcher=matcher),
-        BAConfig(max_iters=2), MatchingConfig(**MCFG_KW),
-        model_module=model_module)
+        BAConfig(max_iters=2, point_stride=point_stride),
+        MatchingConfig(**MCFG_KW), model_module=model_module)
 
 
 @pytest.mark.parametrize("min_frac", [0.1, 0.999])
@@ -279,10 +284,60 @@ def test_deferred_add_factors_equivalent_to_sync(oracle_params):
     assert f2.last_solve_iters == 2
 
 
+@pytest.mark.parametrize("ii,jj,point_stride", [
+    ([0], [3], 4), ([0, 1], [3, 3], 4), ([2, 0, 1], [3, 3, 3], 4),
+    ([1, 0], [3, 3], 1)])
+def test_add_factors_dense_equals_jax(oracle_params, ii, jj, point_stride):
+    """``matcher="dense"`` on batches of 1-3 loop-closure candidates against
+    keyframe 3 (2, 4 and 6 image pairs into the matcher), as
+    ``backend_step`` proposes them. At ``point_stride`` 4 only every 4th
+    column is matched (``query_stride``) and the match fractions are
+    normalized to that subset."""
+    jp, tp = oracle_params
+    fj = _jax_graph(jp, matcher="dense", point_stride=point_stride)
+    ft = _port_graph(tp, _replay_module(jp), matcher="dense",
+                     point_stride=point_stride)
+    assert ft.query_stride == fj.query_stride == point_stride
+    okj = fj.add_factors(ii, jj, min_match_frac=0.1)
+    okt = ft.add_factors(ii, jj, min_match_frac=0.1)
+    assert okt == okj
+    assert ft.n_edges == 2 * len(ii)
+    _assert_edges_equal(ft, fj, matcher_frac=0.999)
+    if point_stride > 1:
+        vm = ft.valid_match[:ft.n_edges].reshape(-1, H, W)
+        assert not bool(vm[:, :, np.arange(W) % point_stride != 0].any())
+        assert float(vm[:, :, ::point_stride].float().mean()) > 0.3
+
+
+def test_add_factors_dense_is_reloc_equals_jax(oracle_params):
+    """Relocalization proposals, as ``_relocalize`` makes them: the new
+    keyframe against its candidates, synchronous and strict (one candidate
+    under the threshold rejects them all, and nothing is written)."""
+    jp, tp = oracle_params
+    fj = _jax_graph(jp, matcher="dense", point_stride=4)
+    ft = _port_graph(tp, _replay_module(jp), matcher="dense", point_stride=4)
+    for frac, expect in ((0.9999, False), (0.1, True)):
+        okj = fj.add_factors([3, 3], [0, 1], min_match_frac=frac,
+                             is_reloc=True)
+        okt = ft.add_factors([3, 3], [0, 1], min_match_frac=frac,
+                             is_reloc=True, defer=True)   # defer is ignored
+        assert okt == okj == expect
+        assert not ft._pending
+        assert ft.n_edges == fj.n_edges == (4 if expect else 0)
+        assert int(ft.n_edges_dev) == ft.n_edges
+    _assert_edges_equal(ft, fj, matcher_frac=0.999)
+    # the port's own oracle agrees on the decisions
+    fo = _port_graph(tp, toracle, matcher="dense", point_stride=4)
+    assert not fo.add_factors([3, 3], [0, 1], min_match_frac=0.9999,
+                              is_reloc=True)
+    assert fo.add_factors([3, 3], [0, 1], min_match_frac=0.1, is_reloc=True)
+    assert fo.n_edges == 4
+
+
 def test_left_out_backends_raise(oracle_params):
     _, tp = oracle_params
-    fg = _port_graph(tp, toracle, matcher="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    fg = _port_graph(tp, toracle, matcher="nearest")
+    with pytest.raises(ValueError, match="matcher"):
         fg.add_factors([0], [1], min_match_frac=0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfg.FactorGraph(None, None, fg.frames,

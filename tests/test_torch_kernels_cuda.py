@@ -8,7 +8,10 @@ versions' operation order, so floats agree to 1e-6 (observed: exactly) and
 integer outputs and converged flags are equal. The gathers copy and are
 exact. The two reductions (``gn_step``, ``ba_edge_terms``) sum fp32 terms
 in another order than the plain matmuls: 1e-5 of the largest entry, and
-two calls on the same inputs give the same bits."""
+two calls on the same inputs give the same bits. ``rope_qk`` rounds every
+product and sum as the plain version does: bit-equal. ``coarse_correlate``
+sums the features in the plain version's order and rounds the score to bf16
+before comparing: indices equal."""
 
 import numpy as np
 import pytest
@@ -237,6 +240,71 @@ def test_ba_edge_terms_matches_plain(cuda, mode, stride):
     assert float((g - gp).abs().max()) <= 1e-5 * float(gp.abs().max())
     assert float(S[5].abs().max()) == 0.0
     assert torch.equal(S, S.transpose(1, 2))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,nq,nk,d", [
+    (1, 16, 768, 768, 64), (4, 12, 768, 768, 64), (2, 3, 24, 40, 16),
+    (2, 2, 9, 5, 8)])
+def test_rope_qk_matches_plain(cuda, out_dtype, b, heads, nq, nk, d):
+    """Self-attention layout (strided views of a fused qkv projection) when
+    nq == nk, split-heads views with distinct tables otherwise; d = 8 takes
+    the scalar path."""
+    from mast3r_slam_tpu_torch.models import rope
+    from mast3r_slam_tpu_torch.ops import _kernels
+
+    g = torch.Generator(device="cpu").manual_seed(nq + d)
+    if nq == nk:
+        qkv = torch.randn(b, nq, 3, heads, d, generator=g).to(cuda)
+        q, k = (qkv[:, :, i].transpose(1, 2) for i in (0, 1))
+    else:
+        q = torch.randn(b, nq, heads * d, generator=g).to(cuda).reshape(
+            b, nq, heads, d).transpose(1, 2)
+        k = torch.randn(b, nk, heads * d, generator=g).to(cuda).reshape(
+            b, nk, heads, d).transpose(1, 2)
+
+    def tables(n, seed):
+        pos = torch.stack([torch.arange(n) // 7, (torch.arange(n) + seed) % 7],
+                          -1)[None].expand(b, n, 2).to(cuda)
+        return rope.rope_tables(pos, d, 100.0, torch.float32)
+
+    tq, tk = tables(nq, 0), tables(nk, 3)
+    n0 = _kernels.LAUNCHES["rope_qk"]
+    qo, ko = rope.rope_qk(q, k, tq, tk, out_dtype)
+    assert _kernels.LAUNCHES["rope_qk"] == n0 + 1
+    qp, kp = rope.rope_qk_plain(q, k, tq, tk, out_dtype)
+    assert qo.dtype == out_dtype and qo.is_contiguous()
+    assert torch.equal(qo, qp) and torch.equal(ko, kp)
+    with pytest.raises(ValueError):
+        rope.rope_qk(q.to(torch.bfloat16), k, tq, tk)
+
+
+@pytest.mark.parametrize("b,h,w,f,n,stride", [
+    (2, 384, 512, 24, 12288, 4), (1, 32, 48, 16, 384, 4),
+    (3, 30, 50, 8, 101, 4), (2, 16, 24, 32, 96, 2)])
+def test_coarse_correlate_matches_plain(cuda, b, h, w, f, n, stride):
+    from mast3r_slam_tpu_torch.ops import _kernels, dense_matcher
+
+    g = torch.Generator(device="cpu").manual_seed(h + n)
+    norm = torch.nn.functional.normalize
+    D11 = norm(torch.randn(b, h, w, f, generator=g), dim=-1).to(
+        torch.bfloat16).to(cuda)
+    D21 = norm(torch.randn(b, n, f, generator=g), dim=-1).to(
+        torch.bfloat16).to(cuda)
+    D21[:, 1] = D11[:, stride, 2 * stride]       # a planted unique winner
+    D21[0, 3] = float("nan")                     # NaN scores: first cell wins
+    D21[:, 5] = 0                                # all scores tie at 0
+    n0 = _kernels.LAUNCHES["coarse_correlate"]
+    got = dense_matcher.coarse_correlate(D21, D11, stride)
+    assert _kernels.LAUNCHES["coarse_correlate"] == n0 + 1
+    ref = dense_matcher.coarse_correlate_plain(D21, D11, stride)
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+    half = stride // 2
+    first = half * w + half                      # the center of cell 0
+    assert int(got[0, 3]) == first and int(got[0, 5]) == first
+    assert int(got[0, 1]) == (stride + half) * w + 2 * stride + half
+    with pytest.raises(ValueError):
+        dense_matcher.coarse_correlate(D21.float(), D11, stride)
 
 
 def test_wrappers_refuse_bad_inputs(cuda):

@@ -1,7 +1,12 @@
 """The whole slice: the port's per-frame SLAM frontend against the JAX
 package's, on the oracle fixture of ``tests/test_e2e_oracle.py`` (same
 config, trajectory and 10 frames), under both matcher presets, plus a
-short ``oracle_timing`` run with the ``TINY`` network.
+short ``oracle_timing`` run with the ``TINY`` network; then the backend,
+and with a retrieval database a loop-closure run (``tpu_fast``: dense edge
+matcher) and the two teleport runs of ``tests/test_failure_paths.py``
+(relocalization that fails forever, and the re-initialization that ends
+it), each against the JAX package on replayed oracle outputs with every
+stat equal and poses at the backend tolerance (2e-4).
 
 Two tolerances, for two different sources of difference:
 
@@ -30,6 +35,7 @@ from mast3r_slam_tpu.models import mast3r as jmast3r
 from mast3r_slam_tpu.models import oracle as joracle
 from mast3r_slam_tpu.models import oracle_timing as jot
 from mast3r_slam_tpu.slam.system import SLAMSystem as JSystem
+from mast3r_slam_tpu.utils.metrics import Metrics as JMetrics
 from mast3r_slam_tpu_torch import config as tconfig
 from mast3r_slam_tpu_torch.models import convert
 from mast3r_slam_tpu_torch.models import mast3r as tmast3r
@@ -37,6 +43,7 @@ from mast3r_slam_tpu_torch.models import oracle as toracle
 from mast3r_slam_tpu_torch.models import oracle_timing as tot
 from mast3r_slam_tpu_torch.slam.frame import Mode
 from mast3r_slam_tpu_torch.slam.system import SLAMSystem as TSystem
+from mast3r_slam_tpu_torch.utils.metrics import Metrics as TMetrics
 
 # the suite runs several test processes side by side on a few cores;
 # one intra-op thread each keeps torch from oversubscribing them
@@ -298,13 +305,185 @@ def test_oracle_timing_tiny_network_slice():
     _compare(sj, pj, st, pt, pose_tol=5e-4, map_tol=1e-3)
 
 
+# -- retrieval: loop closures, relocalization, re-initialization ---------------
+
+
+def _retrieval_params(seed=1, dim=CFG_KW["enc_embed_dim"], n_words=256):
+    """A random retrieval head and codebook as numpy, for both packages."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    tree = {"prewhiten": {"m": np.zeros(dim, np.float32),
+                          "p": np.eye(dim, dtype=np.float32)},
+            "projector": {"w": f(dim, dim) / np.sqrt(dim),
+                          "b": np.zeros(dim, np.float32)},
+            "postwhiten": {"m": np.zeros(dim, np.float32),
+                           "p": np.eye(dim, dtype=np.float32)},
+            "centroids": f(n_words, dim)}
+    return (jax.tree_util.tree_map(jnp.asarray, tree),
+            convert.retrieval_params_from_jax(tree, device="cpu"))
+
+
+def _compare_counts_and_poses(sj, pj, st, pt, pose_tol=2e-4):
+    assert st.stats == sj.stats
+    assert st.mode.name == sj.mode.name
+    k = len(st.keyframes)
+    assert k == len(sj.keyframes)
+    np.testing.assert_array_equal(st.keyframes.dataset_idx[:k].numpy(),
+                                  np.asarray(sj.keyframes.dataset_idx[:k]))
+    np.testing.assert_allclose(pt, pj, atol=pose_tol, rtol=0)
+    np.testing.assert_allclose(st.keyframes.T_WC[:k].numpy(),
+                               np.asarray(sj.keyframes.T_WC[:k]),
+                               atol=pose_tol, rtol=0)
+    assert st.retrieval.kf_counter == sj.retrieval.kf_counter
+
+
+@pytest.mark.parametrize("prefetch", [False, True])
+def test_loop_closure_slice_matches_jax_on_identical_geometry(fixture,
+                                                              prefetch):
+    """``tpu_fast`` as the YAML states it (``matcher: dense``,
+    ``reuse_consec_edge``, ``point_stride: 4``) with a retrieval database:
+    retrieved keyframes become loop-closure edges through ``match_dense``.
+    With ``prefetch`` the retrieval's device half is enqueued before each
+    frame (``backend_prefetch``): the same results."""
+    jp, _, _ = fixture
+    jr, tr = _retrieval_params()
+
+    def drive(system):
+        poses = []
+        for i in range(N_FRAMES):
+            if prefetch:
+                system.backend_prefetch()
+            system.process_frame(system.make_frame(
+                i, toracle.make_frame_image(i, H, W)))
+            while system.backend_step():
+                pass
+            poses.append(np.asarray(system.current_frame.T_WC))
+        return np.stack(poses)
+
+    sj = JSystem(jp, JCFG, _cfg(jconfig, "tpu_fast"), (H, W),
+                 retrieval_params=jr, keyframe_capacity=16, edge_capacity=64,
+                 model_module=joracle)
+    st = TSystem(None, TCFG, _cfg(tconfig, "tpu_fast"), (H, W),
+                 retrieval_params=tr, keyframe_capacity=16, edge_capacity=64,
+                 model_module=_replay_module(jp), device="cpu")
+    assert st.factor_graph.cfg.matcher == "dense"
+    assert st.factor_graph.query_stride == sj.factor_graph.query_stride == 4
+    pj, pt = drive(sj), drive(st)
+    sj.factor_graph.flush()
+    assert st.stats["loop_closures"] > 0
+    assert not st._retrieval_prefetch
+    _compare_counts_and_poses(sj, pj, st, pt)
+    _compare_backend(sj, st)
+    # more edges than the consecutive ones: loop closures made it in
+    assert st.factor_graph.n_edges > 2 * (st.stats["keyframes"] - 1)
+
+
+def _teleport_traj(n_good, n_bad):
+    """``tests/test_failure_paths.py::_teleport_traj``: smooth motion, then
+    a jump to a disjoint scene region, where tracking must fail."""
+    step = jnp.array([0.15, 0.0, 0.03, 0.0, 0.05, 0.0, 0.0])
+    Ts = [jsim3.identity()]
+    for _ in range(1, n_good):
+        Ts.append(jsim3.mul(Ts[-1], jsim3.exp(step)))
+    far = jsim3.exp(jnp.array([60.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]))
+    Ts.append(jsim3.mul(far, Ts[-1]))
+    for _ in range(1, n_bad):
+        Ts.append(jsim3.mul(Ts[-1], jsim3.exp(step)))
+    return jnp.stack(Ts)
+
+
+@pytest.mark.parametrize("reinit_after", [0, 2])
+def test_teleport_relocalization_matches_jax(reinit_after):
+    """``reinit_after=0``: every frame after the jump relocalizes and fails
+    (``reloc_failed`` counts them, the run ends in RELOC).
+    ``reinit_after=2``: after two failures tracking restarts from the
+    current frame as a fresh keyframe and the rest tracks."""
+    n_good, n_bad = 4, 5
+    jp = joracle.make_params(_teleport_traj(n_good, n_bad),
+                             desc_dim=CFG_KW["desc_dim"])
+    jr, tr = _retrieval_params()
+
+    def cfg(mod):
+        c = mod.load_config("configs/base.yaml")
+        c["tracking"] = dict(c["tracking"], match_frac_thresh=0.95)
+        c["reloc"] = dict(c["reloc"], reinit_after=reinit_after)
+        return c
+
+    mj, mt = JMetrics(), TMetrics()
+    sj = JSystem(jp, JCFG, cfg(jconfig), (H, W), retrieval_params=jr,
+                 keyframe_capacity=16, edge_capacity=64, model_module=joracle,
+                 metrics=mj)
+    st = TSystem(None, TCFG, cfg(tconfig), (H, W), retrieval_params=tr,
+                 keyframe_capacity=16, edge_capacity=64,
+                 model_module=_replay_module(jp), device="cpu", metrics=mt)
+    image = lambda i: toracle.make_frame_image(i, H, W)
+    pj = _drive(sj, image, n_good + n_bad, backend=True)
+    pt = _drive(st, image, n_good + n_bad, backend=True)
+    _compare_counts_and_poses(sj, pj, st, pt)
+    events = lambda m: [(r["event"], r["frame"]) for r in m.rows]
+    assert events(mt) == events(mj)
+    stats = st.stats
+    assert stats["skipped"] >= 1 and stats["relocs"] == 0
+    if reinit_after == 0:
+        assert st.mode == Mode.RELOC
+        assert stats["reloc_failed"] >= 2 and stats["frames_reloc"] >= 2
+        assert stats["reinits"] == 0
+        failed = [r for r in mt.rows if r["event"] == "reloc_failed"]
+        assert failed[-1]["streak"] == stats["reloc_failed"]
+    else:
+        assert st.mode == Mode.TRACKING
+        assert stats["reinits"] == 1 and stats["reloc_failed"] == 2
+        assert stats["skipped"] == 1 and stats["frames_tracking"] >= 2
+        assert any(r["event"] == "reinit" for r in mt.rows)
+        assert len(st.keyframes) >= 3
+
+
+def test_relocalization_success_matches_jax(fixture):
+    """A lost frame that still sees the mapped scene relocalizes: after a
+    forced RELOC the retrieved keyframes accept it (``add_factors`` with
+    ``is_reloc``), it becomes a keyframe seeded with the best candidate's
+    pose, and tracking resumes."""
+    jp, _, _ = fixture
+    jr, tr = _retrieval_params()
+
+    def cfg(mod):
+        c = _cfg(mod, "base")
+        # the frame after a forced loss is a neighbour of the keyframes
+        c["reloc"] = dict(c["reloc"], min_match_frac=0.05)
+        return c
+
+    sj = JSystem(jp, JCFG, cfg(jconfig), (H, W), retrieval_params=jr,
+                 keyframe_capacity=16, edge_capacity=64, model_module=joracle)
+    st = TSystem(None, TCFG, cfg(tconfig), (H, W), retrieval_params=tr,
+                 keyframe_capacity=16, edge_capacity=64,
+                 model_module=_replay_module(jp), device="cpu")
+    poses = {}
+    for name, system in (("j", sj), ("t", st)):
+        out = []
+        for i in range(6):
+            if i == 4:                    # lose tracking on purpose
+                system.mode = type(system.mode).RELOC
+            system.process_frame(system.make_frame(
+                i, toracle.make_frame_image(i, H, W)))
+            while system.backend_step():
+                pass
+            out.append(np.asarray(system.current_frame.T_WC))
+        poses[name] = np.stack(out)
+    sj.factor_graph.flush()
+    assert st.stats["relocs"] == 1 and st.stats["reloc_failed"] == 0
+    assert st.mode == Mode.TRACKING
+    _compare_counts_and_poses(sj, poses["j"], st, poses["t"])
+    _compare_backend(sj, st)
+
+
 def test_left_out_parts_raise():
     cfg = tconfig.tpu_fast_config()
     with pytest.raises(NotImplementedError, match="tracking_window"):
         TSystem(None, TCFG, cfg, (H, W), model_module=toracle, device="cpu")
     cfg["runtime"]["tracking_window"] = 1
-    with pytest.raises(NotImplementedError):
-        TSystem(None, TCFG, cfg, (H, W), retrieval_params={}, device="cpu")
+    # an empty retrieval tree means no retrieval, as in the JAX package
+    assert TSystem(None, TCFG, cfg, (H, W), retrieval_params={},
+                   keyframe_capacity=4, device="cpu").retrieval is None
     cfg["runtime"]["backend_device"] = 1
     with pytest.raises(NotImplementedError, match="backend_device"):
         TSystem(None, TCFG, cfg, (H, W), model_module=toracle, device="cpu")
@@ -312,9 +491,9 @@ def test_left_out_parts_raise():
     s = TSystem(None, TCFG, cfg, (H, W), keyframe_capacity=4,
                 model_module=toracle, device="cpu")
     assert s.backend_step() is False          # nothing queued: no work
-    s.reloc_pending = True                    # relocalization needs retrieval
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        s.backend_step()
+    s.reloc_pending = True          # without retrieval a relocalization fails
+    assert s.backend_step() is True
+    assert s.stats["reloc_failed"] == 1 and not s.reloc_pending
     with pytest.raises(NotImplementedError):
         s.run(None)
     s.tracker.fused = False
