@@ -35,7 +35,7 @@ SOURCES = {
     "iter_proj": ("iter_proj_launch",
                   [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]),
     "refine_matches": ("refine_matches_launch",
-                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+                       [_P] * 4 + [_I] * 9 + [_P]),
     "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I, _I, _I, _P]),
     "take_along": ("take_along_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "gn_step": ("gn_step_launch",

@@ -7,8 +7,11 @@ Counterpart of ``mast3r_slam_tpu/ops/dense_matcher.py``:
    grid of target descriptors and takes the best cell, a global search that
    stands in for a warm start. ``coarse_correlate`` ->
    ``csrc/coarse_correlate.cu`` (replaces the XLA ``coarse_correlate``,
-   ``dense_matcher.py:37``): a hand-written kernel that fuses the
-   correlation with the row argmax and never writes the score matrix;
+   ``dense_matcher.py:37``): a hand-written tensor-core kernel that fuses
+   the correlation with the row argmax and never writes the score matrix.
+   The tensor cores add the products in an order of their own, so the
+   kernel is held to the plain version by ``check_coarse_correlate``'s tie
+   rule, not index by index;
 2. polish + fine: the winners seed the pyramidal matcher the tracking path
    uses (``ops.matching.match`` with the subgrid LM, the window refine and
    the occlusion gate).
@@ -62,6 +65,74 @@ def coarse_correlate_plain(D21, D11, stride: int = 4, row_tile: int = 2048):
     return _cell_to_pixel(idx_c, h, w, stride).to(torch.int32)
 
 
+def _bf16_steps(s):
+    """Signed count of representable bf16 values between 0 and ``s`` (fp32
+    holding bf16 values): neighbours differ by one, +0 and -0 are both 0.
+    NaN has no place in the order; callers mask it."""
+    bits = s.contiguous().view(torch.int32) >> 16
+    mag = (bits & 0x7fff).to(torch.int64)
+    return torch.where(bits < 0, -mag, mag)
+
+
+def tie_rule_violations(scores, cells):
+    """Hold chosen cells to the plain scores by the rule a product with no
+    fixed summation order can meet.
+
+    ``scores`` (b, r, cells) fp32 holding bf16 values (``coarse_scores_plain``),
+    ``cells`` (b, r) the chosen coarse cells. Counts, over the rows:
+
+    * ``score_off``: the chosen cell's plain score is more than one bf16
+      step below the row's plain maximum (rows without a NaN score);
+    * ``unique_moved``: the plain maximum is unique by more than one bf16
+      step, yet the chosen cell is not the plain argmax;
+    * ``nan_wrong``: the row has a NaN score and the chosen cell is not the
+      first NaN cell (``argmax`` treats NaN as the maximum);
+    * ``identical``: the chosen cell equals the plain ``argmax``;
+    * ``rows``."""
+    cells = cells.to(torch.int64)
+    ref = torch.argmax(scores, dim=-1)
+    isnan = torch.isnan(scores)
+    has_nan = isnan.any(dim=-1)
+    lowest = torch.finfo(torch.float32).min
+    key = torch.where(isnan, torch.full_like(scores, lowest), scores)
+    steps = _bf16_steps(key)
+    top2 = torch.topk(steps, min(2, steps.shape[-1]), dim=-1).values
+    chosen = torch.gather(steps, -1, cells[..., None])[..., 0]
+    off = (top2[..., 0] - chosen > 1) & ~has_nan
+    if top2.shape[-1] > 1:
+        unique = (top2[..., 0] - top2[..., 1] > 1) & ~has_nan
+    else:
+        unique = ~has_nan
+    return {"score_off": int(off.sum()),
+            "unique_moved": int((unique & (cells != ref)).sum()),
+            "nan_wrong": int((has_nan & (cells != ref)).sum()),
+            "identical": int((cells == ref).sum()),
+            "rows": cells.numel()}
+
+
+def check_coarse_correlate(got, D21, D11, stride: int = 4,
+                           row_tile: int = 2048):
+    """``tie_rule_violations`` of ``coarse_correlate``'s output ``got``
+    (b, n) against the plain scores of the same inputs, in row tiles, plus
+    ``identical_share``. ``coarse_correlate`` meets the rule when
+    ``score_off``, ``unique_moved`` and ``nan_wrong`` are all 0."""
+    b, h, w, f = D11.shape
+    wc = -(-w // stride)
+    g = got.to(torch.int64)
+    cells = torch.div(torch.div(g, w, rounding_mode="floor"), stride,
+                      rounding_mode="floor") * wc + torch.div(
+                          g % w, stride, rounding_mode="floor")
+    total = {"score_off": 0, "unique_moved": 0, "nan_wrong": 0,
+             "identical": 0, "rows": 0}
+    for r0 in range(0, D21.shape[1], row_tile):
+        sc = coarse_scores_plain(D21[:, r0:r0 + row_tile], D11, stride)
+        part = tie_rule_violations(sc, cells[:, r0:r0 + row_tile])
+        for k in total:
+            total[k] += part[k]
+    total["identical_share"] = total["identical"] / max(total["rows"], 1)
+    return total
+
+
 def coarse_correlate(D21, D11, stride: int = 4):
     """argmax_j <D21[p], D11_coarse[j]> for every query point p
     (``dense_matcher.py:37``).
@@ -69,7 +140,9 @@ def coarse_correlate(D21, D11, stride: int = 4):
     D21 (b, n, f) bf16 query descriptors; D11 (b, h, w, f) bf16 target
     descriptor image. The score is rounded to bf16 before the argmax, the
     first maximum wins. Returns (b, n) int32 full-resolution linear indices
-    of the best coarse cell's center."""
+    of the best coarse cell's center. On the GPU the product runs on the
+    tensor cores, whose summation order can move a score by one bf16 step
+    and with it a tie (``check_coarse_correlate``)."""
     if D11.device.type == "cpu":
         return coarse_correlate_plain(D21, D11, stride)
     _kernels.check_cuda(D11, "coarse_correlate D11", torch.bfloat16, 4)
@@ -83,6 +156,10 @@ def coarse_correlate(D21, D11, stride: int = 4):
     if stride < 1 or D11.data_ptr() % 16 or D21.data_ptr() % 16:
         raise ValueError("coarse_correlate: needs stride >= 1 and 16-byte "
                          "aligned descriptors")
+    hc, wc = -(-h // stride), -(-w // stride)
+    if hc * wc * wc >= 2 ** 32:
+        raise ValueError(f"coarse_correlate: {hc} x {wc} cells are more than "
+                         "the kernel's cell index arithmetic holds")
     n = D21.shape[1]
     out = torch.empty((b, n), dtype=torch.int32, device=D11.device)
     _kernels.launch("coarse_correlate", _kernels.ptr(D21), _kernels.ptr(D11),

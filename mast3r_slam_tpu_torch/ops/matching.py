@@ -175,11 +175,18 @@ def refine_matches_plain(D11, D21, p1, radius: int = 3,
     return torch.stack([u0, v0], dim=-1).to(torch.int32)
 
 
-def refine_matches(D11, D21, p1, radius: int = 3, dilation_max: int = 5):
+def refine_matches(D11, D21, p1, radius: int = 3, dilation_max: int = 5,
+                   grid_width=None):
     """Coarse-to-fine dilated descriptor search (``matching.py:189``).
 
     D11 (b, h, w, f) and D21 (b, n, f), both bf16 or both int8; p1
     (b, n, 2) int32. Returns refined (b, n, 2) int32 positions.
+
+    ``grid_width`` only steers how the GPU kernel reads its bytes; the
+    result is the same. With it the queries are a row-major grid of that
+    width (n % grid_width == 0), so a block can own a 2-D patch of them,
+    whose search windows overlap; without it a block owns consecutive
+    queries.
     """
     if D11.device.type == "cpu":
         return refine_matches_plain(D11, D21, p1, radius, dilation_max)
@@ -196,11 +203,22 @@ def refine_matches(D11, D21, p1, radius: int = 3, dilation_max: int = 5):
     if f not in (8, 16, 24, 32):
         raise ValueError(f"refine_matches: descriptor width {f} not built "
                          "(8, 16, 24 or 32)")
+    if radius < 0:
+        raise ValueError(f"refine_matches: radius {radius} < 0")
+    gw = 0 if grid_width is None else int(grid_width)
+    if gw < 0 or (gw > 0 and n % gw):
+        raise ValueError(f"refine_matches: grid_width {grid_width} does not "
+                         f"divide the {n} queries")
+    # a descriptor row is read as units of 8 values: 16 bytes (bf16), 8 (int8)
+    unit = 8 * D11.element_size()
+    if D11.data_ptr() % unit or D21.data_ptr() % unit or p1.data_ptr() % 8:
+        raise ValueError(f"refine_matches: descriptors must be {unit}-byte "
+                         "aligned and p1 8-byte aligned")
     out = torch.empty((b, n, 2), dtype=torch.int32, device=p1.device)
     _kernels.launch("refine_matches", _kernels.ptr(D11), _kernels.ptr(D21),
                     _kernels.ptr(p1), _kernels.ptr(out), b, h, w, n, f,
                     int(radius), int(dilation_max),
-                    int(D11.dtype == torch.int8))
+                    int(D11.dtype == torch.int8), gw)
     return out
 
 
@@ -298,7 +316,8 @@ def match(X11, X21, D11, D21, idx_1_to_2_init=None, max_iter: int = 10,
                 else (lambda x: x.to(torch.bfloat16)))
         p1i = refine_matches(cast(D11).contiguous(),
                              cast(D21.reshape(b, n, -1)).contiguous(),
-                             p1i.contiguous(), radius, dilation_max)
+                             p1i.contiguous(), radius, dilation_max,
+                             grid_width=wq)
 
     idx = pixel_to_lin(p1i.to(torch.int64), w)
     if not subpixel:

@@ -12,6 +12,13 @@ The stated rule, for the same seeded numpy inputs through both packages:
 * a NaN row gives the first cell (``argmax`` treats NaN as the maximum and
   takes the first), an all-equal row the first cell.
 
+On the GPU the product runs on the tensor cores, with no fixed summation order
+either, so the port's own check of its kernel is the same kind of rule:
+``dense_matcher.tie_rule_violations`` / ``check_coarse_correlate``. Here the
+rule is tested on hand-made scores, and the JAX function is held to it
+against the port's plain scores on inputs with known answers
+(``utils/kernel_cases.coarse_edge_case``).
+
 ``match_dense`` is then compared on the fixtures of
 ``tests/test_dense_matcher.py``: indices equal at >= 99.9% of the pixels
 (observed: all) and valid flags at >= 99% (observed: 99.35%, whole 2x2
@@ -125,6 +132,68 @@ def test_coarse_correlate_reads_the_strided_grid_and_clamps_centers():
     np.testing.assert_array_equal(ct, cj)
     # cell (2, 3): v = min(8 + 2, 9) = 9, u = min(12 + 2, 13) = 13
     assert ct[0, 11] == 9 * w + 13
+
+
+def _scores(rows):
+    """(1, r, cells) fp32 scores that hold bf16 values."""
+    return torch.tensor([rows], dtype=torch.float32).to(
+        torch.bfloat16).to(torch.float32)
+
+
+STEP = 2.0 ** -7          # one bf16 step for scores in [1, 2)
+
+
+@pytest.mark.parametrize("case,rows,cells,expect", [
+    # a tie that a one-step rounding flip moved to the other cell: accepted
+    ("one_step_tie_flip", [[1.0, 1.0 + STEP, 1.0 + STEP, 0.5]], [2],
+     dict(score_off=0, unique_moved=0, nan_wrong=0, identical=0)),
+    # the chosen score is one step below a unique-by-one-step maximum
+    ("one_step_below", [[1.0, 1.0 + STEP, 0.5, 0.25]], [0],
+     dict(score_off=0, unique_moved=0, nan_wrong=0, identical=0)),
+    # two steps below the maximum: rejected on both counts
+    ("two_step_miss", [[1.0, 1.0 + 2 * STEP, 0.5, 0.25]], [0],
+     dict(score_off=1, unique_moved=1, nan_wrong=0, identical=0)),
+    # the maximum is unique by two steps and was chosen
+    ("unique_kept", [[1.0, 1.0 + 2 * STEP, 0.5, 0.25]], [1],
+     dict(score_off=0, unique_moved=0, nan_wrong=0, identical=1)),
+    # +0 and -0 are the same score; the first of them is the plain argmax
+    ("signed_zero_tie", [[-1.0, -0.0, 0.0, -2.0]], [2],
+     dict(score_off=0, unique_moved=0, nan_wrong=0, identical=0)),
+    # a NaN score wins, the first NaN cell is the answer
+    ("nan_first", [[3.0, float("nan"), float("nan"), 9.0]], [1],
+     dict(score_off=0, unique_moved=0, nan_wrong=0, identical=1)),
+    ("nan_second_is_wrong", [[3.0, float("nan"), float("nan"), 9.0]], [2],
+     dict(score_off=0, unique_moved=0, nan_wrong=1, identical=0)),
+    ("nan_row_number_is_wrong", [[3.0, float("nan"), 1.0, 9.0]], [3],
+     dict(score_off=0, unique_moved=0, nan_wrong=1, identical=0)),
+])
+def test_tie_rule_on_hand_made_scores(case, rows, cells, expect):
+    got = tdm.tie_rule_violations(_scores(rows), torch.tensor([cells]))
+    assert {k: got[k] for k in expect} == expect, (case, got)
+    assert got["rows"] == 1
+
+
+@pytest.mark.parametrize("b,h,w,f,n,stride", [(2, 32, 48, 24, 101, 4),
+                                              (1, 30, 50, 8, 77, 4),
+                                              (2, 16, 24, 32, 96, 2)])
+def test_jax_coarse_correlate_meets_the_ports_tie_rule(b, h, w, f, n, stride):
+    """The rule the GPU kernel is held to, applied to the JAX function: its
+    choices against the port's plain scores, and exact indices on the rows
+    whose answer is known (NaN query, all-equal row, a maximum of exactly
+    zero, a NaN cell, a planted winner)."""
+    from mast3r_slam_tpu_torch.utils import kernel_cases
+
+    D11, D21, expect = kernel_cases.coarse_edge_case(b, h, w, f, n, stride,
+                                                     seed=h + f)
+    cj, ct = _both(D21, D11, stride)
+    tD21, tD11 = _t(D21).to(torch.bfloat16), _t(D11).to(torch.bfloat16)
+    for got in (cj, ct):
+        chk = tdm.check_coarse_correlate(_t(got), tD21, tD11, stride)
+        assert (chk["score_off"], chk["unique_moved"], chk["nan_wrong"]) == (
+            0, 0, 0), chk
+        assert chk["identical_share"] >= 0.99
+        for i, r, cell in expect:
+            assert got[i, r] == kernel_cases.cell_center(cell, h, w, stride)
 
 
 @pytest.mark.parametrize("qs", [1, 4])

@@ -9,9 +9,14 @@ integer outputs and converged flags are equal. The gathers copy and are
 exact. The two reductions (``gn_step``, ``ba_edge_terms``) sum fp32 terms
 in another order than the plain matmuls: 1e-5 of the largest entry, and
 two calls on the same inputs give the same bits. ``rope_qk`` rounds every
-product and sum as the plain version does: bit-equal. ``coarse_correlate``
-sums the features in the plain version's order and rounds the score to bf16
-before comparing: indices equal."""
+product and sum as the plain version does: bit-equal. ``refine_matches``
+adds exact products in the plain version's order (bf16) or exact integers
+(int8): equal at every point, on both of its paths. ``coarse_correlate``
+runs on the tensor cores, which add in an order of their own: it is held to
+``dense_matcher.check_coarse_correlate``'s tie rule (the chosen cell's plain
+score within one bf16 step of the row's plain maximum, the plain index where
+the maximum is unique by more than a step, the first NaN cell on NaN rows),
+and to exact indices on rows whose answer is known."""
 
 import numpy as np
 import pytest
@@ -279,30 +284,54 @@ def test_rope_qk_matches_plain(cuda, out_dtype, b, heads, nq, nk, d):
         rope.rope_qk(q.to(torch.bfloat16), k, tq, tk)
 
 
+@pytest.mark.parametrize("kind,dtype", [
+    (k, t) for k in ("smooth", "random", "border", "nan")
+    for t in ("bf16", "int8") if (k, t) != ("nan", "int8")])   # no int8 NaN
+def test_refine_matches_adversarial_starts(cuda, kind, dtype):
+    """The generators of the CPU tests (``tests/test_torch_matching.py``):
+    b = 2, a query grid that is no multiple of the block's patch, both window
+    sizes, with and without the grid width."""
+    from mast3r_slam_tpu_torch.ops import _kernels, matching
+    from mast3r_slam_tpu_torch.utils import kernel_cases
+
+    gh, gw, h, w, f = 37, 53, 96, 128, 24
+    A, Q, p1 = (torch.from_numpy(a).to(cuda) for a in
+                kernel_cases.refine_case(kind, 2, gh, gw, h, w, f, seed=5))
+    cast = (matching._quantize_int8 if dtype == "int8"
+            else (lambda x: x.to(torch.bfloat16)))
+    A, Q = cast(A).contiguous(), cast(Q).contiguous()
+    for r, d in ((1, 1), (3, 5)):
+        ref = matching.refine_matches_plain(A, Q, p1, r, d)
+        for grid_width in (gw, None):
+            n0 = _kernels.LAUNCHES["refine_matches"]
+            got = matching.refine_matches(A, Q, p1, r, d,
+                                          grid_width=grid_width)
+            assert _kernels.LAUNCHES["refine_matches"] == n0 + 1
+            assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("b,h,w,f,n,stride", [
     (2, 384, 512, 24, 12288, 4), (1, 32, 48, 16, 384, 4),
     (3, 30, 50, 8, 101, 4), (2, 16, 24, 32, 96, 2)])
-def test_coarse_correlate_matches_plain(cuda, b, h, w, f, n, stride):
+def test_coarse_correlate_meets_tie_rule(cuda, b, h, w, f, n, stride):
     from mast3r_slam_tpu_torch.ops import _kernels, dense_matcher
+    from mast3r_slam_tpu_torch.utils import kernel_cases
 
-    g = torch.Generator(device="cpu").manual_seed(h + n)
-    norm = torch.nn.functional.normalize
-    D11 = norm(torch.randn(b, h, w, f, generator=g), dim=-1).to(
-        torch.bfloat16).to(cuda)
-    D21 = norm(torch.randn(b, n, f, generator=g), dim=-1).to(
-        torch.bfloat16).to(cuda)
-    D21[:, 1] = D11[:, stride, 2 * stride]       # a planted unique winner
-    D21[0, 3] = float("nan")                     # NaN scores: first cell wins
-    D21[:, 5] = 0                                # all scores tie at 0
+    D11, D21, expect = kernel_cases.coarse_edge_case(b, h, w, f, n, stride,
+                                                     seed=h + n)
+    D11, D21 = (torch.from_numpy(a).to(cuda).to(torch.bfloat16)
+                for a in (D11, D21))
     n0 = _kernels.LAUNCHES["coarse_correlate"]
     got = dense_matcher.coarse_correlate(D21, D11, stride)
     assert _kernels.LAUNCHES["coarse_correlate"] == n0 + 1
-    ref = dense_matcher.coarse_correlate_plain(D21, D11, stride)
-    assert got.dtype == torch.int32 and torch.equal(got, ref)
-    half = stride // 2
-    first = half * w + half                      # the center of cell 0
-    assert int(got[0, 3]) == first and int(got[0, 5]) == first
-    assert int(got[0, 1]) == (stride + half) * w + 2 * stride + half
+    assert got.dtype == torch.int32 and got.shape == (b, n)
+    chk = dense_matcher.check_coarse_correlate(got, D21, D11, stride)
+    assert (chk["score_off"], chk["unique_moved"], chk["nan_wrong"]) == (
+        0, 0, 0), chk
+    assert chk["identical_share"] >= 0.99
+    got = got.cpu()
+    for i, r, cell in expect:
+        assert int(got[i, r]) == kernel_cases.cell_center(cell, h, w, stride)
     with pytest.raises(ValueError):
         dense_matcher.coarse_correlate(D21.float(), D11, stride)
 
@@ -314,6 +343,15 @@ def test_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         matching.refine_matches(D, D.reshape(1, 64, 24), torch.zeros(
             1, 64, 2, dtype=torch.int32, device=cuda))
+    # contiguous, but the rows do not start on a 16-byte boundary
+    flat = torch.zeros(8 * 8 * 24 + 1, dtype=torch.bfloat16, device=cuda)
+    Dm = flat[1:].reshape(1, 8, 8, 24)
+    Db = torch.zeros(1, 8, 8, 24, dtype=torch.bfloat16, device=cuda)
+    p0 = torch.zeros(1, 64, 2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        matching.refine_matches(Dm, Db.reshape(1, 64, 24), p0)
+    with pytest.raises(ValueError, match="grid_width"):
+        matching.refine_matches(Db, Db.reshape(1, 64, 24), p0, grid_width=7)
     img = torch.zeros(1, 8, 8, 9, device=cuda)
     with pytest.raises(ValueError):                     # not contiguous
         matching.iter_proj(img, torch.zeros(1, 4, 6, device=cuda)[..., :3],

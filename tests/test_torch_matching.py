@@ -94,6 +94,38 @@ def test_refine_matches_equals_full_unfold(refine_dtype, radius, dil):
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("kind,refine_dtype", [
+    (k, t) for k in ("smooth", "random", "border", "nan")
+    for t in ("bfloat16", "int8") if (k, t) != ("nan", "int8")])  # no int8 NaN
+def test_refine_matches_adversarial_starts_equal_jax(kind, refine_dtype):
+    """The inputs the GPU kernel is checked on (``utils/kernel_cases``), small:
+    b = 2, 37 x 53 = 1,961 queries (no multiple of 128), scattered starts,
+    starts on the border and the corners, NaNs planted in image and
+    queries. Equal integers: int8 sums are exact; the bf16 fields leave no
+    two taps within fp32 rounding of each other at these seeds."""
+    from mast3r_slam_tpu_torch.utils import kernel_cases
+
+    D11, D21, p1 = kernel_cases.refine_case(kind, 2, 37, 53, 48, 64, 24,
+                                            seed=5)
+    if refine_dtype == "int8":
+        q = lambda x: np.clip(np.round(x * 127.0), -127, 127).astype(np.int8)
+        Dj, Qj = jnp.asarray(q(D11)), jnp.asarray(q(D21))
+        Dt, Qt = torch.from_numpy(q(D11)), torch.from_numpy(q(D21))
+    else:
+        Dj = jnp.asarray(D11).astype(jnp.bfloat16)
+        Qj = jnp.asarray(D21).astype(jnp.bfloat16)
+        Dt = torch.from_numpy(D11).to(torch.bfloat16)
+        Qt = torch.from_numpy(D21).to(torch.bfloat16)
+    for radius, dil in ((1, 1), (3, 5)):
+        ref = jm.refine_matches(Dj, Qj, jnp.asarray(p1), radius, dil)
+        out = tm.refine_matches(Dt, Qt, torch.from_numpy(p1), radius, dil,
+                                grid_width=53)
+        assert out.dtype == torch.int32
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+        moved = np.abs(out.numpy() - p1).max()
+        assert moved > 0                    # the search really ran
+
+
 @pytest.mark.parametrize("preset", ["base", "tpu_fast"])
 @pytest.mark.parametrize("refine_dtype", ["bfloat16", "int8"])
 def test_match_matches_jax(preset, refine_dtype):
