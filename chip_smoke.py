@@ -24,6 +24,17 @@ Phases (any failure exits non-zero and prints no result line):
    count that is no multiple of a block's rows). ``refine_matches`` must
    equal its plain version at every point, also from uniformly random
    starts, starts on the image border and with NaNs planted, at full size.
+   ``gn_step`` (the tracker's whole solve in one launch) is held to
+   ``tracker.gn_solve_plain`` at N = 196,608 in both residual modes: a
+   solve that converges, one with no valid match (fails in 1 iteration)
+   and one that runs to ``max_iters`` (equal iterations and failed flags,
+   pose within 2e-5, cost within 1e-5 relative); ``ba_edge_terms`` (the
+   BA system in one launch) to ``ba.edge_system_plain`` in three modes at
+   E = 8, every 4th and every point, at E = 42, 9 keyframes, and from 64
+   to 256 keyframes with up to 1,204 edges (1e-5 of the largest entry of
+   each output). Both are timed where their fixed costs show (few points)
+   and at full size; the BA kernel also against the terms-then-assemble
+   path that it replaced.
 3. Main path at full width: ViT-L MASt3R (384x512, bf16 transformer, bf16
    head, random weights from a seeded generator) driven through
    ``models.oracle_timing`` (the real network runs on every call; the SLAM
@@ -50,6 +61,11 @@ Phases (any failure exits non-zero and prints no result line):
    after two failures (``reinit_after=2``), and a camera that returns to
    the mapped scene and relocalizes.
 
+The loop run's final factor graph is also put through ``ba_edge_terms``,
+its plain version and the plain version in float64, and one more tracked
+frame of the tpu_fast run counts its host syncs (PyTorch's sync debug
+mode) before one is profiled.
+
 Output: per-frame, per-stage and per-keyframe backend times, peak memory,
 then a line
 ``{"kernels": [...]}``, the ``nvidia-smi`` name/power-limit line, and last
@@ -69,6 +85,9 @@ MEM_BW = 3.35e12        # HBM3 bytes/s
 PEAK_OPS = {"fp32": 67e12,      # FLOP/s outside the tensor cores
             "bf16": 989e12,     # tensor cores
             "int8": 1979e12}    # tensor cores, OP/s
+# fp32 instructions/s when each FLOP is one instruction (the kernels are
+# built with -fmad=false: no fused multiply-add); reported beside the bound
+FP32_NOFMA = 33.5e12
 N_FAST, KF_FAST = 17, 4
 N_BASE, KF_BASE = 5, 2
 N_CALIB, KF_CALIB = 5, 2
@@ -579,73 +598,366 @@ def check_backend_kernels(rec, X, n):
         if not (torch.equal(a, b) and max(errs) <= 1e-5):
             raise AssertionError(f"gn_step {mode}: rel err H/g/cost {errs}, "
                                  f"two calls equal: {torch.equal(a, b)}")
-        rec("gn_step", f"{mode} N={n}", float((a - ref).abs().max()),
+        rec("gn_step", f"{mode} N={n} one linearization (one iteration)",
+            float((a - ref).abs().max()),
             lambda: tracker.gn_step(T, Xf, tgt, si, tcfg.huber, proj),
             lambda: tracker.gn_step_plain(T, Xf, tgt, si, tcfg.huber, proj),
             None, n * (12 + 8 * d) + 57 * 4 + 32,
-            # per row: residual + weight ~25, A (7), A A^T (56), g (14)
+            # FLOP per row: residual + weight ~25, A (7), A A^T (56), g (14)
             n * (40 + d * 105), "fp32",
             "mast3r_slam_tpu/slam/tracker.py:60 (_gn_step_t with _act_t, "
             "_ray_dist_t and the pose Jacobians, XLA)",
             "mast3r_slam_tpu_torch/csrc/gn_step.cu",
             tolerance="1e-5 of the largest entry of each of H, g, cost",
             ref_max_abs=float(ref.abs().max()), max_rel_err=max(errs),
-            two_calls_bit_equal=True)
+            two_calls_bit_equal=True,
+            bound_ms_fp32_nofma=n * (40 + d * 105) / FP32_NOFMA * 1e3)
+        check_gn_solve(rec, rel_err, mode, Xk, tgt, si, proj, tcfg, d, n)
 
-    # 7. ba_edge_terms: three modes, 8 edges, every 4th and every point
-    n_kf, E = 4, 8
-    bcfg0 = ba.BAConfig()
-    v, u = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    Xs = []
-    for k in range(n_kf):
-        z = 3.0 + 0.5 * np.sin(u / 40.0 + k) + 0.01 * rng.standard_normal(
-            u.shape)
-        Xs.append(np.stack([(u - w / 2) / (0.8 * w) * z,
-                            (v - h / 2) / (0.8 * w) * z, z], -1).reshape(n, 3))
-    Xs = f32(np.stack(Xs))
-    Cs = f32(rng.uniform(-0.3, 5.0, (n_kf, n)))
-    Tk = sim3.exp(f32(0.02 * rng.standard_normal((n_kf, 7))))
-    ii = i32([0, 1, 1, 2, 2, 3, 0, 3])
-    jj = i32([1, 0, 2, 1, 3, 2, 3, 0])
-    idx = i32(np.clip(np.arange(n)[None] + rng.integers(-3, 4, (E, n)), 0,
-                      n - 1))
-    valid = torch.from_numpy(rng.random((E, n)) > 0.1).to(dev)
-    Q = f32(rng.uniform(1.0, 4.5, (E, n)))
-    mask = torch.ones(E, device=dev)
-    mask[5] = 0.0
-    Tij = sim3.rel(Tk[ii.long()], Tk[jj.long()]).contiguous()
+    check_edge_system(rec, rel_err, rng, n, h, w)
+    solver_scaling(lambda r: log("solver scaling", json.dumps(r)))
+
+
+def check_gn_solve(rec, rel_err, mode, Xk, tgt, si, proj, tcfg, d, n):
+    """The fused solve (one launch of ``gn_step``: every iteration on the
+    device) against ``gn_solve_plain`` at N = 196,608: frame points that
+    the true pose maps onto the keyframe's, plus noise and outliers, so the
+    solve converges; the same with no valid match (fails in 1 iteration);
+    and with both thresholds at 0 (runs to ``max_iters``)."""
+    import torch
+
+    from mast3r_slam_tpu_torch import geometry
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.slam import tracker
+
+    if proj is not None:    # the calibrated tracker's points lie on rays
+        K = torch.tensor([[proj.fx, 0, proj.cx], [0, proj.fy, proj.cy],
+                          [0, 0, 1.0]], device="cuda")
+        Xk = geometry.constrain_points_to_ray((proj.h, proj.w), Xk, K)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    T_true = sim3.exp(torch.tensor([0.02, -0.01, 0.015, 0.006, -0.004, 0.003,
+                                    0.008], device="cuda"))
+    Xf = sim3.act(sim3.inv(T_true), Xk)
+    Xf = Xf + 0.002 * torch.randn(Xf.shape, generator=g, device="cuda")
+    bad = torch.rand(n, generator=g, device="cuda") < 0.03
+    Xf = torch.where(bad[:, None], Xf + torch.randn(
+        Xf.shape, generator=g, device="cuda"), Xf).contiguous()
+    T0 = sim3.identity(device="cuda")
+    cases = {"converges": (si, tcfg),
+             "no_valid_match": (torch.zeros_like(si), tcfg),
+             "max_iters": (si, tcfg._replace(max_iters=8, rel_error=0.0,
+                                             delta_norm=0.0))}
+    for case, (s, cfg) in cases.items():
+        a = tracker.gn_solve(T0, Xf, tgt, s, cfg, proj)
+        b = tracker.gn_solve(T0, Xf, tgt, s, cfg, proj)
+        ref = tracker.gn_solve_plain(T0, Xf, tgt, s, cfg, proj)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        it, it_ref = int(a.iters), int(ref.iters)
+        t_err = float((a.T_CkCf - ref.T_CkCf).abs().max())
+        c_err = abs(float(a.cost) - float(ref.cost)) / max(
+            abs(float(ref.cost)), 1e-30)
+        expect = {"converges": 1 < it < cfg.max_iters and not bool(a.failed),
+                  "no_valid_match": it == 1 and bool(a.failed),
+                  "max_iters": it == cfg.max_iters and not bool(a.failed)}
+        if not (same and it == it_ref and bool(a.failed) == bool(ref.failed)
+                and t_err <= 2e-5 and c_err <= 1e-5 and expect[case]):
+            raise AssertionError(
+                f"gn_step solve {mode} {case}: iters {it} / plain {it_ref}, "
+                f"failed {bool(a.failed)} / {bool(ref.failed)}, pose err "
+                f"{t_err}, cost rel err {c_err}, two calls equal {same}")
+        log(f"gn_step solve {mode} {case}: {it} iterations as the plain "
+            f"loop, failed {bool(a.failed)}, pose err {t_err:.3g}, cost rel "
+            f"err {c_err:.3g}, two calls bit-equal")
+        if case == "no_valid_match":
+            continue
+        ops = it * n * (40 + d * 105)
+        rec("gn_step", f"{mode} N={n} whole solve, {case} ({it} iterations)",
+            t_err, lambda: tracker.gn_solve(T0, Xf, tgt, s, cfg, proj),
+            lambda: tracker.gn_solve_plain(T0, Xf, tgt, s, cfg, proj), None,
+            # inputs read once (the frame stays in L2 between iterations)
+            n * (12 + 8 * d) + 66 * 4 + 32, ops, "fp32",
+            "mast3r_slam_tpu/slam/tracker.py:171 (_run_gn: lax.while_loop "
+            "of _gn_step_t :60, _solve7 :81, sim3.retr, robust.converged)",
+            "mast3r_slam_tpu_torch/csrc/gn_step.cu", plain_reps=3,
+            tolerance="iterations and failed equal to the plain loop's, pose "
+            "within 2e-5, cost within 1e-5 relative, two calls bit-equal",
+            iterations=it, cost_rel_err=c_err,
+            bound_ms_fp32_nofma=ops / FP32_NOFMA * 1e3)
+
+
+def check_edge_system(rec, rel_err, rng, n, h, w):
+    """The fused BA system (one launch of ``ba_edge_terms``: edge terms,
+    conjugation and assembly) against ``edge_system_plain`` in three modes
+    at E = 8, every 4th and every point, and at the loop run's final size
+    (9 keyframes, 42 edges, every 4th point, rays); the raw per-edge sums
+    (``ba.ba_edge_terms``) against ``ba_edge_terms_plain``."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.slam import ba
+
+    dev = "cuda"
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
     calib = ba.CalibArgs(0.8 * w, 0.8 * w, w / 2.0, h / 2.0, w, h)
-    for stride in (4, 1):
-        cfg = bcfg0._replace(point_stride=stride)
-        pre = ba._edge_prep(Xs, Cs, ii, jj, idx, valid, stride)
+
+    def problem(n_kf, ii, jj):
+        E = len(ii)
+        v, u = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        Xs = []
+        for k in range(n_kf):
+            z = 3.0 + 0.5 * np.sin(u / 40.0 + k) + 0.01 * rng.standard_normal(
+                u.shape)
+            Xs.append(np.stack([(u - w / 2) / (0.8 * w) * z,
+                                (v - h / 2) / (0.8 * w) * z, z],
+                               -1).reshape(n, 3))
+        idx = i32(np.clip(np.arange(n)[None] + rng.integers(-3, 4, (E, n)),
+                          0, n - 1))
+        valid = torch.from_numpy(rng.random((E, n)) > 0.1).to(dev)
+        mask = torch.ones(E, device=dev)
+        mask[5] = 0.0
+        return (sim3.exp(f32(0.02 * rng.standard_normal((n_kf, 7)))),
+                f32(np.stack(Xs)), f32(rng.uniform(-0.3, 5.0, (n_kf, n))),
+                i32(ii), i32(jj), idx, valid,
+                f32(rng.uniform(1.0, 4.5, (E, n))), mask)
+
+    sq = [0, 1, 1, 2, 2, 3, 0, 3], [1, 0, 2, 1, 3, 2, 3, 0]
+    pairs = [(a, a + 1) for a in range(8)] + [
+        (a, b) for a in range(9) for b in range(a + 2, 9)][:13]
+    loop = ([a for p in pairs for a in p], [a for p in pairs for a in p[::-1]])
+    cells = [(m, s, 4, sq) for s in (4, 1) for m in ba.MODES] + [
+        ("rays", 4, 9, loop)]
+    made = {}
+    for mode, stride, n_kf, (ii, jj) in cells:
+        if n_kf not in made:
+            made[n_kf] = problem(n_kf, ii, jj)
+        T, Xs, Cs, ii_t, jj_t, idx, valid, Q, mask = made[n_kf]
+        E = ii_t.shape[0]
+        cfg = ba.BAConfig(point_stride=stride)
+        cal = calib if mode == "calib" else None
+        pre = ba._edge_prep(Xs, Cs, ii_t, jj_t, idx, valid, stride)
+        wq = ba._edge_weights(pre, valid, Q, cfg, stride)
         Pp = pre.safe_idx.shape[1]
-        for mode in ba.MODES:
-            args = (mode, Tij, pre, valid, Q, mask, stride, cfg,
-                    calib if mode == "calib" else None)
-            S, g = ba.ba_edge_terms(*args)
-            S2, g2 = ba.ba_edge_terms(*args)
-            Sp, gp = ba.ba_edge_terms_plain(*args)
-            same = torch.equal(S, S2) and torch.equal(g, g2)
-            errs = [rel_err(S, Sp), rel_err(g, gp)]
-            if not (same and max(errs) <= 1e-5
-                    and float(S[5].abs().max()) == 0.0):
-                raise AssertionError(
-                    f"ba_edge_terms {mode} stride {stride}: rel err S/g "
-                    f"{errs}, two calls equal: {same}")
-            nr = 4 if mode == "rays" else 3
-            rec("ba_edge_terms", f"{mode} E={E} P={Pp} (stride {stride})",
-                float((S - Sp).abs().max()),
-                lambda: ba.ba_edge_terms(*args),
-                lambda: ba.ba_edge_terms_plain(*args), None,
-                E * Pp * (32 + 4 + 1 + (4 if mode == "calib" else 0))
-                + E * (32 + 4 + 56 * 4),
-                E * Pp * (60 + nr * 105), "fp32",
-                "mast3r_slam_tpu/slam/ba.py:203 (_edge_terms with "
-                "_edge_terms_rays :320, _calib :358, _points :340, XLA)",
-                "mast3r_slam_tpu_torch/csrc/ba_edge_terms.cu", plain_reps=5,
-                tolerance="1e-5 of the largest entry of each of S0, g0",
-                ref_max_abs=float(Sp.abs().max()), max_rel_err=max(errs),
-                two_calls_bit_equal=True)
+        n_kf_act, pin = n_kf - 1, 1          # the last slot inactive
+        plan = ba._assembly_plan(ii_t, jj_t, n_kf_act, n_kf, pin)
+        args = (mode, T, Xs, Cs, ii_t, jj_t, idx, valid, Q, mask, n_kf_act,
+                n_kf, pin, cfg, pre, cal, wq, plan)
+        got = ba._edge_system(*args)
+        again = ba._edge_system(*args)
+        ref = ba.edge_system_plain(mode, T, Xs, Cs, ii_t, jj_t, idx, valid,
+                                   Q, mask, n_kf_act, n_kf, pin, cfg, pre,
+                                   cal)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = [rel_err(a, r) for a, r in zip(got, ref)]
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        if not (same and finite and max(errs) <= 1e-5
+                and float(got[0][5].abs().max()) == 0.0):
+            raise AssertionError(
+                f"ba_edge_terms system {mode} stride {stride} E={E}: rel err "
+                f"H/g/Hd/gd {errs}, two calls equal: {same}, finite {finite}")
+        if E == 8:
+            # the per-edge sums alone, for given Tij
+            Tij = sim3.rel(T[ii_t.long()], T[jj_t.long()]).contiguous()
+            raw = (mode, Tij, pre, valid, Q, mask, stride, cfg, cal)
+            S, g0 = ba.ba_edge_terms(*raw)
+            Sp, gp = ba.ba_edge_terms_plain(*raw)
+            e_raw = max(rel_err(S, Sp), rel_err(g0, gp))
+            if not e_raw <= 1e-5:
+                raise AssertionError(f"ba_edge_terms sums {mode} stride "
+                                     f"{stride}: rel err {e_raw}")
+        nr = 4 if mode == "rays" else 3
+        plain = (lambda: ba.edge_system_plain(
+            mode, T, Xs, Cs, ii_t, jj_t, idx, valid, Q, mask, n_kf_act, n_kf,
+            pin, cfg, pre, cal))
+        rec("ba_edge_terms", f"{mode} E={E} P={Pp} (stride {stride}), terms "
+            f"+ conjugation + assembly, K={n_kf}",
+            float(max((a - r).abs().max() for a, r in zip(got, ref))),
+            lambda: ba._edge_system(*args), plain, None,
+            E * Pp * (36 + (4 if mode == "calib" else 0))
+            + n_kf * 32 + E * (12 + 210 * 4) + (49 * n_kf * n_kf + 7 * n_kf)
+            * 4,
+            E * Pp * (60 + nr * 105), "fp32",
+            "mast3r_slam_tpu/slam/ba.py:203 (_edge_terms with "
+            "_edge_terms_rays :320, _calib :358, _points :340) and :394 "
+            "(_assemble), XLA",
+            "mast3r_slam_tpu_torch/csrc/ba_edge_terms.cu", plain_reps=3,
+            tolerance="1e-5 of the largest entry of each of the edge blocks, "
+            "edge gradients, Hd and gd; two calls bit-equal; the masked edge "
+            "zero",
+            ref_max_abs=float(ref[2].abs().max()), max_rel_err=max(errs),
+            two_calls_bit_equal=True, edges=E,
+            bound_ms_fp32_nofma=E * Pp * (60 + nr * 105) / FP32_NOFMA * 1e3)
+
+
+def check_loop_graph(system):
+    """The fused BA system on the loop run's final factor graph (its real
+    edges, matches and confidences) against ``edge_system_plain``, at the
+    poses BA converged to and with the free poses moved off them, and both
+    against ``edge_system_plain`` on float64 copies of the same inputs. At
+    the optimum the gradients are sums of terms that cancel, so there only
+    the Hessians are held to 1e-5 of their largest entry; off the optimum
+    all four outputs are. In both, each of the kernel's four outputs must
+    be as close to the float64 system as 4x the plain fp32 version's
+    distance to it, or within 1e-6 of its largest entry."""
+    import torch
+
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.slam import ba
+
+    fg, kfs = system.factor_graph, system.keyframes
+    Kb, (ii, jj, idx, vm, Q, mask, n_kf) = fg._solve_args()
+    cfg = fg.ba_cfg
+    T0, Xs, Cs = kfs.T_WC[:Kb].contiguous(), kfs.X[:Kb], kfs.average_confs(Kb)
+    pre = ba._edge_prep(Xs, Cs, ii, jj, idx, vm, cfg.point_stride)
+    wq = ba._edge_weights(pre, vm, Q, cfg, cfg.point_stride)
+    plan = ba._assembly_plan(ii, jj, n_kf, Kb, cfg.pin)
+    pre64 = ba.EdgePre(pre.XCi.double(), pre.XCj.double(), pre.safe_idx)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    xi = 0.01 * torch.randn((Kb, 7), generator=g, device="cuda")
+    xi[:cfg.pin] = 0.0
+    out = {"edges": int(ii.shape[0]), "keyframes": Kb}
+    dist = lambda a, r: float((a.double() - r.double()).abs().max())
+    for label, T in (("converged", T0),
+                     ("moved", sim3.retr(T0, xi).contiguous())):
+        args = ("rays", T, Xs, Cs, ii, jj, idx, vm, Q, mask, n_kf, Kb,
+                cfg.pin, cfg, pre, None, wq, plan)
+        got, again = ba._edge_system(*args), ba._edge_system(*args)
+        ref = ba.edge_system_plain("rays", T, Xs, Cs, ii, jj, idx, vm, Q,
+                                   mask, n_kf, Kb, cfg.pin, cfg, pre)
+        ref64 = ba.edge_system_plain("rays", T.double(), Xs, Cs, ii, jj, idx,
+                                     vm, Q.double(), mask.double(), n_kf, Kb,
+                                     cfg.pin, cfg, pre64)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        diff = [dist(a, r) for a, r in zip(got, ref)]
+        scale = [float(r.abs().max()) for r in ref]
+        rel = [d / max(s, 1e-30) for d, s in zip(diff, scale)]
+        held = rel if label == "moved" else rel[0::2]
+        d_kernel = [dist(a, r) for a, r in zip(got, ref64)]
+        d_plain = [dist(a, r) for a, r in zip(ref, ref64)]
+        scale64 = [float(r.abs().max()) for r in ref64]
+        near64 = all(dk <= max(4.0 * dp, 1e-6 * s) for dk, dp, s in
+                     zip(d_kernel, d_plain, scale64))
+        if not (same and max(held) <= 1e-5 and near64):
+            raise AssertionError(
+                f"ba_edge_terms on the loop graph ({label}, E="
+                f"{ii.shape[0]}): rel err H/g/Hd/gd {rel}, distance to the "
+                f"float64 system {d_kernel} (plain fp32 {d_plain}, largest "
+                f"entry {scale64}), two calls equal {same}")
+        out[label] = {"max_abs_diff": diff, "max_abs_ref": scale,
+                      "rel_err": rel, "two_calls_bit_equal": same,
+                      "fp64_dist_kernel": d_kernel,
+                      "fp64_dist_plain": d_plain, "fp64_max_abs": scale64}
+    return out
+
+
+def solver_scaling(rec_log):
+    """Where the two fused solver kernels spend their device time, and how
+    the BA kernel scales with the graph. ``gn_step``: device time per
+    iteration of 8 (both thresholds 0) and of one linearization at N = 256
+    (the fixed per-iteration cost: barriers, block 0's slot sums, the
+    one-thread solve and retraction) and N = 196,608. ``ba_edge_terms`` at
+    4, 9, 64, 128 and 256 keyframes with two-way edges (consecutive ones,
+    then random loop closures; from 64 keyframes on about 4.7 edges a
+    keyframe, the loop run's ratio, so 256 keyframes give 1,204 edges):
+    held against ``edge_system_plain`` on every 64th point (1e-5 of the
+    largest entry, bit-equal across calls), then timed on every 1,024th
+    point (the serial tail) and on every 4th (the loop run's stride),
+    against the terms-then-assemble path that it replaced (the per-edge
+    sums, the conjugation in PyTorch and ``ba._assemble``'s
+    ``index_put_``). Seeded synthetic scenes."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.slam import ba, tracker
+
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(0)
+    n_max = 196608
+    Xk = torch.randn((n_max, 3), generator=g, device=dev) * torch.tensor(
+        [1.0, 0.7, 0.3], device=dev) + torch.tensor([0.0, 0.0, 4.0],
+                                                    device=dev)
+    T_true = sim3.exp(torch.tensor([0.02, -0.01, 0.015, 0.006, -0.004, 0.003,
+                                    0.008], device=dev))
+    Xf = (sim3.act(sim3.inv(T_true), Xk)
+          + 0.002 * torch.randn(Xk.shape, generator=g, device=dev))
+    Qn = 1.0 + 3.0 * torch.rand(n_max, generator=g, device=dev)
+    tcfg = tracker.TrackerConfig()
+    si_all = torch.stack([Qn / tcfg.sigma_ray] * 3 + [Qn / tcfg.sigma_dist])
+    tgt_all = tracker._ray_dist_t(Xk.T)[0]
+    T0 = sim3.identity(device=dev)
+    fixed = tcfg._replace(max_iters=8, rel_error=0.0, delta_norm=0.0)
+    for n in (256, n_max):
+        Xn = Xf[:n].contiguous()
+        tgt = tgt_all[:, :n].contiguous()
+        si = si_all[:, :n].contiguous()
+        it8 = device_ms(lambda: tracker.gn_solve(T0, Xn, tgt, si, fixed))
+        it1 = device_ms(lambda: tracker.gn_step(T0, Xn, tgt, si, tcfg.huber))
+        rec_log({"kernel": "gn_step", "N": n, "ms_per_iteration_of_8": it8 / 8,
+                 "ms_one_linearization": it1})
+    del Xk, Xf, Qn, si_all, tgt_all
+
+    rng = np.random.default_rng(5)
+    P = n_max
+    for n_kf, E in ((4, 8), (9, 42), (64, 300), (128, 602), (256, 1204)):
+        pairs = [(k, k + 1) for k in range(n_kf - 1)][:E // 2]
+        while len(pairs) < E // 2:
+            a, b = (int(v) for v in rng.integers(0, n_kf, 2))
+            if abs(a - b) >= 2:
+                pairs.append((a, b))
+        ii = torch.tensor([a for p in pairs for a in p], dtype=torch.int32,
+                          device=dev)
+        jj = torch.tensor([a for p in pairs for a in p[::-1]],
+                          dtype=torch.int32, device=dev)
+        Ts = sim3.exp(0.02 * torch.randn((n_kf, 7), generator=g, device=dev))
+        Xs = (torch.randn((n_kf, P, 3), generator=g, device=dev) * 0.5
+              + torch.tensor([0.0, 0.0, 3.0], device=dev))
+        Cs = 5.0 * torch.rand((n_kf, P), generator=g, device=dev)
+        idx = torch.randint(0, P, (E, P), generator=g, device=dev,
+                            dtype=torch.int32)
+        valid = torch.rand((E, P), generator=g, device=dev) > 0.1
+        Qe = 1.0 + 3.0 * torch.rand((E, P), generator=g, device=dev)
+        mask = torch.ones(E, device=dev)
+        pin = 1
+        out = {"kernel": "ba_edge_terms", "K": n_kf, "E": E}
+        for stride in (64, 1024, 4):
+            bcfg = ba.BAConfig(point_stride=stride)
+            pre = ba._edge_prep(Xs, Cs, ii, jj, idx, valid, stride)
+            wq = ba._edge_weights(pre, valid, Qe, bcfg, stride)
+            plan = ba._assembly_plan(ii, jj, n_kf, n_kf, pin)
+            fused = lambda: ba.edge_system("rays", Ts, pre, wq, ii, jj, mask,
+                                           n_kf, n_kf, pin, bcfg, None, plan)
+            Pp = pre.safe_idx.shape[1]
+            if stride == 64:
+                got, again = fused(), fused()
+                ref = ba.edge_system_plain("rays", Ts, Xs, Cs, ii, jj, idx,
+                                           valid, Qe, mask, n_kf, n_kf, pin,
+                                           bcfg, pre)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                errs = [float((a - r).abs().max() / r.abs().max())
+                        for a, r in zip(got, ref)]
+                if not (same and max(errs) <= 1e-5):
+                    raise AssertionError(
+                        f"ba_edge_terms K={n_kf} E={E}: rel err H/g/Hd/gd "
+                        f"{errs}, two calls equal {same}")
+                out["rel_err_vs_plain"] = errs
+                continue
+
+            def terms(mode, Tij, pre_, *_):
+                return ba._launch(mode, Tij, None, None, pre_, wq, mask, bcfg,
+                                  None)
+
+            replaced = lambda: ba._assemble(*ba._edge_terms(
+                "rays", Ts, Xs, Cs, ii, jj, idx, valid, Qe, mask, bcfg, pre,
+                None, terms), ii, jj, n_kf, n_kf, pin)
+            out[f"P={Pp}"] = {
+                "fused_device_ms": device_ms(fused, reps=10),
+                "fused_call_ms": time_ms(fused, reps=10),
+                "replaced_device_ms": device_ms(replaced, reps=10),
+                "replaced_call_ms": time_ms(replaced, reps=10)}
+        rec_log(out)
+        del Xs, Cs, idx, valid, Qe, pre, wq, plan
 
 
 # -- phase 3: main path --------------------------------------------------------
@@ -790,13 +1102,23 @@ def backend_split(system):
     prep = lambda: ba._edge_prep(Xs, Cs, ii, jj, idx, vm, cfg.point_stride)
     out["gather_per_solve"] = time_ms(prep)
     pre = prep()
-    terms = lambda: ba._edge_terms(mode, T, Xs, Cs, ii, jj, idx, vm, Q, mask,
-                                   cfg, pre, calib)
-    out["edge_terms_per_iter"] = time_ms(terms)
-    H, g = terms()
+    weights = lambda: ba._edge_weights(pre, vm, Q, cfg, cfg.point_stride)
+    out["weights_per_solve"] = time_ms(weights)
+    wq = weights()
+    make_plan = lambda: ba._assembly_plan(ii, jj, n_kf, Kb, cfg.pin)
+    out["plan_per_solve"] = time_ms(make_plan)
+    plan = make_plan()
+    T = T.contiguous()
+    # one launch: edge terms, conjugation and the assembly
+    system = lambda: ba._edge_system(mode, T, Xs, Cs, ii, jj, idx, vm, Q,
+                                     mask, n_kf, Kb, cfg.pin, cfg, pre,
+                                     calib, wq, plan)
+    out["edge_terms_per_iter"] = time_ms(system)
+    out["edge_terms_per_iter_device"] = device_ms(system, reps=10)
+    _, _, Hd, gd = system()
+    # the assembly is inside the launch above: this is the solve alone
     out["assemble_solve_per_iter"] = time_ms(
-        lambda: ba._assemble_and_solve(H, g, ii, jj, n_kf, Kb, cfg.pin,
-                                       cfg.solver))
+        lambda: ba._solve(Hd, gd, n_kf, Kb, cfg.pin, cfg.solver))
     return out
 
 
@@ -923,11 +1245,62 @@ def stage_split(params, model_cfg, mcfg, tcfg):
     res = tracker.opt_pose_ray_dist_sim3(Xf[idx], Xk, T0, Qk, valid_opt, tcfg)
     out["gn"] = time_ms(lambda: tracker.opt_pose_ray_dist_sim3(
         Xf[idx], Xk, T0, Qk, valid_opt, tcfg), reps=10)
-    out["gn_iters"] = res.iters
+    out["gn_device"] = device_ms(lambda: tracker.opt_pose_ray_dist_sim3(
+        Xf[idx], Xk, T0, Qk, valid_opt, tcfg), reps=10)
+    out["gn_iters"] = int(res.iters)
+    # the same frame through the plain loop: equal iterations and flags
+    sQ = (torch.sqrt(Qk) * valid_opt)[:, 0]
+    si = torch.stack([sQ / tcfg.sigma_ray] * 3 + [sQ / tcfg.sigma_dist])
+    ref = tracker.gn_solve_plain(
+        T0, Xf[idx].contiguous(), tracker._ray_dist_t(Xk.T)[0].contiguous(),
+        si, tcfg)
+    err = float((res.T_CkCf - ref.T_CkCf).abs().max())
+    if (int(ref.iters) != int(res.iters) or bool(ref.failed) != bool(
+            res.failed) or not err <= 2e-5):
+        raise AssertionError(f"gn_step on the oracle frame: {int(res.iters)} "
+                             f"iterations / plain {int(ref.iters)}, failed "
+                             f"{bool(res.failed)} / {bool(ref.failed)}, pose "
+                             f"err {err}")
+    out["gn_pose_err_vs_plain"] = err
+    out["gn_host_syncs_at"] = host_syncs_of(
+        lambda: tracker.opt_pose_ray_dist_sim3(Xf[idx], Xk, T0, Qk,
+                                               valid_opt, tcfg))
     N = torch.ones((), dtype=torch.int32, device="cuda")
     out["fusion"] = time_ms(lambda: fuse_pointmap(
         "weighted_pointmap", Xk, Cf, N, sim3.act(res.T_CkCf, Xk), Cf))
     return out
+
+
+def host_syncs_of(fn):
+    """Where one ``fn()`` call waited for the device: "file:line" of each
+    synchronizing call (``.item()``, ``.cpu()``, ``bool()`` of a CUDA
+    tensor, ...), as PyTorch's sync debug mode reports them."""
+    import pathlib
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{pathlib.Path(c.filename).name}:{c.lineno}" for c in caught
+            if "synchroniz" in str(c.message)]
+
+
+def host_syncs(system, frame_id, image):
+    """Host syncs of one more tracked frame, in ``make_frame`` and in
+    ``process_frame``."""
+    box = {}
+    made = host_syncs_of(
+        lambda: box.setdefault("frame", system.make_frame(frame_id, image)))
+    done = host_syncs_of(lambda: system.process_frame(box["frame"]))
+    return {"make_frame": len(made), "make_frame_at": made,
+            "process_frame": len(done), "process_frame_at": done}
 
 
 def device_busy(system, frame_id, image):
@@ -995,7 +1368,7 @@ def main():
     log(f"ViT-L MASt3R init: {time.perf_counter() - t0:.2f} s, "
         f"{sum(p.numel() for p in net.parameters()) / 1e6:.1f} M params")
 
-    n_traj = max(N_FAST, N_BASE, N_LOOP) + 1   # one more for the profile
+    n_traj = max(N_FAST + 2, N_BASE, N_LOOP)   # two more: syncs, profile
     traj = make_traj(n_traj).cuda()
     orc = oracle.make_params(traj, desc_dim=model_cfg.desc_dim, seed=0,
                              device="cuda")
@@ -1042,8 +1415,11 @@ def main():
     split = stage_split(params, model_cfg, system.tracker.mcfg,
                         system.tracker.tcfg)
     log("stage split (isolated, ms): " + json.dumps(split))
-    busy = device_busy(system, N_FAST, oracle_timing.make_frame_image(
+    syncs = host_syncs(system, N_FAST, oracle_timing.make_frame_image(
         N_FAST, h, w))
+    log("host syncs of one tracked frame: " + json.dumps(syncs))
+    busy = device_busy(system, N_FAST + 1, oracle_timing.make_frame_image(
+        N_FAST + 1, h, w))
     busy["device_idle_share"] = 1.0 - busy["device_busy_ms"] / med
     log("one tracked frame under the profiler: " + json.dumps(busy))
 
@@ -1072,6 +1448,8 @@ def main():
                         LOOP_KERNELS, retrieval_params=rparams,
                         edge_capacity=EDGE_CAPACITY_LOOP)
     log("loop split (isolated, ms): " + json.dumps(loop_split(sys_l)))
+    log("ba_edge_terms on the loop run's final graph: "
+        + json.dumps(check_loop_graph(sys_l)))
     log(f"loop peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (codebook "
         f"{CODEBOOK * 1024 * 4 / 2**20:.0f} MiB, edge buffers at capacity "

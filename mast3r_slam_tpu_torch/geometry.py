@@ -48,6 +48,12 @@ def decompose_K(K):
     return K[..., 0, 0], K[..., 1, 1], K[..., 0, 2], K[..., 1, 2]
 
 
+def host_intrinsics(K):
+    """fx, fy, cx, cy of the 3x3 K as host floats: one read of a device K,
+    which a caller that uses one K many times makes once."""
+    return tuple(float(v) for v in torch.stack(decompose_K(K)).cpu())
+
+
 def project_calib(P, K, img_size, jacobian: bool = False, border: int = 0,
                   z_eps: float = 0.0):
     """[u, v, log z] with validity mask (``geometry.py:59``)."""

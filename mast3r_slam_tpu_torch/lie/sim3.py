@@ -44,7 +44,9 @@ def quat_mul(qi, qj):
 
 
 def quat_inv(q):
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    # negated vector part; no host constant, whose copy to the GPU would
+    # wait for the stream
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def quat_act(q, v):

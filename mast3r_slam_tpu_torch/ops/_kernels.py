@@ -16,6 +16,7 @@ where it launches its kernel and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import pathlib
 import shutil
@@ -39,9 +40,9 @@ SOURCES = {
     "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I, _I, _I, _P]),
     "take_along": ("take_along_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
     "gn_step": ("gn_step_launch",
-                [_P] * 6 + [_I, _I] + [_F] * 9 + [_P]),
+                [_P] * 8 + [_I] * 4 + [_F] * 11 + [_P]),
     "ba_edge_terms": ("ba_edge_terms_launch",
-                      [_P] * 10 + [_I] * 7 + [_F] * 15 + [_P]),
+                      [_P] * 21 + [_I] * 7 + [_F] * 13 + [_P]),
     "coarse_correlate": ("coarse_correlate_launch", [_P] * 3 + [_I] * 6 + [_P]),
     "rope_qk": ("rope_qk_launch", [_P] * 8 + [_L] * 8 + [_I] * 7 + [_P]),
 }
@@ -141,6 +142,14 @@ def launch(name, *args):
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
     LAUNCHES[name] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index):
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def ptr(t):

@@ -1,24 +1,32 @@
 """Global pose-graph Gauss-Newton over keyframe Sim(3) poses.
 
-Counterpart of ``mast3r_slam_tpu/slam/ba.py``. Per GN iteration:
+Counterpart of ``mast3r_slam_tpu/slam/ba.py``. Once per solve,
+``_edge_prep`` gathers keyframe i's points at the match indices (through
+the ``gather_rows`` kernel) and, on CUDA, ``_edge_weights`` folds the
+pose-independent gates and sqrt(Q) into one weight per point and
+``_assembly_plan`` orders the edge blocks' contributions to the dense
+system. Per GN iteration:
 
-* ``ba_edge_terms``: per edge, the robustly weighted sums S0 = sum J^T J
-  (7x7) and g0 = sum J^T r (7) over the edge's matched points with respect
-  to the relative pose Tij. On CUDA tensors this is the hand-written kernel
-  ``csrc/ba_edge_terms.cu`` (it replaces the chunked ``lax.scan`` of
-  matmuls in ``_edge_terms``, ``ba.py:203-298``); on CPU tensors
-  ``ba_edge_terms_plain``.
-* ``_edge_terms``: the per-edge conjugation with the inverse adjoint,
-  S = M S0 M^T, and the [[S, -S], [-S, S]] block of the 14x14 edge Hessian.
-* ``_assemble`` / ``_solve``: scatter into the dense 7K x 7K system, Jacobi
-  equilibration and an fp32 Cholesky on the device (or fp64 on the host).
+* ``_edge_system``: the dense 7K x 7K system. On CUDA tensors it is one
+  launch of the hand-written kernel ``csrc/ba_edge_terms.cu``
+  (``edge_system``): per edge the robustly weighted sums S0 = sum J^T J
+  (7x7) and g0 = sum J^T r (7) over the edge's matched points with
+  respect to Tij, their conjugation with the inverse adjoint of Ti into
+  the [[S, -S], [-S, S]] edge block, and the assembly in edge order. It
+  replaces the chunked ``lax.scan`` of matmuls in ``_edge_terms``
+  (``ba.py:203-298``) and ``_assemble`` (:394-429). On CPU tensors it is
+  ``edge_system_plain``: ``_edge_terms`` with ``ba_edge_terms_plain``
+  (per-edge sums), the conjugation in PyTorch, and ``_assemble``.
+* ``_solve``: Jacobi equilibration and an fp32 Cholesky on the device (or
+  fp64 on the host), as the JAX package computes it outside any kernel.
 
-The one random-access operation, the gather of keyframe i's points at the
-match indices, runs once per solve (``_edge_prep``) through the
-``gather_rows`` kernel. The GN loop is a Python loop; the step norm is the
-one host read per iteration. The JAX package's point chunks,
-component-major stacks and power-of-two shape buckets were ways to fit the
-TPU compiler and are not carried over.
+The GN loop is a Python loop; the step norm is the one host read per
+iteration, and the plan reads the edge lists once per solve.
+``ba_edge_terms`` (per-edge S0, g0 for given Tij) stays callable; on CUDA
+tensors it runs the same kernel without the conjugation and the
+assembly. The JAX package's point chunks, component-major stacks
+and power-of-two shape buckets were ways to fit the TPU compiler and are
+not carried over.
 """
 
 from __future__ import annotations
@@ -35,12 +43,13 @@ from ..lie import sim3
 from ..ops import _kernels, gather
 
 __all__ = ["BAConfig", "BAResult", "ba_edge_terms", "ba_edge_terms_plain",
-           "gauss_newton_rays", "gauss_newton_calib", "gauss_newton_points"]
+           "edge_system", "edge_system_plain", "gauss_newton_rays",
+           "gauss_newton_calib", "gauss_newton_points"]
 
 MODES = ("rays", "calib", "points")
 _N_ROWS = {"rays": 4, "calib": 3, "points": 3}
 _HUBER_K = 1.345          # robust.huber's default, as ba.py:268 calls it
-_BLOCKS_PER_EDGE = 32     # upper bound of the kernel's blocks per edge
+_BLOCKS_PER_SM = 3        # the kernel's blocks over all edges, per SM
 
 
 class BAResult(NamedTuple):
@@ -54,6 +63,20 @@ class EdgePre(NamedTuple):
     XCi: torch.Tensor       # (E, P', 4) [X, C] of keyframe i at the match
     XCj: torch.Tensor       # (E, P', 4) [X, C] of keyframe j's pixels
     safe_idx: torch.Tensor  # (E, P') int32 match index, 0 where invalid
+
+
+class AssemblyPlan(NamedTuple):
+    """Which contributions of the 4E edge blocks add into which 7x7 block
+    of Hd, in the plain version's order (``_assembly_plan``). Contribution
+    c = t E + e is block type t (0: (i, i), 1: (i, j), 2: (j, i), 3: (j, j))
+    of edge e; a run is the contributions to one destination block."""
+    order: torch.Tensor      # (4E,) int32 contributions by block, then c
+    run_of: torch.Tensor     # (4E,) int32 run of contribution c, or -1
+    run_start: torch.Tensor  # (4E,) int32 run h's first position in order
+    run_len: torch.Tensor    # (4E,) int32 run h's length (0 past the runs)
+    run_key: torch.Tensor    # (4E,) int32 run h's block row * K + col
+    block_run: torch.Tensor  # (K * K,) int32 run of each block, or -1
+    run_count: torch.Tensor  # (4E,) int32 the kernel's counters, zero
 
 
 class CalibArgs(NamedTuple):
@@ -89,6 +112,61 @@ def _edge_prep(Xs, Cs, ii, jj, idx, valid_match, stride: int = 1) -> EdgePre:
                                        device=idx.device)).contiguous()
     return EdgePre(_gather_points(XC, ii, safe_idx),
                    XC_j[jj.to(torch.int64)].contiguous(), safe_idx)
+
+
+def _assembly_plan(ii, jj, n_kf: int, K_cap: int, pin: int) -> AssemblyPlan:
+    """The assembly's plan, once per solve (it does not depend on the
+    poses): made on the host from one read of the edge lists, as a few
+    numpy calls, and uploaded in one copy; the solve reads its step norm
+    every iteration anyway. The plain version adds the four block types in
+    four ``index_put_`` calls, each in edge order, so the contributions to
+    one destination block add in the order of c (a stable sort keeps it).
+    Blocks of pinned (< pin) and inactive (>= n_kf) poses go to the
+    sentinel and are dropped (run -1)."""
+    ij = torch.stack([ii.to(torch.int64), jj.to(torch.int64)]).cpu().numpy()
+    si, sj = np.where((ij >= pin) & (ij < n_kf), ij, K_cap)
+    E = si.shape[0]
+    n = 4 * E
+    rows = np.concatenate([si, si, sj, sj])
+    cols = np.concatenate([si, sj, si, sj])
+    none = K_cap * K_cap                     # sorts after every block
+    key = np.where((rows == K_cap) | (cols == K_cap), none,
+                   rows * K_cap + cols)
+    order = np.argsort(key, kind="stable")
+    skey = key[order]
+    kept = skey < none                       # a prefix of the sorted list
+    head = kept.copy()
+    head[1:] &= skey[1:] != skey[:-1]
+    starts = np.flatnonzero(head)
+    n_runs = starts.shape[0]
+    run = np.cumsum(head) - 1
+    packed = np.zeros((6, n), np.int32)      # the (4E,) arrays, run_count 0
+    packed[0] = order
+    packed[1, order] = np.where(kept, run, -1)
+    packed[2, :n_runs] = starts
+    packed[3, :n_runs] = np.diff(np.append(starts, np.count_nonzero(kept)))
+    packed[4, :n_runs] = skey[starts]
+    block_run = np.full(none, -1, np.int32)
+    block_run[skey[starts]] = np.arange(n_runs)
+    buf = torch.from_numpy(np.concatenate([packed.ravel(), block_run])).to(
+        ii.device)
+    a = buf[:6 * n].view(6, n)
+    return AssemblyPlan(a[0], a[1], a[2], a[3], a[4], buf[6 * n:], a[5])
+
+
+def _edge_weights(pre: EdgePre, valid_match, Q, cfg: BAConfig,
+                  stride: int = 1):
+    """The pose-independent part of the per-point weight, once per solve:
+    wq (E, P') = sqrt(Q) where the match is valid and Q and both
+    confidences pass their gates (``ba.py:259-267``), else 0. The kernel's
+    sqrt-weight sigma_r * wq has the bits of the plain version's
+    where(valid, sigma_r * sqrt(Q), 0)."""
+    Qs = Q[:, ::stride]
+    valid = (valid_match[:, ::stride] & (Qs > cfg.Q_conf)
+             & (pre.XCi[..., 3] > cfg.C_conf) & (pre.XCj[..., 3] > cfg.C_conf))
+    return torch.where(valid, torch.sqrt(Qs),
+                       torch.zeros((), dtype=Q.dtype,
+                                   device=Q.device)).contiguous()
 
 
 def _sigmas(mode, cfg: BAConfig):
@@ -224,6 +302,92 @@ def ba_edge_terms_plain(mode, Tij, pre: EdgePre, valid_match, Q, edge_mask,
 
 # -- the kernel's wrapper -----------------------------------------------------
 
+_COUNTERS: dict = {}      # device -> int32 counters, zero between launches
+
+
+def _counters(dev, n):
+    """The kernel's per-edge counters: zeroed once, and left zero by every
+    launch (its last blocks reset them). One stream at a time."""
+    c = _COUNTERS.get(dev)
+    if c is None or c.numel() < n:
+        c = torch.zeros((max(n, 64),), dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = c
+    return c
+
+
+def _check_mode(mode, calib):
+    if mode not in MODES:
+        raise ValueError(f"ba_edge_terms: unknown mode {mode!r}")
+    if mode == "calib" and calib is None:
+        raise ValueError("ba_edge_terms: mode 'calib' needs calib")
+
+
+def _launch(mode, T, ii, jj, pre: EdgePre, wq, edge_mask, cfg: BAConfig,
+            calib, plan: AssemblyPlan = None, K_cap=0):
+    """One launch of ``csrc/ba_edge_terms.cu``. Without ``plan`` (raw): T
+    is (E, 8) Tij and the outputs are S0 (E, 7, 7), g0 (E, 7). With it, T
+    is (K_cap, 8) T_WCs and the outputs are the edge blocks (E, 14, 14),
+    (E, 14) and the assembled Hd (7 K_cap, 7 K_cap), gd (7 K_cap)."""
+    _check_mode(mode, calib)
+    f32, i32 = torch.float32, torch.int32
+    raw = plan is None
+    E, Pp = pre.safe_idx.shape
+    dev = T.device
+    _kernels.check_cuda(T, "ba_edge_terms poses", f32, 2, 8)
+    _kernels.check_cuda(pre.XCi, "ba_edge_terms XCi", f32, 3, 4)
+    _kernels.check_cuda(pre.XCj, "ba_edge_terms XCj", f32, 3, 4)
+    _kernels.check_cuda(pre.safe_idx, "ba_edge_terms safe_idx", i32, 2)
+    _kernels.check_cuda(wq, "ba_edge_terms weights", f32, 2, Pp)
+    _kernels.check_cuda(edge_mask, "ba_edge_terms edge_mask", f32, 1, E)
+    if (pre.XCi.shape[:2] != (E, Pp) or pre.XCj.shape[:2] != (E, Pp)
+            or wq.shape[0] != E or (raw and T.shape[0] != E)):
+        raise ValueError("ba_edge_terms: edge/point counts disagree")
+    if pre.XCi.data_ptr() % 16 or pre.XCj.data_ptr() % 16:
+        raise ValueError("ba_edge_terms: point buffers must be 16-byte "
+                         "aligned")
+    if raw:
+        ii = jj = pre.safe_idx                 # not read
+        Hout = torch.empty((E, 7, 7), dtype=f32, device=dev)
+        gout = torch.empty((E, 7), dtype=f32, device=dev)
+        Hd = gd = Hout                         # not written
+        plan_ptrs = [None] * 7
+    else:
+        ii = ii.to(i32).contiguous()
+        jj = jj.to(i32).contiguous()
+        if ii.shape != (E,) or jj.shape != (E,) or T.shape[0] != K_cap:
+            raise ValueError("ba_edge_terms: edge/pose counts disagree")
+        for name in AssemblyPlan._fields:
+            want = K_cap * K_cap if name == "block_run" else 4 * E
+            _kernels.check_cuda(getattr(plan, name),
+                                f"ba_edge_terms plan {name}", i32, 1, want)
+        Hout = torch.empty((E, 14, 14), dtype=f32, device=dev)
+        gout = torch.empty((E, 14), dtype=f32, device=dev)
+        Hd = torch.empty((7 * K_cap, 7 * K_cap), dtype=f32, device=dev)
+        gd = torch.empty((7 * K_cap,), dtype=f32, device=dev)
+        plan_ptrs = [_kernels.ptr(a) for a in plan]
+    if E == 0:
+        if not raw:
+            Hd.zero_()
+            gd.zero_()
+        return (Hout, gout) if raw else (Hout, gout, Hd, gd)
+    spread = -(-_BLOCKS_PER_SM * _kernels.sm_count(dev.index) // E)
+    bpe = max(1, min(spread, -(-Pp // 256)))
+    part = torch.empty((E, bpe, 35), dtype=f32, device=dev)
+    count = _counters(dev, E)
+    sig = _sigmas(mode, cfg) + [0.0]
+    c = calib if calib is not None else CalibArgs(1.0, 1.0, 0.0, 0.0, 1, 1)
+    border = cfg.pixel_border
+    p = _kernels.ptr
+    _kernels.launch(
+        "ba_edge_terms", p(T), p(ii), p(jj), p(pre.XCi), p(pre.XCj),
+        p(pre.safe_idx), p(wq), p(edge_mask), p(part), p(count), *plan_ptrs,
+        p(Hout), p(gout), p(Hd), p(gd), E, Pp, bpe, int(raw),
+        MODES.index(mode), int(c.w), int(K_cap), sig[0], sig[1], sig[2],
+        sig[3], _HUBER_K, c.fx, c.fy, c.cx, c.cy, float(border),
+        float(c.w - 1 - border), float(c.h - 1 - border),
+        float(cfg.depth_eps))
+    return (Hout, gout) if raw else (Hout, gout, Hd, gd)
+
 
 def ba_edge_terms(mode, Tij, pre: EdgePre, valid_match, Q, edge_mask, stride,
                   cfg: BAConfig, calib: CalibArgs = None):
@@ -233,49 +397,39 @@ def ba_edge_terms(mode, Tij, pre: EdgePre, valid_match, Q, edge_mask, stride,
     ``pre`` from ``_edge_prep`` at the same ``stride``; valid_match (E, P)
     bool and Q (E, P) at full width (read at every ``stride``-th column);
     edge_mask (E,)."""
-    if mode not in MODES:
-        raise ValueError(f"ba_edge_terms: unknown mode {mode!r}")
-    if mode == "calib" and calib is None:
-        raise ValueError("ba_edge_terms: mode 'calib' needs calib")
     if Tij.device.type == "cpu":
+        _check_mode(mode, calib)
         return ba_edge_terms_plain(mode, Tij, pre, valid_match, Q, edge_mask,
                                    stride, cfg, calib)
-    f32 = torch.float32
-    E, Pp = pre.safe_idx.shape
-    P_full = Q.shape[1]
-    _kernels.check_cuda(Tij, "ba_edge_terms Tij", f32, 2, 8)
-    _kernels.check_cuda(pre.XCi, "ba_edge_terms XCi", f32, 3, 4)
-    _kernels.check_cuda(pre.XCj, "ba_edge_terms XCj", f32, 3, 4)
-    _kernels.check_cuda(pre.safe_idx, "ba_edge_terms safe_idx", torch.int32, 2)
-    _kernels.check_cuda(valid_match, "ba_edge_terms valid_match", torch.bool,
-                        2, P_full)
-    _kernels.check_cuda(Q, "ba_edge_terms Q", f32, 2)
-    _kernels.check_cuda(edge_mask, "ba_edge_terms edge_mask", f32, 1, E)
-    if (pre.XCi.shape[:2] != (E, Pp) or pre.XCj.shape[:2] != (E, Pp)
-            or Tij.shape[0] != E or Q.shape[0] != E
-            or valid_match.shape[0] != E
-            or Pp != len(range(0, P_full, stride))):
+    if pre.safe_idx.shape[1] != len(range(0, Q.shape[1], stride)):
         raise ValueError("ba_edge_terms: edge/point counts disagree")
-    if pre.XCi.data_ptr() % 16 or pre.XCj.data_ptr() % 16:
-        raise ValueError("ba_edge_terms: point buffers must be 16-byte "
-                         "aligned")
-    bpe = max(1, min(_BLOCKS_PER_EDGE, -(-Pp // 256)))
-    part = torch.empty((E, bpe, 35), dtype=f32, device=Tij.device)
-    S0 = torch.empty((E, 7, 7), dtype=f32, device=Tij.device)
-    g0 = torch.empty((E, 7), dtype=f32, device=Tij.device)
-    sig = _sigmas(mode, cfg) + [0.0]
-    c = calib if calib is not None else CalibArgs(1.0, 1.0, 0.0, 0.0, 1, 1)
-    border = cfg.pixel_border
-    p = _kernels.ptr
-    _kernels.launch(
-        "ba_edge_terms", p(Tij), p(pre.XCi), p(pre.XCj), p(pre.safe_idx),
-        p(valid_match), p(Q), p(edge_mask), p(part), p(S0), p(g0),
-        E, Pp, P_full, int(stride), bpe, MODES.index(mode), int(c.w),
-        sig[0], sig[1], sig[2], sig[3], float(cfg.Q_conf), float(cfg.C_conf),
-        _HUBER_K, c.fx, c.fy, c.cx, c.cy, float(border),
-        float(c.w - 1 - border), float(c.h - 1 - border),
-        float(cfg.depth_eps))
-    return S0, g0
+    wq = _edge_weights(pre, valid_match, Q, cfg, stride)
+    return _launch(mode, Tij, None, None, pre, wq, edge_mask, cfg, calib)
+
+
+def edge_system(mode, T_WCs, pre: EdgePre, wq, ii, jj, edge_mask, n_kf: int,
+                K_cap: int, pin: int, cfg: BAConfig,
+                calib: CalibArgs = None, plan: AssemblyPlan = None):
+    """The iteration's whole linear system in one kernel launch (CUDA
+    tensors only): edge blocks H (E, 14, 14), g (E, 14) and the assembled
+    Hd (7 K_cap, 7 K_cap), gd (7 K_cap). ``pre``, ``wq`` and ``plan`` from
+    ``_edge_prep``, ``_edge_weights`` at ``cfg.point_stride`` and
+    ``_assembly_plan`` (made here when not given)."""
+    if plan is None:
+        plan = _assembly_plan(ii, jj, n_kf, K_cap, pin)
+    return _launch(mode, T_WCs, ii, jj, pre, wq, edge_mask, cfg, calib, plan,
+                   K_cap)
+
+
+def edge_system_plain(mode, T_WCs, Xs, Cs, ii, jj, idx, valid_match, Q,
+                      edge_mask, n_kf: int, K_cap: int, pin: int,
+                      cfg: BAConfig, pre: EdgePre = None,
+                      calib: CalibArgs = None):
+    """Plain version of ``edge_system``, on any device: ``_edge_terms``
+    with ``ba_edge_terms_plain``, then ``_assemble``."""
+    H, g = _edge_terms(mode, T_WCs, Xs, Cs, ii, jj, idx, valid_match, Q,
+                       edge_mask, cfg, pre, calib, ba_edge_terms_plain)
+    return (H, g) + _assemble(H, g, ii, jj, n_kf, K_cap, pin)
 
 
 # -- per-edge blocks, assembly, solve -----------------------------------------
@@ -300,17 +454,19 @@ def _adj_inv_matrix(T):
 
 
 def _edge_terms(mode, T_WCs, Xs, Cs, ii, jj, idx, valid_match, Q, edge_mask,
-                cfg: BAConfig, pre: EdgePre = None, calib: CalibArgs = None):
+                cfg: BAConfig, pre: EdgePre = None, calib: CalibArgs = None,
+                terms=ba_edge_terms):
     """(E, 14, 14) edge Hessians and (E, 14) gradients; rows/cols 0:7 are
-    pose i, 7:14 pose j (``ba.py:203``)."""
+    pose i, 7:14 pose j (``ba.py:203``). ``terms`` computes the per-edge
+    S0, g0."""
     iil, jjl = ii.to(torch.int64), jj.to(torch.int64)
     Ti = T_WCs[iil]
     Tij = sim3.rel(Ti, T_WCs[jjl]).contiguous()
     if pre is None:
         pre = _edge_prep(Xs, Cs, ii, jj, idx, valid_match,
                          stride=cfg.point_stride)
-    S0, g0 = ba_edge_terms(mode, Tij, pre, valid_match, Q, edge_mask,
-                           cfg.point_stride, cfg, calib)
+    S0, g0 = terms(mode, Tij, pre, valid_match, Q, edge_mask,
+                   cfg.point_stride, cfg, calib)
     M = _adj_inv_matrix(Ti)
     S = M @ S0 @ M.transpose(1, 2)
     gj = (M @ g0[..., None])[..., 0]
@@ -321,9 +477,8 @@ def _edge_terms(mode, T_WCs, Xs, Cs, ii, jj, idx, valid_match, Q, edge_mask,
 
 def _calib_args(K_mat, img_size) -> CalibArgs:
     """Intrinsics as host floats: one read per solve."""
-    fx, fy, cx, cy = (float(v) for v in
-                      torch.stack(geometry.decompose_K(K_mat)).cpu())
-    return CalibArgs(fx, fy, cx, cy, int(img_size[1]), int(img_size[0]))
+    return CalibArgs(*geometry.host_intrinsics(K_mat), int(img_size[1]),
+                     int(img_size[0]))
 
 
 def _edge_terms_rays(T_WCs, Xs, Cs, ii, jj, idx, valid_match, Q, edge_mask,
@@ -415,10 +570,23 @@ def _solve(Hd, gd, n_kf: int, K_cap: int, pin: int, solver: str = "fp32"):
     return torch.where(ok, dx, torch.zeros_like(dx)), free
 
 
-def _assemble_and_solve(H_edges, g_edges, ii, jj, n_kf, K_cap, pin,
-                        solver: str = "fp32"):
-    Hd, gd = _assemble(H_edges, g_edges, ii, jj, n_kf, K_cap, pin)
-    return _solve(Hd, gd, n_kf, K_cap, pin, solver)
+def _edge_system(mode, T_WCs, Xs, Cs, ii, jj, idx, valid_match, Q,
+                 edge_mask, n_kf: int, K_cap: int, pin: int, cfg: BAConfig,
+                 pre: EdgePre = None, calib: CalibArgs = None, wq=None,
+                 plan: AssemblyPlan = None):
+    """(H (E, 14, 14), g (E, 14), Hd, gd): the kernel on CUDA tensors,
+    ``edge_system_plain`` on CPU tensors."""
+    if T_WCs.device.type == "cpu":
+        return edge_system_plain(mode, T_WCs, Xs, Cs, ii, jj, idx,
+                                 valid_match, Q, edge_mask, n_kf, K_cap, pin,
+                                 cfg, pre, calib)
+    if pre is None:
+        pre = _edge_prep(Xs, Cs, ii, jj, idx, valid_match,
+                         stride=cfg.point_stride)
+    if wq is None:
+        wq = _edge_weights(pre, valid_match, Q, cfg, cfg.point_stride)
+    return edge_system(mode, T_WCs, pre, wq, ii, jj, edge_mask, n_kf, K_cap,
+                       pin, cfg, calib, plan)
 
 
 def _gauss_newton(mode, T_WCs, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
@@ -428,13 +596,17 @@ def _gauss_newton(mode, T_WCs, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
     K_cap = T_WCs.shape[0]
     pre = _edge_prep(Xs, Cs, ii, jj, idx_ii2jj, valid_match,
                      stride=cfg.point_stride)
-    T = T_WCs
+    wq = plan = None
+    if T_WCs.is_cuda:
+        wq = _edge_weights(pre, valid_match, Q, cfg, cfg.point_stride)
+        plan = _assembly_plan(ii, jj, n_kf, K_cap, cfg.pin)
+    T = T_WCs.contiguous()
     it = 0
     while it < cfg.max_iters:
-        H, g = _edge_terms(mode, T, Xs, Cs, ii, jj, idx_ii2jj, valid_match,
-                           Q, edge_mask, cfg, pre, calib)
-        dx, free = _assemble_and_solve(H, g, ii, jj, n_kf, K_cap, cfg.pin,
-                                       cfg.solver)
+        _, _, Hd, gd = _edge_system(mode, T, Xs, Cs, ii, jj, idx_ii2jj,
+                                    valid_match, Q, edge_mask, n_kf, K_cap,
+                                    cfg.pin, cfg, pre, calib, wq, plan)
+        dx, free = _solve(Hd, gd, n_kf, K_cap, cfg.pin, cfg.solver)
         T = torch.where(free[:, None], sim3.retr(T, dx), T)
         delta_norm = torch.linalg.vector_norm(
             torch.where(free[:, None], dx, torch.zeros_like(dx)))

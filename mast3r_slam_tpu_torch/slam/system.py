@@ -14,10 +14,10 @@ against the retrieved keyframes (``_relocalize`` :1112), and after
 ``reloc.reinit_after`` failures in a row tracking restarts from it
 (``_reinit_from_current`` :1089).
 
-Per tracked frame the host waits for the device once per Gauss-Newton
-iteration (the 7x7 normal equations come to the host, ``slam/tracker.py``)
-and once for the five frame stats; per backend step once per BA iteration
-(the step norm) and once for the retrieval features and word ids.
+Per tracked frame the host waits for the device once, for the five frame
+stats (the Gauss-Newton solve runs on the device, ``slam/tracker.py``);
+per backend step once per BA iteration (the step norm) and once for the
+retrieval features and word ids.
 
 Not in this slice (each raises ``NotImplementedError``; see ROADMAP.md):
 the windowed driver (``runtime.tracking_window > 1``), the step-by-step
@@ -77,8 +77,10 @@ def _track_gate_pre(idx_f2k, valid_match_k, Qff_at, Qkf, Cf_at, Ck_avg,
                  & (Qk > Q_conf))
     valid_kf = valid_match_k & (Qk > Q_conf)
     hit = torch.zeros(n + 1, dtype=torch.float32, device=idx_f2k.device)
-    hit[torch.where(valid_match_k[:, 0], idx_f2k,
-                    torch.full_like(idx_f2k, n))] = 1.0
+    # index_fill_ takes the scalar as it is (an indexed assignment of a
+    # Python float copies it to the GPU, which waits for the stream)
+    hit.index_fill_(0, torch.where(valid_match_k[:, 0], idx_f2k,
+                                   torch.full_like(idx_f2k, n)), 1.0)
     stats = torch.stack([valid_opt.float().mean(), valid_kf.float().mean(),
                          hit[:n].sum() / n])
     return Qk, valid_opt, stats
@@ -88,11 +90,11 @@ def _track_frame_body(model_mod, params, cfg, mcfg, tcfg, feat_f, pos_f,
                       feat_k, pos_k, idx_init, kf_X, kf_C, kf_N,
                       kf_N_updates, kf_score, kf_T_WC, frame_T_WC, K,
                       ds: int, fuse_mode: str, score_fn: str,
-                      use_calib: bool, img_size):
+                      use_calib: bool, img_size, intrinsics=None):
     """One tracking step: inference, matching, gating, Sim(3) GN, masked
     fusion and pose update (``system.py:101``). The skip/failure decisions
-    come back in a 5-vector of stats; nothing is read to the host here
-    except each GN iteration's 7x7 normal equations."""
+    come back in a 5-vector of stats; nothing is read to the host here.
+    ``intrinsics``: K's (fx, fy, cx, cy) as host floats (calibrated)."""
     (idx_f2k, valid_match_k, Xff, Cff, Qff, Xkf, Ckf, Qkf,
      p_sub) = _track_match(model_mod, params, cfg, mcfg, feat_f, pos_f,
                            feat_k, pos_k, idx_init, ds)
@@ -126,7 +128,7 @@ def _track_frame_body(model_mod, params, cfg, mcfg, tcfg, feat_f, pos_f,
             Xk, K, img_size, tcfg.depth_eps)
         res = tracker_mod.opt_pose_calib_sim3(
             Xf_at, Xk, T_init, Qk, valid_opt, meas_k, valid_meas_k, K,
-            img_size, tcfg)
+            img_size, tcfg, intrinsics)
 
     skip = stats3[0] < tcfg.min_match_frac
     ok = (~skip) & (~res.failed)
@@ -173,6 +175,9 @@ class TrackerRunner:
         self.filtering_score = filtering_score
         self.use_calib = use_calib
         self.K = K
+        # read once here, so that a tracked frame does not wait for K
+        self.intrinsics = (geometry.host_intrinsics(K) if K is not None
+                           else None)
         self.downsample = 1
         self.fused = True
         self.model_mod = model_mod
@@ -207,7 +212,7 @@ class TrackerRunner:
             kfs.X[last], kfs.C[last], kfs.N[last], kfs.N_updates[last],
             kfs.score[last], kfs.T_WC[last], frame.T_WC, K,
             self.downsample, self.filtering_mode, self.filtering_score,
-            self.use_calib, (kfs.h, kfs.w))
+            self.use_calib, (kfs.h, kfs.w), self.intrinsics)
 
         st = stats.cpu().numpy()     # the per-frame stats read
         self.idx_f2k = idx_f2k

@@ -5,20 +5,17 @@ residual (uncalibrated) and the pixel + log-depth residual (calibrated),
 in the JAX package's component-major layout ((d, N) residuals, (d, 7, N)
 Jacobians).
 
-One linearization (act, residual, Jacobian, Huber weight, reduction to the
-7x7 normal equations and the cost) is ``gn_step``: on CUDA tensors the
-hand-written kernel ``csrc/gn_step.cu``, which replaces the XLA
-``_gn_step_t`` (``tracker.py:60``) and the elementwise chain in front of
-it; on CPU tensors ``gn_step_plain``, the component-major PyTorch version.
-
-The JAX ``lax.while_loop`` (:171-195) becomes a Python loop split between
-the device and the host. Per iteration the device builds the residuals and
-reduces them to the 7x7 normal equations; those 57 numbers come to the host
-in one copy (the iteration's only sync), where the equilibrated 7x7
-Cholesky, the Sim(3) retraction and the convergence test run on the CPU,
-and the new pose goes back to the device. The loop stops at convergence
-(typically a handful of iterations) instead of running all ``max_iters``
-with the pose frozen; ``iters`` counts the iterations run, as in JAX.
+The whole solve (the JAX ``lax.while_loop`` of ``_run_gn``, :171-195) is
+``gn_solve``: on CUDA tensors one launch of the hand-written persistent
+kernel ``csrc/gn_step.cu``, which per iteration reduces the residuals to
+the 7x7 normal equations, solves them (equilibrated Cholesky), retracts
+the pose and tests convergence on the device, and stops at convergence or
+failure. Nothing is read to the host: the pose, the cost, the iteration
+count and the failed flag stay on the device. On CPU tensors
+``gn_solve_plain`` runs the same loop in Python around ``gn_step_plain``
+(one linearization in PyTorch, then the 7x7 solve and the retraction on the
+host). ``gn_step`` is one linearization ([H, g, cost]); on CUDA tensors it
+is the same kernel run for one iteration.
 """
 
 from __future__ import annotations
@@ -35,14 +32,14 @@ from ..ops import _kernels
 
 __all__ = ["TrackerConfig", "TrackResult", "opt_pose_ray_dist_sim3",
            "opt_pose_calib_sim3", "calib_measurements", "gn_step",
-           "gn_step_plain", "CalibProj"]
+           "gn_step_plain", "gn_solve", "gn_solve_plain", "CalibProj"]
 
 
 class TrackResult(NamedTuple):
     T_CkCf: torch.Tensor   # (8,) refined relative pose
-    cost: torch.Tensor     # final half-SSE
-    iters: int             # iterations executed
-    failed: torch.Tensor   # bool: singular or non-finite update met
+    cost: torch.Tensor     # half-SSE of the last linearization
+    iters: torch.Tensor    # 0-d int32: iterations executed
+    failed: torch.Tensor   # 0-d bool: singular or non-finite update met
 
 
 def _solve7(H, g):
@@ -160,15 +157,16 @@ def gn_step_plain(T, Xf, tgt_t, si_t, huber_k, calib: CalibProj = None):
     return torch.cat([H.reshape(-1), g, cost[None]])
 
 
-def gn_step(T, Xf, tgt_t, si_t, huber_k, calib: CalibProj = None):
-    """One Gauss-Newton linearization of the tracker: the 7x7 normal
-    equations and the cost as one (57,) tensor [H, g, cost].
+_NO_CALIB = CalibProj(1.0, 1.0, 0.0, 0.0, 1, 1, 0, 0.0)
+_BLOCKS_PER_SM = 8         # 2048 resident threads / the kernel's 256
 
-    T (8,); Xf (N, 3) frame points; tgt_t (d, N) [ray, dist] targets, or
-    [u, v, log z] with ``calib``; si_t (d, N) sqrt-information with the
-    match validity folded in."""
-    if T.device.type == "cpu":
-        return gn_step_plain(T, Xf, tgt_t, si_t, huber_k, calib)
+
+def _launch(T, Xf, tgt_t, si_t, huber_k, calib, max_iters, rel_error,
+            delta_norm):
+    """One launch of ``csrc/gn_step.cu``: up to ``max_iters`` iterations of
+    the solve from T. Returns out (66,) [T (8), cost, H (49), g (7), cost]
+    (the final pose, the cost and the last linearization), iters (0-d
+    int32) and failed (0-d bool), all on the device."""
     f32 = torch.float32
     d = 4 if calib is None else 3
     n = Xf.shape[0]
@@ -179,21 +177,44 @@ def gn_step(T, Xf, tgt_t, si_t, huber_k, calib: CalibProj = None):
     if tgt_t.shape[0] != d or si_t.shape[0] != d:
         raise ValueError(f"gn_step: expected {d} residual rows, got "
                          f"{tuple(tgt_t.shape)} and {tuple(si_t.shape)}")
-    part = torch.empty((264, 36), dtype=f32, device=T.device)
-    out = torch.empty((57,), dtype=f32, device=T.device)
-    c = calib if calib is not None else CalibProj(1.0, 1.0, 0.0, 0.0, 1, 1,
-                                                  0, 0.0)
+    dev = T.device
+    # scratch for the most blocks the card can hold at once; the launcher
+    # sizes the grid by the kernel's occupancy
+    max_blocks = _BLOCKS_PER_SM * _kernels.sm_count(dev.index)
+    part = torch.empty((max_blocks * 36 + 16,), dtype=f32, device=dev)
+    out = torch.empty((66,), dtype=f32, device=dev)
+    iters = torch.empty((), dtype=torch.int32, device=dev)
+    failed = torch.empty((), dtype=torch.bool, device=dev)
+    c = calib if calib is not None else _NO_CALIB
+    p = _kernels.ptr
     _kernels.launch(
-        "gn_step", _kernels.ptr(T), _kernels.ptr(Xf), _kernels.ptr(tgt_t),
-        _kernels.ptr(si_t), _kernels.ptr(part), _kernels.ptr(out), n,
-        int(calib is not None), float(huber_k), c.fx, c.fy, c.cx, c.cy,
+        "gn_step", p(T), p(Xf), p(tgt_t), p(si_t), p(part), p(out),
+        p(iters), p(failed), n, int(calib is not None), int(max_iters),
+        max_blocks, float(huber_k), float(rel_error), float(delta_norm),
+        c.fx, c.fy, c.cx, c.cy,
         float(c.border), float(c.w - 1 - c.border),
         float(c.h - 1 - c.border), float(c.z_eps))
-    return out
+    return out, iters, failed
 
 
-def _run_gn(step_fn, T_init, cfg: TrackerConfig):
-    """``step_fn(T)`` -> (57,) [H, g, cost] on T's device."""
+def gn_step(T, Xf, tgt_t, si_t, huber_k, calib: CalibProj = None):
+    """One Gauss-Newton linearization of the tracker: the 7x7 normal
+    equations and the cost as one (57,) tensor [H, g, cost].
+
+    T (8,); Xf (N, 3) frame points; tgt_t (d, N) [ray, dist] targets, or
+    [u, v, log z] with ``calib``; si_t (d, N) sqrt-information with the
+    match validity folded in."""
+    if T.device.type == "cpu":
+        return gn_step_plain(T, Xf, tgt_t, si_t, huber_k, calib)
+    out, _, _ = _launch(T, Xf, tgt_t, si_t, huber_k, calib, 1, 0.0, 0.0)
+    return out[9:]
+
+
+def gn_solve_plain(T_init, Xf, tgt_t, si_t, cfg: TrackerConfig,
+                   calib: CalibProj = None) -> TrackResult:
+    """Plain version of ``gn_solve``, on any device: per iteration
+    ``gn_step_plain``, then on the host the 7x7 solve, the retraction and
+    the convergence test (one device->host copy per iteration)."""
     dev = T_init.device
     T = T_init
     T_h = T_init.cpu()
@@ -202,8 +223,7 @@ def _run_gn(step_fn, T_init, cfg: TrackerConfig):
     failed = False
     it = 0
     while it < cfg.max_iters:
-        # the iteration's one device->host copy: H, g and the cost
-        hg = step_fn(T).cpu()
+        hg = gn_step_plain(T, Xf, tgt_t, si_t, cfg.huber, calib).cpu()
         H_h, g_h, cost = hg[:49].reshape(7, 7), hg[49:56], hg[56]
         tau, ok = _solve7(H_h, g_h)
         if bool(ok):
@@ -216,8 +236,23 @@ def _run_gn(step_fn, T_init, cfg: TrackerConfig):
         it += 1
         if conv or not bool(ok):
             break
-    return TrackResult(T, cost.to(dev), it,
+    return TrackResult(T, cost.to(dev),
+                       torch.tensor(it, dtype=torch.int32, device=dev),
                        torch.tensor(failed, device=dev))
+
+
+def gn_solve(T_init, Xf, tgt_t, si_t, cfg: TrackerConfig,
+             calib: CalibProj = None) -> TrackResult:
+    """The tracker's Gauss-Newton solve from T_init (8,) on the residuals
+    of ``gn_step``: up to ``cfg.max_iters`` iterations, stopping at
+    convergence or at a failed solve. On CUDA tensors one kernel launch
+    and no host read."""
+    if T_init.device.type == "cpu":
+        return gn_solve_plain(T_init, Xf, tgt_t, si_t, cfg, calib)
+    out, iters, failed = _launch(T_init.contiguous(), Xf, tgt_t, si_t,
+                                 cfg.huber, calib, cfg.max_iters,
+                                 cfg.rel_error, cfg.delta_norm)
+    return TrackResult(out[:8], out[8], iters, failed)
 
 
 @torch.no_grad()
@@ -230,16 +265,17 @@ def opt_pose_ray_dist_sim3(Xf, Xk, T_CkCf_init, Qk, valid,
     sQ = (torch.sqrt(Qk) * valid)[:, 0]
     si_t = torch.stack([sQ / cfg.sigma_ray] * 3 + [sQ / cfg.sigma_dist])
     rd_k_t, _, _ = _ray_dist_t(Xk.T)
-    Xf = Xf.contiguous()
-    return _run_gn(
-        lambda T: gn_step(T, Xf, rd_k_t, si_t, cfg.huber),
-        T_CkCf_init, cfg)
+    return gn_solve(T_CkCf_init, Xf.contiguous(), rd_k_t.contiguous(), si_t,
+                    cfg)
 
 
 @torch.no_grad()
 def opt_pose_calib_sim3(Xf, Xk, T_CkCf_init, Qk, valid, meas_k,
-                        valid_meas_k, K, img_size, cfg: TrackerConfig):
-    """Pixel + log-depth GN (``tracker.py:225``)."""
+                        valid_meas_k, K, img_size, cfg: TrackerConfig,
+                        intrinsics=None):
+    """Pixel + log-depth GN (``tracker.py:225``). ``intrinsics``: K's
+    (fx, fy, cx, cy) from ``geometry.host_intrinsics``; without it K is
+    read to the host here."""
     exact_fp32()
     sQ = (torch.sqrt(Qk) * valid)[:, 0]
     si_t = torch.stack([sQ / cfg.sigma_pixel] * 2 + [sQ / cfg.sigma_depth])
@@ -247,14 +283,10 @@ def opt_pose_calib_sim3(Xf, Xk, T_CkCf_init, Qk, valid, meas_k,
     # keyframe's own validity does not depend on the pose, fold it in once
     si_t = valid_meas_k[:, 0][None] * si_t
     h, w = img_size
-    fx, fy, cx, cy = (float(v) for v in
-                      torch.stack(geometry.decompose_K(K)).cpu())
+    fx, fy, cx, cy = intrinsics or geometry.host_intrinsics(K)
     calib = CalibProj(fx, fy, cx, cy, w, h, cfg.pixel_border, cfg.depth_eps)
-    Xf = Xf.contiguous()
-    meas_k_t = meas_k.T.contiguous()
-    return _run_gn(
-        lambda T: gn_step(T, Xf, meas_k_t, si_t, cfg.huber, calib),
-        T_CkCf_init, cfg)
+    return gn_solve(T_CkCf_init, Xf.contiguous(), meas_k.T.contiguous(),
+                    si_t.contiguous(), cfg, calib)
 
 
 def calib_measurements(Xk, K, img_size, depth_eps: float):

@@ -109,6 +109,39 @@ def test_edge_terms_match_jax(mode, stride):
     assert not np.any(np.nan_to_num(Ht[5].numpy()))
 
 
+@pytest.mark.parametrize("stride", [1, 4])
+@pytest.mark.parametrize("mode", ["rays", "calib", "points"])
+def test_edge_system_plain_matches_jax(mode, stride):
+    """``edge_system_plain`` (the plain version of the fused
+    ``ba_edge_terms`` kernel: edge terms, conjugation and assembly) == JAX
+    ``_edge_terms_*`` + ``_assemble``: edge blocks to 1e-5 of the largest
+    entry (sums in another order), the assembled system to 1e-5, NaN where
+    JAX has NaN; pinned pose 0 and the inactive slot stay zero."""
+    T, Xs, Cs, ii, jj, idx, valid, Q, mask = _edge_fixture(0)
+    n_kf = 3                           # keyframe 3 is an inactive slot
+    K_cap, pin = T.shape[0], 1
+    kw = dict(point_stride=stride)
+    cj, ct = jba.BAConfig(point_chunk=256, **kw), tba.BAConfig(**kw)
+    if mode == "calib":
+        Hj, gj = jba._edge_terms_calib(
+            *_j(T, Xs, Cs, KMAT, ii, jj, idx, valid, Q, mask), (H, W), cj)
+        calib = tba._calib_args(torch.from_numpy(KMAT), (H, W))
+    else:
+        Hj, gj = getattr(jba, f"_edge_terms_{mode}")(
+            *_j(T, Xs, Cs, ii, jj, idx, valid, Q, mask), cj)
+        calib = None
+    Hdj, gdj = jba._assemble(Hj, gj, *_j(ii, jj), jnp.asarray(n_kf), K_cap,
+                             pin)
+    Ht, gt, Hd, gd = tba.edge_system_plain(
+        mode, *_t(T, Xs, Cs, ii, jj, idx, valid, Q, mask), n_kf, K_cap, pin,
+        ct, calib=calib)
+    _close(Ht, Hj, 1e-5)
+    _close(gt, gj, 1e-5)
+    _close(Hd, Hdj, 1e-5)
+    _close(gd, gdj, 1e-5)
+    assert not Hd[:7].any() and not Hd[21:].any() and not gd[21:].any()
+
+
 def test_edge_terms_gates_bite():
     """The fixture's gates all fire: without the degenerate points nothing
     is NaN, a masked edge is zero, and confidences below the thresholds

@@ -8,7 +8,11 @@ versions' operation order, so floats agree to 1e-6 (observed: exactly) and
 integer outputs and converged flags are equal. The gathers copy and are
 exact. The two reductions (``gn_step``, ``ba_edge_terms``) sum fp32 terms
 in another order than the plain matmuls: 1e-5 of the largest entry, and
-two calls on the same inputs give the same bits. ``rope_qk`` rounds every
+two calls on the same inputs give the same bits. The fused tracker solve
+(``gn_solve``) runs as many iterations as the plain loop and fails where it
+fails, its pose within 1e-5 and its cost within 1e-5 relative (the device
+retraction uses CUDA's sinf/expm1f); the fused BA system (``edge_system``)
+is held to 1e-5 of the largest entry of each output. ``rope_qk`` rounds every
 product and sum as the plain version does: bit-equal. ``refine_matches``
 adds exact products in the plain version's order (bf16) or exact integers
 (int8): equal at every point, on both of its paths. ``coarse_correlate``
@@ -200,16 +204,57 @@ def test_gn_step_matches_plain(cuda, calib):
         assert float((a[sl] - ref[sl]).abs().max()) <= 1e-5 * scale
 
 
-@pytest.mark.parametrize("stride", [1, 4])
-@pytest.mark.parametrize("mode", ["rays", "calib", "points"])
-def test_ba_edge_terms_matches_plain(cuda, mode, stride):
+@pytest.mark.parametrize("calib", [False, True])
+@pytest.mark.parametrize("case", ["converges", "no_valid_match",
+                                  "max_iters"])
+def test_gn_solve_matches_plain(cuda, calib, case):
+    from mast3r_slam_tpu_torch.slam import tracker
+
+    T, Xf, Xk, si = _tracker_problem(cuda, n=20000)
+    cfg = tracker.TrackerConfig()
+    if case == "no_valid_match":
+        si = torch.zeros_like(si)
+    if case == "max_iters":
+        cfg = cfg._replace(max_iters=4, rel_error=0.0, delta_norm=0.0)
+    if calib:
+        proj = tracker.CalibProj(300.0, 300.0, 256.0, 192.0, 512, 384, -10,
+                                 1e-6)
+        z = Xk[:, 2]
+        tgt = torch.stack([300.0 * Xk[:, 0] / z + 256.0,
+                           300.0 * Xk[:, 1] / z + 192.0, torch.log(z)])
+        si = si[:3].contiguous()
+    else:
+        proj = None
+        tgt, _, _ = tracker._ray_dist_t(Xk.T)
+    tgt = tgt.contiguous()
+    a = tracker.gn_solve(T, Xf, tgt, si, cfg, proj)
+    b = tracker.gn_solve(T, Xf, tgt, si, cfg, proj)
+    ref = tracker.gn_solve_plain(T, Xf, tgt, si, cfg, proj)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert int(a.iters) == int(ref.iters)
+    assert bool(a.failed) == bool(ref.failed)
+    assert float((a.T_CkCf - ref.T_CkCf).abs().max()) <= 1e-5
+    assert abs(float(a.cost) - float(ref.cost)) <= 1e-5 * abs(float(ref.cost))
+    if case == "no_valid_match":
+        assert bool(a.failed) and int(a.iters) == 1
+        assert torch.equal(a.T_CkCf, T)
+    elif case == "max_iters":
+        assert int(a.iters) == 4 and not bool(a.failed)
+    else:
+        assert 1 < int(a.iters) < cfg.max_iters
+
+
+def _ba_problem(dev, stride, E=8):
+    """4 keyframes, E two-way edges (the 8 of a square with a diagonal,
+    repeated), one masked edge, a point behind the camera."""
     from mast3r_slam_tpu_torch.lie import sim3
     from mast3r_slam_tpu_torch.slam import ba
 
     rng = np.random.default_rng(stride)
     h, w, n_kf = 48, 64, 4
     P = h * w
-    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
     v, u = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
     Xs = []
     for k in range(n_kf):
@@ -218,20 +263,107 @@ def test_ba_edge_terms_matches_plain(cuda, mode, stride):
         Xs.append(np.stack([(u - 32) / 60.0 * z, (v - 24) / 60.0 * z, z],
                            -1).reshape(P, 3))
     Xs = f(np.stack(Xs))
-    Xs[2, 7, 2] = -1.0                      # a point behind the camera
+    Xs[2, 7, 2] = -1.0
     Cs = f(rng.uniform(-0.3, 5.0, (n_kf, P)))
     T = sim3.exp(f(0.05 * rng.standard_normal((n_kf, 7))))
-    ii = torch.tensor([0, 1, 1, 2, 2, 3, 0, 3], dtype=torch.int32, device=cuda)
-    jj = torch.tensor([1, 0, 2, 1, 3, 2, 3, 0], dtype=torch.int32, device=cuda)
-    E = 8
+    base_i, base_j = [0, 1, 1, 2, 2, 3, 0, 3], [1, 0, 2, 1, 3, 2, 3, 0]
+    ii = torch.tensor((base_i * E)[:E], dtype=torch.int32, device=dev)
+    jj = torch.tensor((base_j * E)[:E], dtype=torch.int32, device=dev)
     idx = torch.from_numpy(np.clip(
         np.arange(P)[None] + rng.integers(-2, 3, (E, P)), 0, P - 1).astype(
-            np.int32)).to(cuda)
+            np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random((E, P)) > 0.1).to(dev)
+    Q = f(rng.uniform(1.0, 4.5, (E, P)))
+    mask = torch.ones(E, device=dev)
+    mask[min(5, E - 1)] = 0.0
+    cfg = ba.BAConfig(point_stride=stride)
+    return T, Xs, Cs, ii, jj, idx, valid, Q, mask, cfg, (h, w)
+
+
+@pytest.mark.parametrize("mode,stride,E", [
+    (m, s, 8) for m in ("rays", "calib", "points") for s in (1, 4)]
+    + [("rays", 4, 2), ("calib", 1, 2), ("rays", 4, 42), ("rays", 4, 1100)])
+def test_edge_system_matches_plain(cuda, mode, stride, E):
+    from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.slam import ba
+
+    T, Xs, Cs, ii, jj, idx, valid, Q, mask, cfg, (h, w) = _ba_problem(
+        cuda, stride, E)
+    calib = (ba.CalibArgs(60.0, 60.0, 32.0, 24.0, w, h) if mode == "calib"
+             else None)
+    n_kf, K_cap, pin = 3, 4, 1             # keyframe 3: an inactive slot
+    pre = ba._edge_prep(Xs, Cs, ii, jj, idx, valid, stride)
+    wq = ba._edge_weights(pre, valid, Q, cfg, stride)
+    args = (mode, T, pre, wq, ii, jj, mask, n_kf, K_cap, pin, cfg, calib)
+    n0 = _kernels.LAUNCHES["ba_edge_terms"]
+    got = ba.edge_system(*args)
+    assert _kernels.LAUNCHES["ba_edge_terms"] == n0 + 1
+    again = ba.edge_system(*args)
+    ref = ba.edge_system_plain(mode, T, Xs, Cs, ii, jj, idx, valid, Q, mask,
+                               n_kf, K_cap, pin, cfg, pre, calib)
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b)
+        assert torch.equal(torch.isnan(a), torch.isnan(r))
+        scale = float(r.nan_to_num().abs().max())
+        assert float((a - r).nan_to_num().abs().max()) <= 1e-5 * scale
+    Hd, gd = got[2], got[3]
+    assert not Hd[:7].any() and not Hd[21:].any() and not gd[21:].any()
+    assert float(got[0][min(5, E - 1)].nan_to_num().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("K_cap,E", [(64, 300), (256, 1204)])
+def test_edge_system_many_keyframes(cuda, K_cap, E):
+    """A long sequence: K_cap keyframes (the last two inactive, the first
+    pinned), consecutive and random two-way edges: hundreds of destination
+    blocks, each summed by the block that completes it."""
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.slam import ba
+
+    rng = np.random.default_rng(E)
+    P = 24 * 32
+    pairs = [(k, k + 1) for k in range(K_cap - 1)][:E // 2]
+    while len(pairs) < E // 2:
+        a, b = (int(v) for v in rng.integers(0, K_cap, 2))
+        if abs(a - b) >= 2:
+            pairs.append((a, b))
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+    ii = i32([a for p in pairs for a in p])
+    jj = i32([a for p in pairs for a in p[::-1]])
+    T = sim3.exp(f(0.02 * rng.standard_normal((K_cap, 7))))
+    Xs = f(rng.standard_normal((K_cap, P, 3)) * 0.5 + [0.0, 0.0, 3.0])
+    Cs = f(rng.uniform(-0.3, 5.0, (K_cap, P)))
+    idx = i32(rng.integers(0, P, (E, P)))
     valid = torch.from_numpy(rng.random((E, P)) > 0.1).to(cuda)
     Q = f(rng.uniform(1.0, 4.5, (E, P)))
     mask = torch.ones(E, device=cuda)
-    mask[5] = 0.0
-    cfg = ba.BAConfig(point_stride=stride)
+    cfg = ba.BAConfig(point_stride=4)
+    n_kf, pin = K_cap - 2, 1
+    pre = ba._edge_prep(Xs, Cs, ii, jj, idx, valid, 4)
+    wq = ba._edge_weights(pre, valid, Q, cfg, 4)
+    args = ("rays", T, pre, wq, ii, jj, mask, n_kf, K_cap, pin, cfg)
+    got = ba.edge_system(*args)
+    again = ba.edge_system(*args)
+    ref = ba.edge_system_plain("rays", T, Xs, Cs, ii, jj, idx, valid, Q,
+                               mask, n_kf, K_cap, pin, cfg, pre)
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b)
+        assert float((a - r).abs().max()) <= 1e-5 * float(r.abs().max())
+    Hd, gd = got[2], got[3]
+    assert not Hd[:7].any() and not Hd[7 * n_kf:].any()
+    assert not gd[:7].any() and not gd[7 * n_kf:].any()
+
+
+@pytest.mark.parametrize("stride", [1, 4])
+@pytest.mark.parametrize("mode", ["rays", "calib", "points"])
+def test_ba_edge_terms_matches_plain(cuda, mode, stride):
+    """The per-edge sums alone, for given Tij (the kernel without its
+    conjugation and assembly)."""
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.slam import ba
+
+    T, Xs, Cs, ii, jj, idx, valid, Q, mask, cfg, (h, w) = _ba_problem(
+        cuda, stride)
     calib = (ba.CalibArgs(60.0, 60.0, 32.0, 24.0, w, h) if mode == "calib"
              else None)
     pre = ba._edge_prep(Xs, Cs, ii, jj, idx, valid, stride)

@@ -51,7 +51,7 @@ def _t(*a):
 def _cmp(rj, rt):
     np.testing.assert_allclose(rt.T_CkCf.numpy(), np.asarray(rj.T_CkCf),
                                atol=1e-4)
-    assert int(rj.iters) == rt.iters
+    assert int(rj.iters) == int(rt.iters)
     assert bool(rj.failed) == bool(rt.failed)
 
 
@@ -169,3 +169,44 @@ def test_gn_step_plain_is_the_pieces(calib):
     np.testing.assert_allclose(out[49:56].numpy(), ref[1].numpy(), rtol=0,
                                atol=1e-5 * float(ref[1].abs().max()))
     np.testing.assert_allclose(float(out[56]), float(ref[2]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("calib", [False, True])
+@pytest.mark.parametrize("max_iters", [50, 2])
+def test_gn_solve_plain_matches_jax(calib, max_iters):
+    """``gn_solve_plain`` (the plain version of the fused ``gn_step``
+    kernel's whole solve) == the JAX ``lax.while_loop`` of ``_run_gn`` on
+    the same residuals: pose atol 1e-4, cost rtol 1e-4, ``iters`` and
+    ``failed`` equal; with ``max_iters`` 2 and the thresholds at 0 both run
+    to the cap."""
+    Xf, Xk, Qk, valid = _problem(6)
+    cfg_j = jt.TrackerConfig()
+    if max_iters != 50:
+        cfg_j = cfg_j._replace(max_iters=max_iters, rel_error=0.0,
+                               delta_norm=0.0)
+    cfg_t = tt.TrackerConfig(**cfg_j._asdict())
+    T0 = np.asarray(js.identity())
+    sQ = (np.sqrt(Qk) * valid)[:, 0]
+    if calib:
+        meas, vmeas = jt.calib_measurements(jnp.asarray(Xk), jnp.asarray(K),
+                                            (H, W), cfg_j.depth_eps)
+        rj = jt.opt_pose_calib_sim3(*_j(Xf, Xk, T0, Qk, valid), meas, vmeas,
+                                    jnp.asarray(K), (H, W), cfg_j)
+        si = np.stack([sQ / cfg_t.sigma_pixel] * 2
+                      + [sQ / cfg_t.sigma_depth]) * np.asarray(vmeas)[:, 0]
+        tgt = np.asarray(meas).T
+        proj = tt.CalibProj(30.0, 30.0, 16.0, 12.0, W, H, cfg_t.pixel_border,
+                            cfg_t.depth_eps)
+    else:
+        rj = jt.opt_pose_ray_dist_sim3(*_j(Xf, Xk, T0, Qk, valid), cfg_j)
+        si = np.stack([sQ / cfg_t.sigma_ray] * 3 + [sQ / cfg_t.sigma_dist])
+        tgt = np.asarray(jt._ray_dist_t(jnp.asarray(Xk).T)[0])
+        proj = None
+    rt = tt.gn_solve_plain(*_t(T0, Xf), *_t(tgt.astype(np.float32),
+                                             si.astype(np.float32)),
+                           cfg_t, proj)
+    _cmp(rj, rt)
+    np.testing.assert_allclose(float(rt.cost), float(rj.cost), rtol=1e-4)
+    assert rt.iters.dtype == torch.int32 and rt.failed.dtype == torch.bool
+    if max_iters == 2:
+        assert int(rt.iters) == 2 and not bool(rt.failed)
