@@ -17,6 +17,12 @@ Phases (any failure exits non-zero and prints no result line):
    stated tolerance, the two reductions bit-equal across two calls), with
    CUDA-event timings (median of several runs) of the kernel, the plain
    version and, where one PyTorch call computes the function, that call.
+   ``scharr_rays`` (tiled, in the 9-float and the padded 12-float record,
+   and its first design, one thread a pixel) must equal the plain version
+   bit for bit, the pad exactly zero; ``iter_proj`` on both records and its
+   first design, at the tpu_fast coarse grid, the base full grid and the
+   edge batch of 2: positions bit-equal, converged flags equal. Their
+   records carry the first design's time (``baseline_ms``).
    ``coarse_correlate`` runs on the tensor cores and is held to
    ``dense_matcher.check_coarse_correlate``'s tie rule at both shapes, to
    exact planted winners, and to rows whose answer is known (NaN query,
@@ -253,18 +259,24 @@ def check_kernels(model_cfg, orc):
         records.append(r)
         log("kernel", json.dumps(r))
 
-    # 1. Scharr, fused with the ray normalization (the matcher's input)
-    got = gradient.prep_rays_grad(X11)
+    # 1. Scharr, fused with the ray normalization (the matcher's input): the
+    # tiled kernel in both records, and the first design (one thread a
+    # pixel) as the yardstick; every one bit-equal
     ref = gradient.prep_rays_grad_plain(X11)
-    err = float((got - ref).abs().max())
-    if not err <= 1e-6:
-        raise AssertionError(f"scharr_rays vs plain: {err} > 1e-6")
+    exact = lambda a, b: float((a - b).abs().max())
+    for out_c, tiled in ((9, True), (12, True), (9, False)):
+        got = gradient._scharr_cuda(X11, True, out_c, tiled)
+        err = exact(got[..., :9], ref)
+        pad = float(got[..., 9:].abs().max()) if out_c == 12 else 0.0
+        if not (err == 0.0 and pad == 0.0):
+            raise AssertionError(f"scharr_rays record {out_c} tiled {tiled} "
+                                 f"vs plain: {err}, pad {pad}")
     # plain-stencil mode: batch 2, c = 9, no normalization
     img9 = torch.cat([ref, ref.flip(1)], 0).contiguous()
     gx, gy = gradient.img_gradient(img9)
     gx0, gy0 = gradient.img_gradient_plain(img9)
-    err2 = float(max((gx - gx0).abs().max(), (gy - gy0).abs().max()))
-    if not err2 <= 1e-6:
+    err2 = max(exact(gx, gx0), exact(gy, gy0))
+    if not err2 == 0.0:
         raise AssertionError(f"scharr_rays (c=9, b=2) vs plain: {err2}")
     kx = torch.tensor([[-3.0, 0, 3], [-10, 0, 10], [-3, 0, 3]],
                       device="cuda") / 32
@@ -275,47 +287,87 @@ def check_kernels(model_cfg, orc):
         return F.conv2d(F.pad(x, (1, 1, 1, 1), mode="reflect"), wts,
                         groups=3)
 
-    rec("scharr_rays", "prep_rays_grad (1,384,512,3)->(1,384,512,9)",
-        max(err, err2), lambda: gradient.prep_rays_grad(X11),
-        lambda: gradient.prep_rays_grad_plain(X11), library,
-        # per pixel: one normalization (~9 FLOP), 2 x 3 stencils (~11 each)
-        n * 3 * 4 + n * 9 * 4, n * (9 + 6 * 11), "fp32",
-        "mast3r_slam_tpu/ops/pallas_gradient.py:31 (_scharr_kernel, "
-        "pallas_call :68)", "mast3r_slam_tpu_torch/csrc/scharr_rays.cu",
-        tolerance="1e-6 abs")
-    rays = got
+    # per pixel: one normalization (~9 FLOP), 2 x 3 stencils (~11 each);
+    # the bound is the function's (9 floats out), the pad is the design's
+    bound_bytes, bound_ops = n * 3 * 4 + n * 9 * 4, n * (9 + 6 * 11)
+    for out_c, variant, fn, plain in (
+            (12, "prep_rays_grad_padded (1,384,512,3)->(1,384,512,12), the "
+             "matcher's", gradient.prep_rays_grad_padded,
+             gradient.prep_rays_grad_padded_plain),
+            (9, "prep_rays_grad (1,384,512,3)->(1,384,512,9)",
+             gradient.prep_rays_grad, gradient.prep_rays_grad_plain)):
+        extra = ({"baseline": "one thread a pixel, 9 floats (the first "
+                              "design)",
+                  "baseline_ms": device_ms(lambda: gradient._scharr_cuda(
+                      X11, True, 9, False))} if out_c == 9 else {})
+        rec("scharr_rays", variant, max(exact(fn(X11)[..., :9], ref), err2),
+            lambda: fn(X11), lambda: plain(X11), library, bound_bytes,
+            bound_ops, "fp32",
+            "mast3r_slam_tpu/ops/pallas_gradient.py:31 (_scharr_kernel, "
+            "pallas_call :68)", "mast3r_slam_tpu_torch/csrc/scharr_rays.cu",
+            tolerance="exact (channels 0-8 bit-equal, the pad zero)",
+            tile="32x8",
+            bound_ms_with_pad=(n * 3 * 4 + n * out_c * 4) / MEM_BW * 1e3,
+            **extra)
+    rays9 = gradient.prep_rays_grad(X11)
+    rays12 = gradient.prep_rays_grad_padded(X11)
 
-    # 2. iter_proj: tpu_fast coarse subgrid (3 iters), base full grid (10)
+    # 2. iter_proj: tpu_fast coarse subgrid (3 iters), base full grid (10),
+    # and the edge builder's batch of 2 at the base grid; both records, and
+    # the first design as the yardstick; every one bit-equal
     pts = gradient.l2_normalize(X21.reshape(1, n, 3)).contiguous()
     ident = torch.arange(n, device="cuda")[None]
     p_full = matching.lin_to_pixel(ident, w).float().contiguous()
     pc = p_full.reshape(1, h, w, 2)[:, ::2, ::2].reshape(1, -1, 2).contiguous()
     tc = pts.reshape(1, h, w, 3)[:, ::2, ::2].reshape(1, -1, 3).contiguous()
+    rays9_b2 = gradient.prep_rays_grad(X)
+    rays12_b2 = gradient.prep_rays_grad_padded(X)
+    pts_b2 = gradient.l2_normalize(X.flip(0).reshape(2, n, 3)).contiguous()
+    p_b2 = p_full.expand(2, n, 2).contiguous()
     p_iters = {}
-    for variant, (pp, tt, iters) in {
-            "tpu_fast coarse (1,49152) x3": (pc, tc, 3),
-            "base full (1,196608) x10": (p_full, pts, 10)}.items():
-        a, ca = matching.iter_proj(rays, tt, pp, iters)
-        b, cb = matching.iter_proj_plain(rays, tt, pp, iters)
-        err = float((a - b).abs().max())
-        flips = int((ca != cb).sum())
-        if not (err <= 1e-5 and flips == 0):
-            raise AssertionError(f"iter_proj {variant}: pos err {err}, "
-                                 f"{flips} converged flags differ")
-        m = tt.shape[1]
-        rec("iter_proj", variant, err,
-            lambda: matching.iter_proj(rays, tt, pp, iters),
-            lambda: matching.iter_proj_plain(rays, tt, pp, iters), None,
-            # ~110 FLOP per LM evaluation (bilinear tap, ray error, 2x2 solve)
-            n * 9 * 4 + m * (12 + 8 + 8 + 1), m * (iters + 1) * 110, "fp32",
+    for variant, (r9, r12, pp, tt, iters) in {
+            "tpu_fast coarse (1,49152) x3": (rays9, rays12, pc, tc, 3),
+            "base full (1,196608) x10": (rays9, rays12, p_full, pts, 10),
+            "edge batch full (2,196608) x10": (rays9_b2, rays12_b2, p_b2,
+                                               pts_b2, 10)}.items():
+        b_, m = tt.shape[:2]
+        b, cb = matching.iter_proj_plain(r9, tt, pp, iters)
+        for c, img, first in ((12, r12, False), (9, r9, False),
+                              (9, r9, True)):
+            a, ca = matching._iter_proj_cuda(img, tt, pp, iters, 1e-8, 1e-6,
+                                             first)
+            err, flips = exact(a, b), int((ca != cb).sum())
+            if not (err == 0.0 and flips == 0):
+                raise AssertionError(
+                    f"iter_proj {variant} record {c} first {first}: pos err "
+                    f"{err}, {flips} converged flags differ")
+        record9_ms = device_ms(lambda: matching.iter_proj(r9, tt, pp, iters))
+        first_ms = device_ms(lambda: matching._iter_proj_cuda(
+            r9, tt, pp, iters, 1e-8, 1e-6, True))
+        a, ca = matching.iter_proj(r12, tt, pp, iters)
+        err = exact(a, b)
+        if not (err == 0.0 and torch.equal(ca, cb)):
+            raise AssertionError(f"iter_proj {variant}: pos err {err}")
+        rec("iter_proj", f"{variant}, 12-float record",
+            err, lambda: matching.iter_proj(r12, tt, pp, iters),
+            lambda: matching.iter_proj_plain(r12, tt, pp, iters), None,
+            # ~110 FLOP per LM evaluation (bilinear tap, ray error, 2x2
+            # solve); the bound reads the 9-float image once (the pad is the
+            # design's cost, not the work's)
+            b_ * n * 9 * 4 + b_ * m * (12 + 8 + 8 + 1),
+            b_ * m * (iters + 1) * 110, "fp32",
             "mast3r_slam_tpu/ops/matching.py:117 (iter_proj, XLA)",
             "mast3r_slam_tpu_torch/csrc/iter_proj.cu", plain_reps=5,
-            tolerance="1e-5 abs (pixels), converged flags equal")
-        p_iters[iters] = a
+            tolerance="exact (positions bit-equal, converged flags equal), "
+            "both records and the first design",
+            record9_ms=record9_ms,
+            baseline="one thread a point, 9-float record, scalar loads (the "
+            "first design)", baseline_ms=first_ms)
+        p_iters[(b_, iters)] = a
 
     # 3. refine_matches: bf16 and int8, r=1 d=1 (tpu_fast), r=3 d=5 (base),
     # on the oracle's smooth starts
-    p1i = p_iters[10].to(torch.int32)
+    p1i = p_iters[(1, 10)].to(torch.int32)
     p1i = torch.stack([p1i[..., 0].clamp(0, w - 1),
                        p1i[..., 1].clamp(0, h - 1)], -1).contiguous()
     casts = (("bf16", lambda x: x.to(torch.bfloat16), 2),

@@ -31,10 +31,9 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 SOURCES = {
-    "scharr_rays": ("scharr_rays_launch",
-                    [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "scharr_rays": ("scharr_rays_launch", [_P, _P] + [_I] * 10 + [_P]),
     "iter_proj": ("iter_proj_launch",
-                  [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]),
+                  [_P] * 5 + [_I] * 7 + [_F, _F, _P]),
     "refine_matches": ("refine_matches_launch",
                        [_P] * 4 + [_I] * 9 + [_P]),
     "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I, _I, _I, _P]),

@@ -2,10 +2,13 @@
 
 Counterparts of ``mast3r_slam_tpu/ops/gradient.py::img_gradient`` and
 ``mast3r_slam_tpu/ops/matching.py::prep_rays_grad`` (:47). On a CUDA tensor
-both launch the hand-written kernel ``csrc/scharr_rays.cu``, which replaces
+they launch the hand-written kernel ``csrc/scharr_rays.cu``, which replaces
 the Pallas kernel ``mast3r_slam_tpu/ops/pallas_gradient.py::_scharr_kernel``
-(:31); ``prep_rays_grad`` fuses the ray normalization into it. On a CPU
-tensor they run the plain versions below. There is no other fallback.
+(:31); ``prep_rays_grad`` fuses the ray normalization into it, as a tiled
+kernel. ``prep_rays_grad_padded`` writes the same image with each pixel's
+record padded to 12 floats (48 bytes, 16-byte aligned), the layout in which
+``ops/matching.iter_proj`` reads its taps with vector loads. On a CPU tensor
+they run the plain versions below. There is no other fallback.
 """
 
 from __future__ import annotations
@@ -63,7 +66,17 @@ def prep_rays_grad_plain(X11):
     return torch.cat([rays, gx, gy], dim=-1)
 
 
-def _scharr_cuda(img, normalize: bool):
+def prep_rays_grad_padded_plain(X11):
+    """Plain (b, h, w, 3) -> (b, h, w, 12) [ray, gx, gy, 0, 0, 0]."""
+    out = prep_rays_grad_plain(X11)
+    return torch.cat([out, torch.zeros_like(out[..., :3])], dim=-1)
+
+
+def _scharr_cuda(img, normalize: bool, out_c=None, tiled: bool = True):
+    """Launch ``scharr_rays``. With ``normalize`` (c == 3) the record has
+    ``out_c`` = 9 or 12 floats, written by the tiled kernel, or with
+    ``tiled=False`` (9 floats only) by the first design, one thread a
+    pixel; without it, 2c ([gx, gy]), one thread a pixel."""
     _kernels.check_cuda(img, "scharr_rays", torch.float32)
     if img.dim() < 3:
         raise ValueError(f"scharr_rays: expected (..., h, w, c), got "
@@ -77,15 +90,18 @@ def _scharr_cuda(img, normalize: bool):
     for s in lead:
         B *= s
     if normalize:
-        out = torch.empty((*lead, h, w, 9), dtype=img.dtype,
-                          device=img.device)
-        offs = (9, 0, 3, 6)
+        out_c = 9 if out_c is None else out_c
+        if out_c not in (9, 12) or (out_c == 12 and not tiled):
+            raise ValueError(f"scharr_rays: a {out_c}-float record is not "
+                             f"built by the {'tiled' if tiled else 'per-pixel'}"
+                             " kernel")
+        offs = (out_c, 0, 3, 6)
     else:
-        out = torch.empty((*lead, h, w, 2 * c), dtype=img.dtype,
-                          device=img.device)
-        offs = (2 * c, -1, 0, c)
+        out_c, offs, tiled = 2 * c, (2 * c, -1, 0, c), False
+    out = torch.empty((*lead, h, w, out_c), dtype=img.dtype,
+                      device=img.device)
     _kernels.launch("scharr_rays", _kernels.ptr(img), _kernels.ptr(out),
-                    B, h, w, c, *offs, int(normalize))
+                    B, h, w, c, *offs, int(normalize), int(tiled))
     return out
 
 
@@ -103,3 +119,12 @@ def prep_rays_grad(X11):
     if X11.device.type == "cpu":
         return prep_rays_grad_plain(X11)
     return _scharr_cuda(X11, normalize=True)
+
+
+def prep_rays_grad_padded(X11):
+    """The same image as ``prep_rays_grad`` with every pixel's record padded
+    by three zeros: (b,h,w,3) -> (b,h,w,12), the layout in which
+    ``iter_proj`` reads its taps with vector loads."""
+    if X11.device.type == "cpu":
+        return prep_rays_grad_padded_plain(X11)
+    return _scharr_cuda(X11, normalize=True, out_c=12)

@@ -5,7 +5,8 @@ Counterpart of ``mast3r_slam_tpu/ops/matching.py``. Two hand-written CUDA
 kernels carry it on the GPU:
 
 * ``iter_proj`` -> ``csrc/iter_proj.cu`` (replaces the XLA ``iter_proj``,
-  ``matching.py:117-186``);
+  ``matching.py:117-186``); ``match`` hands it the padded 12-float record
+  of ``gradient.prep_rays_grad_padded``, which it reads with vector loads;
 * ``refine_matches`` -> ``csrc/refine_matches.cu`` (replaces
   ``refine_matches``, ``matching.py:189-231``, shipped as
   ``window_gather.refine_matches_full_unfold``, ``window_gather.py:183``).
@@ -24,7 +25,7 @@ import math
 import torch
 
 from . import _kernels
-from .gradient import l2_normalize, prep_rays_grad
+from .gradient import l2_normalize, prep_rays_grad_padded
 
 
 def pixel_to_lin(p, w):
@@ -113,28 +114,46 @@ def iter_proj(rays_with_grad_img, pts3d_norm, p_init, max_iter: int = 10,
               lambda_init: float = 1e-8, cost_thresh: float = 1e-6):
     """Per-point LM ray projection (``matching.py:117``).
 
-    rays_with_grad_img (b, h, w, 9), pts3d_norm (b, n, 3) unit targets,
-    p_init (b, n, 2) float. Returns (p (b, n, 2) float, converged (b, n)).
+    rays_with_grad_img (b, h, w, 9), or (b, h, w, 12) with channels 9-11
+    unread (``gradient.prep_rays_grad_padded``); pts3d_norm (b, n, 3) unit
+    targets, p_init (b, n, 2) float. Returns (p (b, n, 2) float, converged
+    (b, n)).
     """
     if rays_with_grad_img.device.type == "cpu":
         return iter_proj_plain(rays_with_grad_img, pts3d_norm, p_init,
                                max_iter, lambda_init, cost_thresh)
+    return _iter_proj_cuda(rays_with_grad_img, pts3d_norm, p_init, max_iter,
+                           lambda_init, cost_thresh)
+
+
+def _iter_proj_cuda(img, pts3d_norm, p_init, max_iter, lambda_init,
+                    cost_thresh, first: bool = False):
+    """Launch ``iter_proj``, or with ``first`` its first design (9-float
+    record, scalar loads)."""
     f32 = torch.float32
-    _kernels.check_cuda(rays_with_grad_img, "iter_proj image", f32, 4, 9)
+    _kernels.check_cuda(img, "iter_proj image", f32, 4)
     _kernels.check_cuda(pts3d_norm, "iter_proj points", f32, 3, 3)
     _kernels.check_cuda(p_init, "iter_proj p_init", f32, 3, 2)
-    b, h, w, _ = rays_with_grad_img.shape
+    b, h, w, c = img.shape
     n = pts3d_norm.shape[1]
+    if c not in (9, 12) or (c == 12 and img.data_ptr() % 16):
+        raise ValueError(f"iter_proj: the image needs 9 floats a pixel, or "
+                         f"12 starting 16-byte aligned; got c={c} at "
+                         f"{img.data_ptr() % 16} bytes past a 16-byte "
+                         "boundary")
+    if first and c != 9:
+        raise ValueError(f"iter_proj: the first design reads 9 floats a "
+                         f"pixel, got c={c}")
     if pts3d_norm.shape[0] != b or p_init.shape[:2] != (b, n):
         raise ValueError("iter_proj: batch/point counts disagree")
     if h < 3 or w < 3:
         raise ValueError("iter_proj: image must be at least 3x3")
     p = torch.empty((b, n, 2), dtype=f32, device=p_init.device)
     conv = torch.empty((b, n), dtype=torch.bool, device=p_init.device)
-    _kernels.launch("iter_proj", _kernels.ptr(rays_with_grad_img),
-                    _kernels.ptr(pts3d_norm), _kernels.ptr(p_init),
-                    _kernels.ptr(p), _kernels.ptr(conv), b, h, w, n,
-                    int(max_iter), float(lambda_init), float(cost_thresh))
+    _kernels.launch("iter_proj", _kernels.ptr(img), _kernels.ptr(pts3d_norm),
+                    _kernels.ptr(p_init), _kernels.ptr(p), _kernels.ptr(conv),
+                    b, h, w, n, c, int(first), int(max_iter),
+                    float(lambda_init), float(cost_thresh))
     return p, conv
 
 
@@ -255,7 +274,7 @@ def match(X11, X21, D11, D21, idx_1_to_2_init=None, max_iter: int = 10,
     n = hq * wq
     dev = X11.device
 
-    rays_grad = prep_rays_grad(X11.contiguous())
+    rays_grad = prep_rays_grad_padded(X11.contiguous())
     pts3d_norm = l2_normalize(X21.reshape(b, n, 3)).contiguous()
     if idx_1_to_2_init is None:
         if (hq, wq) != (h, w):

@@ -58,3 +58,26 @@ def test_cuda_only_path_refuses_cpu_fallback_arguments():
     X = torch.zeros(1, 4, 4, 3)
     with pytest.raises(ValueError):
         tgrad._scharr_cuda(X, normalize=True)   # a CPU tensor is refused
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_prep_rays_grad_padded_matches_jax(b):
+    """The padded 12-float record that ``match`` hands ``iter_proj``:
+    channels 0-8 are JAX's image (within ATOL) and the port's 9-channel
+    image (bit-equal); channels 9-11 are exactly zero."""
+    rng = np.random.default_rng(10 + b)
+    X = (rng.standard_normal((b, 13, 18, 3)) + [0, 0, 3]).astype(np.float32)
+    out = tgrad.prep_rays_grad_padded(torch.from_numpy(X))
+    ref = jmatch.prep_rays_grad(jnp.asarray(X))
+    assert out.shape == (b, 13, 18, 12) and out.is_contiguous()
+    np.testing.assert_allclose(out[..., :9].numpy(), np.asarray(ref),
+                               atol=ATOL)
+    assert torch.equal(out[..., :9],
+                       tgrad.prep_rays_grad(torch.from_numpy(X)))
+    assert torch.count_nonzero(out[..., 9:]) == 0
+
+
+def test_padded_wrapper_refuses_cpu_tensors():
+    X = torch.zeros(1, 4, 4, 3)
+    with pytest.raises(ValueError):
+        tgrad._scharr_cuda(X, normalize=True, out_c=12)  # a CPU tensor

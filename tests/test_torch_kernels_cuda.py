@@ -76,6 +76,127 @@ def test_iter_proj_matches_plain(cuda, iters):
     assert torch.equal(ca, cb)
 
 
+def _exact(a, b):
+    """Bit-equal up to NaN payloads: NaN where the other is NaN, every other
+    value exactly equal."""
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 37, 53), (2, 2, 2), (2, 9, 70),
+                                   (1, 48, 64), (3, 13, 4)])
+def test_scharr_tiled_equals_plain_at_ragged_sizes(cuda, b, h, w):
+    """The tiled stencil and the per-pixel one at sizes that are no multiple
+    of a tile, down to 2 x 2, in both records: channels 0-8 bit-equal to the
+    plain version, the pad exactly zero."""
+    from mast3r_slam_tpu_torch.ops import gradient
+
+    X = _rays(cuda, b=b, h=h, w=w, seed=h * w)
+    ref = gradient.prep_rays_grad_plain(X)
+    _exact(gradient._scharr_cuda(X, True, 9), ref)
+    pad = gradient._scharr_cuda(X, True, 12)
+    _exact(pad[..., :9], ref)
+    assert torch.count_nonzero(pad[..., 9:]) == 0
+    _exact(gradient._scharr_cuda(X, True, 9, tiled=False), ref)
+    _exact(gradient.prep_rays_grad_padded(X),
+           gradient.prep_rays_grad_padded_plain(X))
+
+
+def test_scharr_tiled_unaligned_input_with_nan(cuda):
+    """An input that starts 4 bytes past a 16-byte boundary (the scalar-load
+    path) with a NaN and a zero ray planted: NaN spreads to the same pixels
+    as in the plain version, the zero ray divides by the clamped norm."""
+    from mast3r_slam_tpu_torch.ops import gradient
+
+    X = _rays(cuda, b=2, h=24, w=64, seed=3)
+    flat = torch.empty(X.numel() + 1, device=cuda)
+    Xm = flat[1:].view(X.shape)
+    Xm.copy_(X)
+    Xm[0, 5, 9, 1] = float("nan")
+    Xm[1, 0, 63] = 0.0
+    for out_c in (9, 12):
+        got = gradient._scharr_cuda(Xm, True, out_c)
+        _exact(got[..., :9], gradient.prep_rays_grad_plain(Xm))
+    # the NaN ray, and the stencils that read it: gy above it, gx beside it
+    assert bool(torch.isnan(got[0, 5, 9, 0:3]).all())
+    assert bool(torch.isnan(got[0, 4, 9, 6:9]).all())
+    assert bool(torch.isnan(got[0, 5, 8, 3:6]).all())
+
+
+def test_scharr_refuses_unbuilt_records(cuda):
+    """Records that no kernel writes raise on a CUDA tensor: normalization
+    of c != 3, a 12-float record from the per-pixel kernel, a 10-float
+    record."""
+    from mast3r_slam_tpu_torch.ops import gradient
+
+    X = _rays(cuda, b=1, h=8, w=8, seed=1)
+    with pytest.raises(ValueError, match="c == 3"):
+        gradient._scharr_cuda(X[..., :2].contiguous(), normalize=True)
+    with pytest.raises(ValueError, match="per-pixel"):
+        gradient._scharr_cuda(X, True, 12, tiled=False)
+    with pytest.raises(ValueError, match="10-float"):
+        gradient._scharr_cuda(X, True, 10)
+
+
+def test_scharr_plain_stencil_mode_c5(cuda):
+    from mast3r_slam_tpu_torch.ops import gradient
+
+    img = torch.randn(2, 17, 33, 5, device=cuda)
+    for a, b in zip(gradient.img_gradient(img),
+                    gradient.img_gradient_plain(img)):
+        _exact(a, b)
+
+
+@pytest.mark.parametrize("c,first", [(9, False), (12, False), (9, True)])
+@pytest.mark.parametrize("iters", [0, 10])
+def test_iter_proj_layouts_equal_plain(cuda, c, first, iters):
+    """Both records and the first design, b = 2 with 1,001 points (no
+    multiple of a block's points), NaN starts and starts on and past the
+    clamp edges (u = w - 2, v = h - 2): positions bit-equal to the plain
+    version (NaN where it is NaN), flags equal."""
+    from mast3r_slam_tpu_torch.ops import gradient, matching
+
+    h, w, n = 40, 56, 1001
+    X = _rays(cuda, b=2, h=h, w=w, seed=7)
+    img = (gradient.prep_rays_grad_padded(X) if c == 12
+           else gradient.prep_rays_grad(X))
+    pts = gradient.l2_normalize(
+        _rays(cuda, b=2, h=h, w=w, seed=8).reshape(2, -1, 3)[:, :n])
+    g = torch.Generator(device="cpu").manual_seed(iters)
+    p0 = torch.rand(2, n, 2, generator=g) * torch.tensor([w + 4.0, h + 4.0])
+    p0 -= 2.0
+    p0[0, :4] = torch.tensor([[w - 2.0, h - 2.0], [w - 2.0, 1.0],
+                              [w + 5.0, h - 2.0], [1.0, h - 2.0]])
+    p0[0, 4, 0] = float("nan")
+    p0[1, 1000] = float("nan")
+    p0 = p0.to(cuda)
+    a, ca = matching._iter_proj_cuda(img, pts.contiguous(), p0, iters, 1e-8,
+                                     1e-6, first)
+    b, cb = matching.iter_proj_plain(img, pts, p0, iters)
+    _exact(a, b)
+    assert torch.equal(ca, cb)
+    assert bool(torch.isnan(a[0, 4, 0])) and not bool(ca[0, 4])
+    assert bool(torch.isnan(a[1, 1000]).all()) and not bool(ca[1, 1000])
+    assert float(a[0, 0, 0]) <= w - 2.0 and float(a[0, 2, 0]) <= w - 2.0
+
+
+def test_iter_proj_refuses_misaligned_or_strided_padded_image(cuda):
+    from mast3r_slam_tpu_torch.ops import matching
+
+    pts = torch.zeros(1, 4, 3, device=cuda)
+    p0 = torch.ones(1, 4, 2, device=cuda)
+    flat = torch.zeros(8 * 8 * 12 + 1, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        matching.iter_proj(flat[1:].view(1, 8, 8, 12), pts, p0)
+    wide = torch.zeros(1, 8, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        matching.iter_proj(wide[..., :12], pts, p0)
+    with pytest.raises(ValueError):
+        matching.iter_proj(torch.zeros(1, 8, 8, 10, device=cuda), pts, p0)
+    with pytest.raises(ValueError):                   # the first design: c=9
+        matching._iter_proj_cuda(torch.zeros(1, 8, 8, 12, device=cuda), pts,
+                                 p0, 3, 1e-8, 1e-6, True)
+
+
 @pytest.mark.parametrize("dtype", ["bf16", "int8"])
 @pytest.mark.parametrize("radius,dil", [(1, 1), (3, 5)])
 def test_refine_matches_matches_plain(cuda, dtype, radius, dil):

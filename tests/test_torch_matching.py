@@ -65,6 +65,60 @@ def test_iter_proj_matches_jax(max_iter):
     np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
 
 
+@pytest.mark.parametrize("max_iter", [0, 3, 10])
+def test_iter_proj_padded_record_matches_jax(max_iter):
+    """The padded 12-float record (``prep_rays_grad_padded``, the layout the
+    GPU kernel reads with vector loads): the plain version gives the same
+    bits as on the 9-float image, and matches JAX's ``iter_proj`` on the
+    9-channel image (positions 1e-4 px, flags equal). b = 2, starts off the
+    grid, a few beyond the border (clamped) and one NaN start."""
+    from mast3r_slam_tpu_torch.ops import gradient as tg
+
+    X11, X21, _, _ = _pair_maps(seed=max_iter)
+    X11b = np.concatenate([X11, X11[:, ::-1]])
+    X21b = np.concatenate([X21, X21[:, ::-1]])
+    b, h, w, _ = X11b.shape
+    n = h * w
+    pts = X21b.reshape(b, n, 3)
+    pts = pts / np.linalg.norm(pts, axis=-1, keepdims=True)
+    rng = np.random.default_rng(100 + max_iter)
+    p0 = (np.stack(np.meshgrid(np.arange(w), np.arange(h)), -1)
+          .reshape(1, n, 2).astype(np.float32)
+          + rng.uniform(-1.0, 1.0, (b, n, 2)).astype(np.float32))
+    p0[:, :5] = [[w + 3.0, h + 2.0], [w - 2.0, h - 2.0], [-4.0, 0.5],
+                 [1.0, 1.0], [0.3, h - 1.5]]
+    p0[1, 7] = np.nan
+    X_t = torch.from_numpy(np.ascontiguousarray(X11b))
+    pad = tg.prep_rays_grad_padded(X_t)
+    args = (torch.from_numpy(pts), torch.from_numpy(p0), max_iter, 1e-8,
+            1e-6)
+    p12, c12 = tm.iter_proj(pad, *args)
+    p9, c9 = tm.iter_proj(tg.prep_rays_grad(X_t), *args)
+    assert torch.equal(torch.nan_to_num(p12, nan=-1.0),
+                       torch.nan_to_num(p9, nan=-1.0))
+    assert torch.equal(c12, c9)
+    assert bool(torch.isnan(p12[1, 7]).all()) and not bool(c12[1, 7])
+    rays = jm.prep_rays_grad(jnp.asarray(X11b))
+    pj, cj = jm.iter_proj(rays, jnp.asarray(pts), jnp.asarray(p0), max_iter,
+                          1e-8, 1e-6)
+    pj, cj = np.asarray(pj), np.asarray(cj)
+    np.testing.assert_array_equal(c12.numpy(), cj)
+    # converged points 1e-4 px (fp32 LM steps, XLA contracts multiply-adds);
+    # a point whose target lies past the clamp box walks along the border
+    # without converging, and one rounding can flip one of its accept/reject
+    # decisions there: 1e-2 px
+    np.testing.assert_allclose(p12.numpy()[cj], pj[cj], atol=1e-4)
+    np.testing.assert_allclose(p12.numpy(), pj, atol=1e-2)
+
+
+def test_iter_proj_launcher_refuses_cpu_tensors():
+    """The kernel launcher has no fallback: a CPU tensor raises."""
+    img = torch.zeros(1, 4, 4, 12)
+    with pytest.raises(ValueError):
+        tm._iter_proj_cuda(img, torch.zeros(1, 3, 3), torch.zeros(1, 3, 2),
+                           3, 1e-8, 1e-6)
+
+
 @pytest.mark.parametrize("refine_dtype", ["bfloat16", "int8"])
 @pytest.mark.parametrize("radius,dil", [(1, 1), (2, 2), (3, 5)])
 def test_refine_matches_equals_full_unfold(refine_dtype, radius, dil):
@@ -142,6 +196,23 @@ def test_match_matches_jax(preset, refine_dtype):
     assert np.mean(ij != it) <= 1e-3
     assert np.mean(vj != vt) <= 1e-3
     assert it.shape == ij.shape and vt.shape == vj.shape
+
+
+@pytest.mark.parametrize("preset", ["base", "tpu_fast"])
+def test_match_edge_batch_matches_jax(preset):
+    """``match`` at the edge builder's batch (both directions of an edge,
+    b = 2) on the padded record, against JAX, for both presets."""
+    maps = [_pair_maps(h=32, w=48, shift=s, seed=i)
+            for i, s in enumerate(((1.6, 2.3), (-2.2, 0.7)))]
+    X11, X21, D11, D21 = (np.concatenate(a) for a in zip(*maps))
+    kw = PRESETS[preset]
+    ij, vj = jm.match(*(jnp.asarray(a) for a in (X11, X21, D11, D21)), **kw)
+    it, vt = tm.match(*(torch.from_numpy(a) for a in (X11, X21, D11, D21)),
+                      **kw)
+    assert it.shape == (2, 32 * 48) and vt.shape == (2, 32 * 48, 1)
+    assert np.mean(np.asarray(ij) != it.numpy()) <= 1e-3
+    assert np.mean(np.asarray(vj) != vt.numpy()) <= 1e-3
+    assert not np.array_equal(it.numpy()[0], it.numpy()[1])
 
 
 def test_match_subpixel_and_subgrid_queries():
