@@ -17,6 +17,10 @@ Phases (any failure exits non-zero and prints no result line):
    stated tolerance, the two reductions bit-equal across two calls), with
    CUDA-event timings (median of several runs) of the kernel, the plain
    version and, where one PyTorch call computes the function, that call.
+   ``take_along`` alone at the probe's and the gate's shapes, and both
+   directions of the edge gate in one launch (``take_along_pair``) on
+   random indices and on an edge's match indices, bit-equal to its plain
+   version and to two ``torch.take_along_dim`` calls.
    ``scharr_rays`` (tiled, in the 9-float and the padded 12-float record,
    and its first design, one thread a pixel) must equal the plain version
    bit for bit, the pad exactly zero; ``iter_proj`` on both records and its
@@ -66,6 +70,18 @@ Phases (any failure exits non-zero and prints no result line):
    units): relocalizing forever (``reinit_after=0``), re-initializing
    after two failures (``reinit_after=2``), and a camera that returns to
    the mapped scene and relocalizes.
+
+5. The run loop at full width: ``SLAMSystem.run`` over
+   ``io.datasets.RGBFiles`` on PNG files of the base run's 5 frames, once
+   with ``single_thread`` (the frame-by-frame base run's stats, edge count
+   and RMSE gate) and once with the backend in a host thread (graph
+   invariants, finite poses, ``TERMINATED``); ``save_traj``,
+   ``save_reconstruction`` and ``save_keyframes`` of the single-thread run,
+   and ``eval.ate.ate_rmse`` of its TUM file against the oracle trajectory
+   under 0.06 of the extent. Then the command line, ``cli.main`` with
+   random weights on ``scripts/make_synth_dataset.py``'s 16 frames of
+   480x640 (``configs/eval_no_calib.yaml``, ``--no-viz --max-frames 8``):
+   its frames/s line, one TUM line per keyframe, a PLY that parses.
 
 The loop run's final factor graph is also put through ``ba_edge_terms``,
 its plain version and the plain version in float64, and one more tracked
@@ -416,7 +432,7 @@ def check_kernels(model_cfg, orc):
                 refine_equal(Ad, Qd, p1, r, d, f"{kind} {dname}")
                 log(f"refine_matches {kind} starts {dname} r={r} d={d}: "
                     f"equal to the plain version at all {n} points")
-    check_backend_kernels(rec, X, n)
+    check_backend_kernels(rec, X, D, n)
     check_loop_kernels(rec, model_cfg, D)
     torch.cuda.synchronize()
     return records
@@ -560,14 +576,15 @@ def check_loop_kernels(rec, model_cfg, D):
                 tolerance="bit-equal, fp32 and bf16 outputs")
 
 
-def check_backend_kernels(rec, X, n):
+def check_backend_kernels(rec, X, D, n):
     """The gathers (exact) and the two reductions (1e-5 of the largest
     entry, bit-equal across two calls) at the backend's shapes."""
     import numpy as np
     import torch
 
+    from mast3r_slam_tpu_torch.config import base_config, make_matching_config
     from mast3r_slam_tpu_torch.lie import sim3
-    from mast3r_slam_tpu_torch.ops import gather
+    from mast3r_slam_tpu_torch.ops import gather, matching
     from mast3r_slam_tpu_torch.slam import ba, tracker
 
     rng = np.random.default_rng(7)
@@ -596,7 +613,14 @@ def check_backend_kernels(rec, X, n):
             "(_gather_points, XLA)",
             "mast3r_slam_tpu_torch/csrc/gather_rows.cu")
 
-    # 5. take_along: the probe's shape (axis 0), the edge gate's (axis 1)
+    # 5. take_along: the probe's shape (axis 0), the edge gate's (axis 1),
+    # one problem a launch; then the gate's two directions in one launch,
+    # on uniform random indices and on the match indices of an edge (the
+    # oracle's two views matched both ways at base settings), whose
+    # neighbouring pixels gather neighbouring values as on the main path
+    tag = (f"{probe}:76 (variant_c, pallas_call :83); "
+           "mast3r_slam_tpu/slam/factor_graph.py:117 (_gate_edges, XLA)")
+    src = "mast3r_slam_tpu_torch/csrc/take_along.cu"
     for variant, axis, tshape in (("probe (1024,128) axis 0", 0, (1024, 128)),
                                   ("gate (2,196608) axis 1", 1, (2, n))):
         t = f32(rng.standard_normal(tshape))
@@ -610,10 +634,37 @@ def check_backend_kernels(rec, X, n):
             lambda: gather.take_along(t, idx, axis),
             lambda: gather.take_along_plain(t, idx, axis),
             lambda: torch.take_along_dim(t, idx64, dim=axis),
-            tot * 12, 0, "fp32",
-            f"{probe}:76 (variant_c, pallas_call :83); "
-            "mast3r_slam_tpu/slam/factor_graph.py:117 (_gate_edges, XLA)",
-            "mast3r_slam_tpu_torch/csrc/take_along.cu")
+            tot * 12, 0, "fp32", tag, src)
+    mcfg = make_matching_config(base_config())._asdict()
+    edge_idx, _ = matching.match(X, X.flip(0).contiguous(), D,
+                                 D.flip(0).contiguous(), **mcfg)
+    edge_idx = edge_idx.to(torch.int32).contiguous()
+    for variant, (i0, i1) in (
+            ("gate pair 2 x (2,196608) axis 1, uniform random indices",
+             (i32(rng.integers(0, n, (2, n))),
+              i32(rng.integers(0, n, (2, n))))),
+            ("gate pair 2 x (2,196608) axis 1, an edge's match indices",
+             (edge_idx, edge_idx.flip(0).contiguous()))):
+        t0, t1 = f32(rng.uniform(1, 4, (2, n))), f32(rng.uniform(1, 4, (2, n)))
+        l0, l1 = i0.long(), i1.long()
+        got = gather.take_along_pair(t0, i0, t1, i1, 1)
+        ref = gather.take_along_pair_plain(t0, i0, t1, i1, 1)
+        lib = (torch.take_along_dim(t0, l0, dim=1),
+               torch.take_along_dim(t1, l1, dim=1))
+        if not all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(got, ref, lib)):
+            raise AssertionError(f"take_along {variant} differs from plain "
+                                 "or from torch.take_along_dim")
+        rec("take_along", variant, 0.0,
+            lambda: gather.take_along_pair(t0, i0, t1, i1, 1),
+            lambda: gather.take_along_pair_plain(t0, i0, t1, i1, 1),
+            lambda: (torch.take_along_dim(t0, l0, dim=1),
+                     torch.take_along_dim(t1, l1, dim=1)),
+            2 * 2 * n * 12, 0, "fp32", tag, src,
+            library_call="two torch.take_along_dim calls",
+            two_single_calls_ms=device_ms(
+                lambda: (gather.take_along(t0, i0, 1),
+                         gather.take_along(t1, i1, 1))))
 
     def rel_err(a, b):
         return float((a - b).abs().max() / b.abs().max())
@@ -1064,10 +1115,12 @@ def run_slam(preset_cfg, params, model_cfg, n_frames, kf_every, K=None,
     return system, times, backend
 
 
-def assert_healthy(system, n_frames, kf_every, traj, label):
+def assert_healthy(system, n_frames, kf_every, traj, label,
+                   end_mode="TRACKING"):
     """Health of a run that must track every frame. Without retrieval the
     graph holds exactly the consecutive edges; with it, loop closures must
-    have been found and kept as edges on top of those."""
+    have been found and kept as edges on top of those. ``run()`` ends in
+    ``TERMINATED``."""
     from mast3r_slam_tpu_torch.eval.ate import aligned_rmse
     from mast3r_slam_tpu_torch.slam.frame import Mode
 
@@ -1097,7 +1150,7 @@ def assert_healthy(system, n_frames, kf_every, traj, label):
         problems.append(f"backend queue not drained: {system.backend_queue}")
     if st["skipped"] or st["frames_reloc"]:
         problems.append(f"skipped/reloc: {st}")
-    if system.mode != Mode.TRACKING:
+    if system.mode != Mode[end_mode]:
         problems.append(f"end mode {system.mode}")
     k = len(system.keyframes)
     ids = system.keyframes.dataset_idx[:k].cpu().numpy()
@@ -1382,6 +1435,209 @@ def device_busy(system, frame_id, image):
             "top_kernels_ms": dict(per_name.most_common(8))}
 
 
+def write_frames(directory, n_frames, h, w):
+    """``run_slam``'s frames as PNG files (lossless: the frame id in two
+    pixels survives, and ``resize_img`` at the working size keeps every
+    pixel)."""
+    import numpy as np
+    import PIL.Image
+
+    from mast3r_slam_tpu_torch.models import oracle_timing
+
+    rng = np.random.default_rng(1234)
+    for i in range(n_frames):
+        PIL.Image.fromarray(oracle_timing.make_frame_image(i, h, w, rng)).save(
+            directory / f"{i:04d}.png")
+
+
+def check_exports(out_dir, name, k):
+    """For ``k`` keyframes: the TUM file has one line of 8 finite numbers
+    per keyframe, the PLY header parses and gives the file's size, one PNG
+    per keyframe."""
+    import numpy as np
+
+    lines = (out_dir / f"{name}.txt").read_text().splitlines()
+    rows = [[float(v) for v in ln.split()] for ln in lines]
+    if len(rows) != k or any(len(r) != 8 for r in rows):
+        raise AssertionError(f"{name}.txt: {len(rows)} lines for {k} "
+                             f"keyframes: {lines}")
+    if not all(np.isfinite(r).all() for r in rows):
+        raise AssertionError(f"{name}.txt has non-finite poses: {lines}")
+    raw = (out_dir / f"{name}.ply").read_bytes()
+    end = raw.index(b"end_header\n") + len(b"end_header\n")
+    header = raw[:end].decode("ascii").splitlines()
+    nv = int(next(h for h in header if h.startswith("element vertex"))
+             .split()[-1])
+    if (header[:2] != ["ply", "format binary_little_endian 1.0"]
+            or len(raw) - end != nv * 15):
+        raise AssertionError(f"{name}.ply: header {header}, {nv} vertices, "
+                             f"{len(raw) - end} bytes of data")
+    pngs = sorted((out_dir / "keyframes" / name).glob("*.png"))
+    if len(pngs) != k:
+        raise AssertionError(f"{len(pngs)} keyframe images for {k}")
+    return {"keyframes": k, "ply_vertices": nv}
+
+
+def run_loop_phase(params, model_cfg, traj, ref, run_launches, every):
+    """``SLAMSystem.run`` over ``io.datasets.RGBFiles`` on PNG files of the
+    base run's frames: single-thread (held to the frame-by-frame base
+    run's counts and RMSE gate), then with the backend in a host thread
+    (held to the graph invariants and finite poses); then the exports and
+    ``ate_rmse`` of the saved TUM file against the oracle trajectory."""
+    import pathlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mast3r_slam_tpu_torch.config import base_config
+    from mast3r_slam_tpu_torch.eval.ate import ate_rmse
+    from mast3r_slam_tpu_torch.io import datasets, export
+    from mast3r_slam_tpu_torch.models import oracle_timing
+    from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.slam.frame import Mode
+    from mast3r_slam_tpu_torch.slam.system import SLAMSystem
+    from mast3r_slam_tpu_torch.utils.metrics import Metrics
+
+    h, w = model_cfg.img_size
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "frames").mkdir()
+        write_frames(tmp / "frames", N_BASE, h, w)
+        systems = {}
+        for label, single in (("run_loop", True),
+                              ("run_loop_threaded", False)):
+            cfg = base_config()
+            cfg["tracking"] = dict(cfg["tracking"], kf_every=KF_BASE)
+            cfg["runtime"] = dict(cfg["runtime"], tracking_window=1)
+            cfg["single_thread"] = single
+            system = SLAMSystem(params, model_cfg, cfg, (h, w),
+                                keyframe_capacity=16,
+                                edge_capacity=EDGE_CAPACITY,
+                                model_module=oracle_timing, device="cuda",
+                                metrics=Metrics())
+            dataset = datasets.RGBFiles(tmp / "frames")
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            stats = system.run(dataset)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launches = run_launches[label] = dict(_kernels.LAUNCHES)
+            missing = sorted(k for k in every if launches[k] <= 0)
+            if missing:
+                raise AssertionError(f"{label} run never launched {missing}: "
+                                     f"{launches}")
+            k = len(system.keyframes)
+            T = system.keyframes.T_WC[:k].cpu().numpy()
+            if (system.mode != Mode.TERMINATED or system.backend_queue
+                    or not np.isfinite(T).all()):
+                raise AssertionError(f"{label}: mode {system.mode}, queue "
+                                     f"{system.backend_queue}, poses {T}")
+            system.check_invariants()
+            extra = ""
+            if single:
+                rmse, extent = assert_healthy(system, N_BASE, KF_BASE, traj,
+                                              label, end_mode="TERMINATED")
+                fg, fr = system.factor_graph, ref.factor_graph
+                if stats != ref.stats or fg.n_edges != fr.n_edges:
+                    raise AssertionError(
+                        f"{label}: stats {stats}, edges {fg.n_edges} vs the "
+                        f"frame-by-frame base run's {ref.stats}, "
+                        f"{fr.n_edges}")
+                dT = float(np.abs(T - ref.keyframes.T_WC[:k].cpu().numpy())
+                           .max())
+                extra = (f", keyframe RMSE after BA {rmse:.6f} of extent "
+                         f"{extent:.6f}, keyframe poses vs the base run: "
+                         f"max abs diff {dT}")
+            log(f"{label}: {N_BASE} frames in {wall:.3f} ms "
+                f"({wall / N_BASE:.3f} ms a frame, backend included), stats "
+                f"{stats}, edges {system.factor_graph.n_edges}, launches "
+                f"{launches}{extra}")
+            systems[label] = (system, dataset)
+
+        system, dataset = systems["run_loop"]
+        out = tmp / "out"
+        export.save_traj(out, "run_loop.txt", dataset.timestamps,
+                         system.keyframes)
+        export.save_reconstruction(out, "run_loop.ply", system.keyframes,
+                                   1.5)
+        export.save_keyframes(out / "keyframes" / "run_loop",
+                              dataset.timestamps, system.keyframes)
+        files = check_exports(out, "run_loop", len(system.keyframes))
+        gt = traj[:N_BASE].cpu().numpy()
+        with open(tmp / "gt.txt", "w") as f:
+            for i in range(N_BASE):
+                f.write(" ".join(str(v) for v in (dataset.timestamps[i],
+                                                  *gt[i, :7])) + "\n")
+        res = ate_rmse(tmp / "gt.txt", out / "run_loop.txt")
+        ids = system.keyframes.dataset_idx[:len(system.keyframes)].cpu()
+        kf_gt = gt[ids.numpy(), :3]
+        extent = float(np.linalg.norm(kf_gt.max(0) - kf_gt.min(0)))
+        if not (res["n_pairs"] == files["keyframes"]
+                and res["rmse"] < 0.06 * max(extent, 1e-6)):
+            raise AssertionError(f"ATE of the saved trajectory: {res}, "
+                                 f"extent {extent}")
+        log(f"run_loop exports: {files}; ate_rmse of the TUM file vs the "
+            f"oracle trajectory {res} (gate 0.06 x extent {extent:.6f})")
+
+
+def cli_phase(run_launches):
+    """``cli.main`` with random weights (no tracking gate applies) on the
+    dataset of ``scripts/make_synth_dataset.py`` (16 frames of 480x640,
+    resized to 384x512) with ``configs/eval_no_calib.yaml``, ``--no-viz
+    --max-frames 8``, in a scratch working directory: it returns, prints
+    its frames/s, and writes a TUM line per keyframe and a PLY that
+    parses."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import pathlib
+    import re
+    import tempfile
+
+    import torch
+
+    from mast3r_slam_tpu_torch import cli
+    from mast3r_slam_tpu_torch.ops import _kernels
+
+    repo = pathlib.Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        "make_synth_dataset", repo / "scripts" / "make_synth_dataset.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        seq = synth.make(tmp / "synth_seq", n_frames=16)
+        cwd = os.getcwd()
+        buf = io.StringIO()
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        os.chdir(tmp)
+        try:
+            with contextlib.redirect_stdout(buf):
+                stats = cli.main([
+                    "--dataset", str(seq), "--config",
+                    str(repo / "configs" / "eval_no_calib.yaml"), "--no-viz",
+                    "--max-frames", "8", "--save-as", "smoke"])
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = run_launches["cli"] = dict(_kernels.LAUNCHES)
+        printed = buf.getvalue()
+        for ln in printed.splitlines():
+            log(f"cli | {ln}")
+        fps = re.search(r"done: 8 frames in \S+s = (\S+) FPS", printed)
+        if fps is None or launches["rope_qk"] <= 0:
+            raise AssertionError(f"cli: no frames/s line, or the network "
+                                 f"never ran: launches {launches}")
+        files = check_exports(tmp / "logs" / "smoke", "synth_seq",
+                              stats["keyframes"])
+        log(f"cli phase: {wall:.3f} s with the model's build, stats {stats}, "
+            f"outputs {files}, launches {launches}")
+
+
 def main():
     import torch
 
@@ -1398,6 +1654,13 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({smi}), torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
+    # the run loop's and the CLI's host modules (phase 5 needs all three)
+    import cv2
+    import PIL
+    import yaml
+
+    log(f"host modules: yaml {yaml.__version__}, PIL {PIL.__version__}, "
+        f"cv2 {cv2.__version__}")
 
     t0 = time.perf_counter()
     outs = _kernels.build_all()
@@ -1554,6 +1817,10 @@ def main():
             f"(wall ms, GN iterations, keyframes, edges): "
             f"{[(round(t, 3), it, k, e) for t, it, k, e in backend]}")
         del system
+
+    # phase 5: the run loop, the exports and the command line
+    run_loop_phase(params, model_cfg, traj, sys_b, run_launches, every)
+    cli_phase(run_launches)
 
     for r in records:
         r["launches_by_run"] = {label: ln[r["name"]]

@@ -174,6 +174,11 @@ def load_config(path) -> dict:
     return cfg
 
 
+def default_config() -> dict:
+    """The repo's ``configs/base.yaml``, loaded (``config.py:81``)."""
+    return load_config(_REPO_CONFIGS / "base.yaml")
+
+
 def base_config() -> dict:
     """``configs/base.yaml`` as parsed (reference-parity settings)."""
     return {

@@ -37,7 +37,7 @@ SOURCES = {
     "refine_matches": ("refine_matches_launch",
                        [_P] * 4 + [_I] * 9 + [_P]),
     "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I, _I, _I, _P]),
-    "take_along": ("take_along_launch", [_P, _P, _P, _I, _I, _I, _I, _P]),
+    "take_along": ("take_along_launch", [_P] * 6 + [_I] * 5 + [_P]),
     "gn_step": ("gn_step_launch",
                 [_P] * 8 + [_I] * 4 + [_F] * 11 + [_P]),
     "ba_edge_terms": ("ba_edge_terms_launch",
@@ -54,6 +54,7 @@ LAUNCHES = {name: 0 for name in SOURCES}
 
 _libs: dict = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts():
@@ -140,7 +141,8 @@ def launch(name, *args):
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
-    LAUNCHES[name] += 1
+    with _count_lock:     # the backend thread of SLAMSystem.run launches too
+        LAUNCHES[name] += 1
 
 
 @functools.lru_cache(maxsize=None)

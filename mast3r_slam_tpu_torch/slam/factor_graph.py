@@ -91,8 +91,10 @@ def _gate_edges(m, Q_conf, query_stride: int = 1):
     (``factor_graph.py:117``). With query-strided edge matching only every
     qs-th point can be valid; the fractions are normalized to the matched
     subset so ``min_match_frac`` keeps its meaning."""
-    Qj = torch.sqrt(gather.take_along(m["Qii"], m["idx_i2j"], 1) * m["Qji"])
-    Qi = torch.sqrt(gather.take_along(m["Qjj"], m["idx_j2i"], 1) * m["Qij"])
+    Qii_at, Qjj_at = gather.take_along_pair(m["Qii"], m["idx_i2j"], m["Qjj"],
+                                            m["idx_j2i"], 1)
+    Qj = torch.sqrt(Qii_at * m["Qji"])
+    Qi = torch.sqrt(Qjj_at * m["Qij"])
     valid_j = m["valid_match_j"][..., 0] & (Qj > Q_conf)
     valid_i = m["valid_match_i"][..., 0] & (Qi > Q_conf)
     return (Qj, Qi, valid_j.float().mean(dim=1) * query_stride,

@@ -19,13 +19,21 @@ stats (the Gauss-Newton solve runs on the device, ``slam/tracker.py``);
 per backend step once per BA iteration (the step norm) and once for the
 retrieval features and word ids.
 
+``run`` (``:1158``) drives a dataset through the frontend: with
+``single_thread`` the backend is drained after every frame, otherwise it
+runs in a host thread beside the frontend, the two serialized by
+``state_lock`` (both issue their work on the same CUDA stream).
+
 Not in this slice (each raises ``NotImplementedError``; see ROADMAP.md):
 the windowed driver (``runtime.tracking_window > 1``), the step-by-step
-tracking path, a separate backend device, and ``run()``.
+tracking path, a separate backend device, and ``run``'s checkpoints and
+live viewer.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -34,6 +42,7 @@ import torch
 from .. import config as config_mod
 from .. import geometry
 from .._device import resolve_device
+from ..io.image import resize_img
 from ..lie import sim3
 from ..models import mast3r
 from ..ops import matching
@@ -288,6 +297,8 @@ class SLAMSystem:
         self.params = params
         self.use_calib = bool(config.get("use_calib", False))
         self.K = K
+        # False: run() keeps the backend in a host thread beside the frontend
+        self.single_thread = bool(config.get("single_thread", True))
         self.keyframes = KeyframeStore(
             kf_cap, h * w, model_cfg.num_patches, model_cfg.enc_embed_dim,
             (h, w), device=self.device)
@@ -321,6 +332,10 @@ class SLAMSystem:
         self._reuse_consec = bool(config.get("local_opt", {})
                                   .get("reuse_consec_edge", False))
         self._consec_match: dict = {}
+        # serializes the frontend and the backend thread of run()
+        self.state_lock = threading.Lock()
+        self._backend_error: Optional[Exception] = None
+        self.last_frame_idx = 0
         self.reloc_pending = False
         self.current_frame: Optional[Frame] = None
         self.stats = {"skipped": 0, "keyframes": 0, "loop_closures": 0,
@@ -588,5 +603,96 @@ class SLAMSystem:
         print("Failed to relocalize")
         return False
 
-    def run(self, *args, **kwargs):
-        raise NotImplementedError(f"SLAMSystem.run {_TODO}")
+    def run(self, dataset, max_frames=None, progress=False, start_frame=0,
+            checkpoint_path=None, checkpoint_every=0, viewer=None):
+        """Drive ``dataset`` (``io.datasets``) through the system
+        (``system.py:1158``); returns ``stats``.
+
+        Each frame is resized (``io.image.resize_img`` to
+        ``dataset.img_size``), made (``make_frame`` on its uint8 pixels) and
+        processed. With ``single_thread`` the backend is drained after every
+        frame, which makes a run deterministic; otherwise the backend runs in
+        a daemon thread and each ``process_frame`` and ``backend_step``
+        holds ``state_lock``. At the end the backend is drained, the mode
+        becomes ``TERMINATED``, the thread is joined and the deferred edge
+        gates are flushed. ``start_frame`` skips frames already processed;
+        ``progress`` prints the frames/s every 30 frames."""
+        if checkpoint_path or checkpoint_every:
+            raise NotImplementedError(
+                "run(checkpoint_path=, checkpoint_every=): slam/checkpoint.py "
+                "is not ported yet; see ROADMAP.md queue 1 item 4")
+        if viewer is not None:
+            raise NotImplementedError(
+                "run(viewer=): the live viewer is not ported yet; see "
+                "ROADMAP.md queue 1 item 6")
+        n = len(dataset) if max_frames is None else min(max_frames,
+                                                        len(dataset))
+        thread = None
+        if not self.single_thread:
+            self._backend_error = None
+            thread = threading.Thread(target=self._backend_loop, daemon=True)
+            thread.start()
+        try:
+            self._run_frames(dataset, int(start_frame), n, progress,
+                             thread is not None)
+            # drain; in threaded mode wait until the thread has nothing
+            # left to do between two steps (it holds the lock for a step)
+            while thread is None and self.backend_step():
+                pass
+            while thread is not None:
+                self._check_backend_thread()
+                with self.state_lock:
+                    if not (self.backend_queue or self.reloc_pending):
+                        self.mode = Mode.TERMINATED
+                        break
+                time.sleep(0.01)
+        finally:
+            self.mode = Mode.TERMINATED
+            if thread is not None:
+                thread.join(timeout=60.0)
+                if thread.is_alive():
+                    raise RuntimeError("the backend thread did not stop")
+        self._check_backend_thread()
+        # host bookkeeping catches up with the last deferred edge gates
+        self.factor_graph.flush()
+        return self.stats
+
+    def _run_frames(self, dataset, i, n, progress, threaded):
+        t0 = time.time()
+        while i < n:
+            i_prev = i
+            _, img = dataset[i]
+            frame = self.make_frame(
+                i, resize_img(img, dataset.img_size)["img_u8"])
+            if threaded:
+                self._check_backend_thread()
+                with self.state_lock:
+                    self.process_frame(frame)
+            else:
+                self.process_frame(frame)
+                while self.backend_step():
+                    pass
+            i += 1
+            self.last_frame_idx = i
+            if progress and i // 30 > i_prev // 30:
+                print(f"FPS: {i / (time.time() - t0):.2f}")
+
+    def _backend_loop(self):
+        """The backend thread of ``run``: one ``backend_step`` at a time
+        under ``state_lock`` until the mode is ``TERMINATED``. An exception
+        is kept for the frontend to raise."""
+        try:
+            while True:
+                with self.state_lock:
+                    if self.mode == Mode.TERMINATED:
+                        return
+                    did = self.backend_step()
+                if not did:
+                    time.sleep(0.005)
+        except Exception as e:     # re-raised by the frontend thread
+            self._backend_error = e
+
+    def _check_backend_thread(self):
+        if self._backend_error is not None:
+            raise RuntimeError("the backend thread failed") from (
+                self._backend_error)

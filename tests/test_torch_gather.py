@@ -68,6 +68,26 @@ def test_take_along_equals_jnp(axis, tshape, ishape):
         np.testing.assert_array_equal(fn(_t(t), _t(idx), axis).numpy(), ref)
 
 
+@pytest.mark.parametrize("axis,tshape,ishape", [
+    (1, (2, 768), (2, 768)), (1, (1, 50), (1, 21)), (0, (40, 9), (17, 9))])
+def test_take_along_pair_equals_two_jnp_calls(axis, tshape, ishape):
+    """The edge gate's two directions (``factor_graph._gate_edges``) in one
+    call: two ``take_along_axis`` problems of one shape."""
+    rng = np.random.default_rng(7 + axis)
+    ts = [rng.standard_normal(tshape).astype(np.float32) for _ in range(2)]
+    idx = [rng.integers(0, tshape[axis], ishape).astype(np.int32)
+           for _ in range(2)]
+    refs = [np.asarray(jnp.take_along_axis(jnp.asarray(t), jnp.asarray(i),
+                                           axis=axis))
+            for t, i in zip(ts, idx)]
+    args = (_t(ts[0]), _t(idx[0]), _t(ts[1]), _t(idx[1]), axis)
+    for fn in (gather.take_along_pair, gather.take_along_pair_plain):
+        outs = fn(*args)
+        assert len(outs) == 2
+        for got, ref in zip(outs, refs):
+            np.testing.assert_array_equal(got.numpy(), ref)
+
+
 def test_take_along_equals_probe_variant_c_function(probe):
     """Variant C: take_along_axis(table[:N, :128], idx broadcast over 128
     columns, axis=0), i.e. the baseline's rows cut to 128 columns."""

@@ -288,6 +288,36 @@ def test_take_along_matches_plain(cuda, axis, tshape, ishape):
         gather.take_along(t, idx[:, :-1].contiguous(), 0 if axis == 0 else 2)
 
 
+@pytest.mark.parametrize("axis,tshape,ishape", [
+    (1, (2, 196608), (2, 196608)),    # the edge gate's shape
+    (1, (3, 1003), (3, 1001)),        # columns no multiple of 4: scalar tail
+    (0, (40, 9), (17, 9)), (0, (1024, 128), (1024, 128))])
+def test_take_along_pair_matches_plain(cuda, axis, tshape, ishape):
+    """Both problems in one launch, bit-equal to two plain calls; also with
+    indices that are not 16-byte aligned (a row moved one at a time)."""
+    from mast3r_slam_tpu_torch.ops import _kernels, gather
+
+    rng = np.random.default_rng(tshape[1])
+    f = lambda a, dt: torch.from_numpy(a.astype(dt)).to(cuda)
+    ts = [f(rng.standard_normal(tshape), np.float32) for _ in range(2)]
+    idx = [f(rng.integers(0, tshape[axis], ishape), np.int32)
+           for _ in range(2)]
+    n0 = _kernels.LAUNCHES["take_along"]
+    got = gather.take_along_pair(ts[0], idx[0], ts[1], idx[1], axis)
+    assert _kernels.LAUNCHES["take_along"] == n0 + 1
+    ref = gather.take_along_pair_plain(ts[0], idx[0], ts[1], idx[1], axis)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    flat = f(rng.integers(0, tshape[axis], ishape[0] * ishape[1] + 1),
+             np.int32)
+    odd = flat[1:].view(ishape)                      # 4 bytes off alignment
+    got = gather.take_along_pair(ts[0], odd, ts[1], idx[1], axis)
+    ref = gather.take_along_pair_plain(ts[0], odd, ts[1], idx[1], axis)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    with pytest.raises(ValueError):
+        gather.take_along_pair(ts[0], idx[0], ts[1][:1].contiguous(),
+                               idx[1][:1].contiguous(), axis)
+
+
 def _tracker_problem(dev, n=6000, seed=0):
     rng = np.random.default_rng(seed)
     Xk = rng.standard_normal((n, 3)).astype(np.float32) + [0, 0, 4.0]

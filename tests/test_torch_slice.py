@@ -494,8 +494,6 @@ def test_left_out_parts_raise():
     s.reloc_pending = True          # without retrieval a relocalization fails
     assert s.backend_step() is True
     assert s.stats["reloc_failed"] == 1 and not s.reloc_pending
-    with pytest.raises(NotImplementedError):
-        s.run(None)
     s.tracker.fused = False
     with pytest.raises(NotImplementedError):
         s.tracker.track(None)
