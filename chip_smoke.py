@@ -83,6 +83,20 @@ Phases (any failure exits non-zero and prints no result line):
    480x640 (``configs/eval_no_calib.yaml``, ``--no-viz --max-frames 8``):
    its frames/s line, one TUM line per keyframe, a PLY that parses.
 
+6. The windowed frontend, checkpoints and released weights, with
+   ``configs/tpu_fast.yaml``'s ``tracking_window: 8`` as shipped:
+   ``run()`` over PNG files of the tpu_fast frames at W = 8 (frame 0, then
+   two windows; the frame-by-frame tpu_fast run's keyframes and stats,
+   its health gates and poses within ``POSE_TOL_WINDOW``) beside the same
+   ``run()`` at W = 1 (per-frame ms of both from this call), a third W = 8
+   run counting each window's host syncs (at most one, the stats read), the
+   loop run's 33 frames with retrieval at W = 8 (its gates), a crash after
+   the first window resumed from the checkpoint in a fresh system, and
+   ``cli.main`` with ``configs/tpu_fast.yaml``, ``--checkpoint`` on a
+   released-format ``.pth`` of the smoke's random weights (read back
+   bit-equal), ``--save-state`` and ``--resume``. ``rope_qk`` is also held
+   to its plain version at the window's encoder batch (8, 16, 768, 64).
+
 The loop run's final factor graph is also put through ``ba_edge_terms``,
 its plain version and the plain version in float64, and one more tracked
 frame of the tpu_fast run counts its host syncs (PyTorch's sync debug
@@ -115,6 +129,17 @@ N_BASE, KF_BASE = 5, 2
 N_CALIB, KF_CALIB = 5, 2
 N_LOOP, KF_LOOP = 33, 4
 KF_TELEPORT = 2
+WINDOW = 8                          # configs/tpu_fast.yaml's tracking_window
+# keyframe poses (all 8 numbers, max abs) of the window run against the
+# frame-by-frame run: the chain tracks a window's frames against keyframe
+# poses that bundle adjustment has not moved yet (it runs between windows)
+POSE_TOL_WINDOW = 1e-3
+# a resumed window run against the uninterrupted one: the keyframes queued
+# at the checkpoint get their consecutive edges by decode + dense match
+# (the tracker's matches are not part of a checkpoint), so the two runs
+# solve slightly different graphs: their keyframe positions, Sim(3)-aligned,
+# must agree within this share of the trajectory's extent
+RESUME_TOL = 0.01
 EDGE_CAPACITY = 64
 EDGE_CAPACITY_LOOP = 256            # configs/base.yaml's
 CODEBOOK = 65536
@@ -442,7 +467,8 @@ def check_loop_kernels(rec, model_cfg, D):
     """``coarse_correlate`` at the dense edge matcher's shapes (b = 2: both
     directions of one candidate edge; 12,288 query rows at ``query_stride``
     4, 49,152 at 1) and ``rope_qk`` at the encoder's and decoder's shapes,
-    b = 1 (tracking) and 4 (two candidate edges)."""
+    b = 1 (tracking) and 4 (two candidate edges), and the encoder's at
+    b = 8 (a window's frames)."""
     import torch
 
     from mast3r_slam_tpu_torch.models import rope
@@ -544,12 +570,15 @@ def check_loop_kernels(rec, model_cfg, D):
     xs = torch.arange(w // 16, device="cuda").repeat(h // 16)
     pos = torch.stack([ys, xs], dim=-1)
     g = torch.Generator(device="cuda").manual_seed(5)
-    for part, dim, heads in (("encoder", model_cfg.enc_embed_dim,
-                              model_cfg.enc_num_heads),
-                             ("decoder", model_cfg.dec_embed_dim,
-                              model_cfg.dec_num_heads)):
+    # the encoder also at batch W = 8: the windowed frontend encodes its
+    # frames as one batch
+    for part, dim, heads, batches in (
+            ("encoder", model_cfg.enc_embed_dim, model_cfg.enc_num_heads,
+             (1, 4, WINDOW)),
+            ("decoder", model_cfg.dec_embed_dim, model_cfg.dec_num_heads,
+             (1, 4))):
         d = dim // heads
-        for b in (1, 4):
+        for b in batches:
             qkv = torch.randn(b, n_tok, 3, heads, d, generator=g,
                               device="cuda")
             q, k = (qkv[:, :, i].transpose(1, 2) for i in (0, 1))
@@ -1084,7 +1113,6 @@ def run_slam(preset_cfg, params, model_cfg, n_frames, kf_every, K=None,
 
     cfg = preset_cfg
     cfg["tracking"] = dict(cfg["tracking"], kf_every=kf_every)
-    cfg["runtime"] = dict(cfg.get("runtime", {}), tracking_window=1)
     cfg["reloc"] = dict(cfg["reloc"], reinit_after=reinit_after)
     cfg["use_calib"] = K is not None
     h, w = model_cfg.img_size
@@ -1379,22 +1407,42 @@ def stage_split(params, model_cfg, mcfg, tcfg):
 def host_syncs_of(fn):
     """Where one ``fn()`` call waited for the device: "file:line" of each
     synchronizing call (``.item()``, ``.cpu()``, ``bool()`` of a CUDA
-    tensor, ...), as PyTorch's sync debug mode reports them."""
+    tensor, ...), as PyTorch's sync debug mode reports them; a sync inside
+    a library also names the innermost line of this repository that led to
+    it ("library:line via repo:line")."""
     import pathlib
+    import traceback
     import warnings
 
     import torch
 
+    repo = pathlib.Path(__file__).resolve().parent
+    found = []
+
+    def where(message, category, filename, lineno, *rest):
+        if "synchroniz" not in str(message):
+            return
+        at = f"{pathlib.Path(filename).name}:{lineno}"
+        ours = [f for f in traceback.extract_stack()
+                if pathlib.Path(f.filename).resolve().is_relative_to(repo)
+                and pathlib.Path(f.filename).name != "chip_smoke.py"]
+        if ours and not pathlib.Path(filename).resolve().is_relative_to(repo):
+            at += f" via {pathlib.Path(ours[-1].filename).name}:{ours[-1].lineno}"
+        found.append(at)
+
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
+    with warnings.catch_warnings():
+        # the first switch to "warn" in a process reports the switch itself
+        # as a sync: not one of fn's
+        warnings.simplefilter("ignore")
         torch.cuda.set_sync_debug_mode("warn")
+        warnings.simplefilter("always")
+        warnings.showwarning = where
         try:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return [f"{pathlib.Path(c.filename).name}:{c.lineno}" for c in caught
-            if "synchroniz" in str(c.message)]
+    return found
 
 
 def host_syncs(system, frame_id, image):
@@ -1509,7 +1557,6 @@ def run_loop_phase(params, model_cfg, traj, ref, run_launches, every):
                               ("run_loop_threaded", False)):
             cfg = base_config()
             cfg["tracking"] = dict(cfg["tracking"], kf_every=KF_BASE)
-            cfg["runtime"] = dict(cfg["runtime"], tracking_window=1)
             cfg["single_thread"] = single
             system = SLAMSystem(params, model_cfg, cfg, (h, w),
                                 keyframe_capacity=16,
@@ -1638,6 +1685,305 @@ def cli_phase(run_launches):
             f"outputs {files}, launches {launches}")
 
 
+def window_phase(params, model_cfg, traj, fast_ref, loop_ref, rparams,
+                 run_launches):
+    """The windowed frontend through ``SLAMSystem.run`` on PNG files of
+    ``run_slam``'s frames, ``tpu_fast`` with ``tracking_window: 8`` as the
+    YAML ships it. **window_tpu_fast**: 17 frames at ``kf_every=4`` (frame 0
+    alone, then two windows), held to the frame-by-frame tpu_fast run's
+    keyframe ids and stats, the health gates and keyframe poses within
+    ``POSE_TOL_WINDOW``; beside it the same ``run()`` at W = 1, timed in
+    this call, and a third W = 8 run whose windows count their host syncs.
+    **window_loop**: the loop run's 33 frames with retrieval at W = 8, held
+    to the loop run's gates. **resume**: the window run checkpointed every
+    8 frames, killed after the first window, resumed in a fresh system;
+    the keyframe ids, edge count and RMSE gate of the uninterrupted run,
+    its keyframe positions within ``RESUME_TOL`` of it (Sim(3)-aligned)."""
+    import pathlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mast3r_slam_tpu_torch.config import tpu_fast_config
+    from mast3r_slam_tpu_torch.eval.ate import aligned_rmse
+    from mast3r_slam_tpu_torch.io import datasets
+    from mast3r_slam_tpu_torch.models import oracle_timing
+    from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.slam import checkpoint
+    from mast3r_slam_tpu_torch.slam.system import SLAMSystem
+    from mast3r_slam_tpu_torch.utils.metrics import Metrics
+
+    h, w = model_cfg.img_size
+
+    def make(window, kf_every, **kw):
+        cfg = tpu_fast_config()
+        assert cfg["runtime"]["tracking_window"] == WINDOW
+        cfg["tracking"] = dict(cfg["tracking"], kf_every=kf_every)
+        cfg["runtime"] = dict(cfg["runtime"], tracking_window=window)
+        return SLAMSystem(params, model_cfg, cfg, (h, w),
+                          keyframe_capacity=16, model_module=oracle_timing,
+                          device="cuda", metrics=Metrics(), **kw)
+
+    def drive(label, system, dataset, must_launch, **kw):
+        windows = []
+        dispatch = system.dispatch_window
+        system.dispatch_window = lambda ids, imgs: (
+            windows.append(ids) or dispatch(ids, imgs))
+        _kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = system.run(dataset, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = run_launches[label] = dict(_kernels.LAUNCHES)
+        missing = sorted(k for k in must_launch if launches[k] <= 0)
+        if missing:
+            raise AssertionError(f"{label} run never launched {missing}: "
+                                 f"{launches}")
+        return stats, wall, windows, launches
+
+    def keyframes(system):
+        k = len(system.keyframes)
+        return (system.keyframes.dataset_idx[:k].cpu().numpy(),
+                system.keyframes.T_WC[:k].cpu().numpy())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "frames").mkdir()
+        write_frames(tmp / "frames", N_LOOP, h, w)
+        ds = lambda: datasets.RGBFiles(tmp / "frames")
+
+        # W = 1 and W = 8 over the same frames in this call
+        sys1 = make(1, KF_FAST, edge_capacity=EDGE_CAPACITY)
+        _, wall1, win1, _ = drive("window_tpu_fast_w1", sys1, ds(),
+                                  FRONTEND | BA_KERNELS, max_frames=N_FAST)
+        torch.cuda.reset_peak_memory_stats()
+        sys8 = make(WINDOW, KF_FAST, edge_capacity=EDGE_CAPACITY)
+        stats8, wall8, win8, launches8 = drive(
+            "window_tpu_fast", sys8, ds(), FRONTEND | BA_KERNELS,
+            max_frames=N_FAST)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        expect_windows = [list(range(1 + WINDOW * j, 1 + WINDOW * (j + 1)))
+                          for j in range(2)]
+        if win8 != expect_windows or win1:
+            raise AssertionError(f"window branch: W=8 dispatched {win8}, "
+                                 f"W=1 dispatched {win1}")
+        rmse, extent = assert_healthy(sys8, N_FAST, KF_FAST, traj,
+                                      "window_tpu_fast", end_mode="TERMINATED")
+        ids8, T8 = keyframes(sys8)
+        dT = float(np.abs(T8 - fast_ref["T"]).max())
+        if (not np.array_equal(ids8, fast_ref["ids"])
+                or stats8 != fast_ref["stats"] or not dT <= POSE_TOL_WINDOW):
+            raise AssertionError(
+                f"window_tpu_fast vs the frame-by-frame tpu_fast run: ids "
+                f"{ids8} / {fast_ref['ids']}, stats {stats8} / "
+                f"{fast_ref['stats']}, "
+                f"keyframe poses max abs diff {dT} (tolerance "
+                f"{POSE_TOL_WINDOW})")
+        log(f"window_tpu_fast: {N_FAST} frames through run() at W={WINDOW}, "
+            f"windows {win8}, stats {stats8}, edges "
+            f"{sys8.factor_graph.n_edges}, keyframe RMSE after BA {rmse:.6f} "
+            f"of extent {extent:.6f}, keyframe poses vs the frame-by-frame "
+            f"run: max abs diff {dT} (tolerance {POSE_TOL_WINDOW}), launches "
+            f"{launches8}")
+        log(f"window_tpu_fast per frame (run() wall / {N_FAST} frames, PNG "
+            f"read and backend included, same call): W={WINDOW} "
+            f"{wall8 / N_FAST:.3f} ms, W=1 {wall1 / N_FAST:.3f} ms; peak "
+            f"device memory of the W={WINDOW} run {peak:.3f} GiB")
+
+        # host syncs of each window: dispatch and consume (the backend's
+        # drain between them is not the window's)
+        sys_s = make(WINDOW, KF_FAST, edge_capacity=EDGE_CAPACITY)
+        per_window = []
+        dispatch, consume = sys_s.dispatch_window, sys_s.consume_window
+
+        def counted_dispatch(ids, imgs):
+            box = {}
+            at = host_syncs_of(lambda: box.setdefault("p", dispatch(ids,
+                                                                    imgs)))
+            per_window.append({"frames": [ids[0], ids[-1]], "dispatch": at})
+            return box["p"]
+
+        def counted_consume(pending):
+            box = {}
+            at = host_syncs_of(lambda: box.setdefault("k", consume(pending)))
+            per_window[-1]["consume"] = at
+            return box["k"]
+
+        sys_s.dispatch_window = counted_dispatch
+        sys_s.consume_window = counted_consume
+        drive("window_syncs", sys_s, ds(), FRONTEND, max_frames=N_FAST)
+        log("host syncs per window (file:line): " + json.dumps(per_window))
+        if any(len(r["dispatch"]) + len(r["consume"]) > 1
+               for r in per_window):
+            raise AssertionError("a window waited for the device more than "
+                                 f"once: {per_window}")
+        del sys_s, sys1
+
+        # resume: checkpoint every 8 frames, killed after the first window
+        ck = tmp / "state.npz"
+        sys_b = make(WINDOW, KF_FAST, edge_capacity=EDGE_CAPACITY)
+        drive("resume_killed", sys_b, ds(), FRONTEND, max_frames=1 + WINDOW,
+              checkpoint_path=ck, checkpoint_every=WINDOW)
+        del sys_b
+        sys_c = make(WINDOW, KF_FAST, edge_capacity=EDGE_CAPACITY)
+        checkpoint.load_state(ck, sys_c)
+        queued = list(sys_c.backend_queue)
+        if sys_c.resume_frame != 1 + WINDOW or not queued:
+            raise AssertionError(f"resume: next frame {sys_c.resume_frame}, "
+                                 f"queue {queued}")
+        # the queued keyframes' edges by decode + the dense matcher
+        stats_c, _, win_c, launches_c = drive(
+            "resume", sys_c, ds(), LOOP_KERNELS, max_frames=N_FAST,
+            start_frame=sys_c.resume_frame)
+        sys_c.check_invariants()
+        ids_c, T_c = keyframes(sys_c)
+        rmse_c, extent_c = aligned_rmse(
+            T_c[:, :3].astype("float64"),
+            traj[ids_c, :3].cpu().numpy().astype("float64"))
+        same = np.array_equal(ids_c, ids8)
+        dT_c = float(np.abs(T_c - T8).max()) if same else None
+        d_c, ext8 = (aligned_rmse(T_c[:, :3].astype("float64"),
+                                  T8[:, :3].astype("float64"))
+                     if same else (None, None))
+        if (not same
+                or sys_c.factor_graph.n_edges != sys8.factor_graph.n_edges
+                or not d_c < RESUME_TOL * ext8
+                or not rmse_c < 0.06 * extent_c):
+            raise AssertionError(
+                f"resume vs the uninterrupted window run: ids {ids_c} / "
+                f"{ids8}, edges {sys_c.factor_graph.n_edges} / "
+                f"{sys8.factor_graph.n_edges}, aligned keyframe positions "
+                f"{d_c} of extent {ext8} (tolerance {RESUME_TOL} x extent), "
+                f"RMSE {rmse_c} of {extent_c}")
+        log(f"resume: checkpoint after frame {WINDOW} ({ck.stat().st_size} "
+            f"bytes, queue {queued}), resumed windows {win_c}, stats after "
+            f"the resume {stats_c}, keyframes {ids_c.tolist()}, edges "
+            f"{sys_c.factor_graph.n_edges}, RMSE {rmse_c:.6f} of "
+            f"{extent_c:.6f}; against the uninterrupted run: aligned "
+            f"keyframe positions {d_c:.6f} of extent {ext8:.6f} (tolerance "
+            f"{RESUME_TOL} x extent), poses max abs diff {dT_c}, launches "
+            f"{launches_c}")
+        del sys_c, sys8
+
+        # the loop run at W = 8 with retrieval
+        torch.cuda.reset_peak_memory_stats()
+        sys_l = make(WINDOW, KF_LOOP, retrieval_params=rparams,
+                     edge_capacity=EDGE_CAPACITY_LOOP)
+        stats_l, wall_l, win_l, launches_l = drive(
+            "window_loop", sys_l, ds(), LOOP_KERNELS)
+        rmse_l, extent_l = assert_healthy(sys_l, N_LOOP, KF_LOOP, traj,
+                                          "window_loop",
+                                          end_mode="TERMINATED")
+        if len(win_l) != (N_LOOP - 1) // WINDOW:
+            raise AssertionError(f"window_loop dispatched {win_l}")
+        log(f"window_loop: {N_LOOP} frames at W={WINDOW}, windows "
+            f"{[[w_[0], w_[-1]] for w_ in win_l]}, stats {stats_l} (the "
+            f"frame-by-frame loop run: {loop_ref['stats']}), edges "
+            f"{sys_l.factor_graph.n_edges} ({loop_ref['edges']}), keyframe "
+            f"RMSE after BA {rmse_l:.6f} of extent {extent_l:.6f}, "
+            f"{wall_l / N_LOOP:.3f} ms a frame with the backend, peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+            f"launches {launches_l}")
+
+
+def cli_tpu_fast_phase(net, model_cfg, run_launches):
+    """``cli.main`` with ``configs/tpu_fast.yaml`` as shipped (W = 8) and
+    ``--checkpoint`` on a released-format ``.pth`` written here from the
+    smoke's random weights (``convert.save_released_checkpoint``; loaded
+    back once and held bit-equal to the weights), on the 16 frames of
+    ``scripts/make_synth_dataset.py``: 9 frames with ``--save-state``
+    every 8, then ``--resume`` for the rest. With random weights tracking
+    fails at frame 1, inside the first window, so this run goes through
+    the window's halt and the per-frame relocalization path."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import pathlib
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mast3r_slam_tpu_torch import cli
+    from mast3r_slam_tpu_torch.models import convert
+    from mast3r_slam_tpu_torch.ops import _kernels
+
+    repo = pathlib.Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        "make_synth_dataset", repo / "scripts" / "make_synth_dataset.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        seq = synth.make(tmp / "synth_seq", n_frames=16)
+        pth = tmp / "mast3r_random.pth"
+        t0 = time.perf_counter()
+        convert.save_released_checkpoint(net, model_cfg, pth)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cfg2, net2 = convert.load_released_checkpoint(
+            pth, img_size=model_cfg.img_size, device="cuda",
+            dtype=model_cfg.dtype, head_dtype=model_cfg.head_dtype)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        sd, sd2 = net.state_dict(), net2.state_dict()
+        unequal = [k for k in sd if not torch.equal(sd[k], sd2[k])]
+        if cfg2 != model_cfg or sorted(sd) != sorted(sd2) or unequal:
+            raise AssertionError(f"released checkpoint round trip: config "
+                                 f"{cfg2} vs {model_cfg}, {len(unequal)} "
+                                 f"tensors differ: {unequal[:5]}")
+        del net2, sd2
+        log(f"released checkpoint: {pth.stat().st_size / 2**30:.3f} GiB "
+            f"written in {t_save:.2f} s, loaded to the GPU in {t_load:.2f} s, "
+            f"{len(sd)} tensors bit-equal to the smoke's weights")
+        base = ["--dataset", str(seq), "--config",
+                str(repo / "configs" / "tpu_fast.yaml"), "--no-viz",
+                "--checkpoint", str(pth), "--save-as", "smoke"]
+        state = tmp / "state.npz"
+        runs = (("cli_tpu_fast", ["--max-frames", "9", "--save-state",
+                                  str(state), "--save-state-every", "8"]),
+                ("cli_tpu_fast_resume", ["--resume", str(state),
+                                         "--save-state", str(state)]))
+        cwd = os.getcwd()
+        for label, extra in runs:
+            # keyframes already in the state a run resumes from
+            kf0 = (int(np.load(state)["kf_n_size"]) if "--resume" in extra
+                   else 0)
+            buf = io.StringIO()
+            _kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            os.chdir(tmp)
+            try:
+                with contextlib.redirect_stdout(buf):
+                    stats = cli.main(base + extra)
+            finally:
+                os.chdir(cwd)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = run_launches[label] = dict(_kernels.LAUNCHES)
+            printed = buf.getvalue()
+            for ln in printed.splitlines():
+                log(f"{label} | {ln}")
+            n_run = 9 if label == "cli_tpu_fast" else 16
+            resumed = re.search(r"resumed SLAM state from .* next frame (\d+)",
+                                printed)
+            if ("loading checkpoint" not in printed
+                    or not re.search(rf"done: {n_run} frames in", printed)
+                    or launches["rope_qk"] <= 0 or not state.exists()
+                    or (label != "cli_tpu_fast"
+                        and (resumed is None or resumed.group(1) != "9"))):
+                raise AssertionError(f"{label}: unexpected output or launches "
+                                     f"{launches}")
+            files = check_exports(tmp / "logs" / "smoke", "synth_seq",
+                                  kf0 + stats["keyframes"])
+            log(f"{label}: {wall:.3f} s with the model's load, stats {stats}, "
+                f"outputs {files}, launches {launches}")
+
+
 def main():
     import torch
 
@@ -1723,6 +2069,10 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     system, med, launches = drive("tpu_fast", tpu_fast_config(), N_FAST,
                                   KF_FAST, FRONTEND | BA_KERNELS)
+    k = len(system.keyframes)
+    fast_ref = {"stats": dict(system.stats),
+                "ids": system.keyframes.dataset_idx[:k].cpu().numpy(),
+                "T": system.keyframes.T_WC[:k].cpu().numpy()}
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
         f"(edge buffers at capacity {EDGE_CAPACITY}: "
@@ -1765,6 +2115,8 @@ def main():
     log("loop split (isolated, ms): " + json.dumps(loop_split(sys_l)))
     log("ba_edge_terms on the loop run's final graph: "
         + json.dumps(check_loop_graph(sys_l)))
+    loop_ref = {"stats": dict(sys_l.stats),
+                "edges": sys_l.factor_graph.n_edges}
     log(f"loop peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (codebook "
         f"{CODEBOOK * 1024 * 4 / 2**20:.0f} MiB, edge buffers at capacity "
@@ -1821,6 +2173,12 @@ def main():
     # phase 5: the run loop, the exports and the command line
     run_loop_phase(params, model_cfg, traj, sys_b, run_launches, every)
     cli_phase(run_launches)
+
+    # phase 6: the windowed frontend, checkpoints and resume, and the CLI
+    # with a released-format checkpoint, all with tpu_fast as shipped
+    window_phase(params, model_cfg, traj, fast_ref, loop_ref, rparams,
+                 run_launches)
+    cli_tpu_fast_phase(net, model_cfg, run_launches)
 
     for r in records:
         r["launches_by_run"] = {label: ln[r["name"]]

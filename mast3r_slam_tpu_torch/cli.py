@@ -2,20 +2,30 @@
 
     python -m mast3r_slam_tpu_torch --dataset <path> \
         --config configs/base.yaml [--save-as NAME] [--no-viz] \
-        [--calib intrinsics.yaml] [--max-frames N] [--device cuda|cpu]
+        [--calib intrinsics.yaml] [--checkpoint model.pth] \
+        [--retrieval-checkpoint retrieval.pth --codebook codebook.pkl] \
+        [--save-state state.npz [--save-state-every N]] \
+        [--resume state.npz] [--estimate-calib] [--max-frames N] \
+        [--device cuda|cpu]
 
 Counterpart of ``mast3r_slam_tpu/cli.py``; it takes the same flags, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch versions of
-the kernels, for tests). Without a checkpoint the model runs with random
-weights from ``--seed``, which is only good for smoke and speed runs.
-Writes ``logs/[<save-as>/]<sequence>.txt`` (TUM trajectory), ``.ply``
-(point cloud) and ``keyframes/<sequence>/*.png``.
+the kernels, for tests). ``--checkpoint`` loads a released-format MASt3R
+``.pth`` (``models/convert.load_released_checkpoint``); without one the
+model runs with random weights from ``--seed``, which is only good for
+smoke and speed runs. ``--retrieval-checkpoint`` (with ``--codebook``)
+turns on retrieval and loop closure. ``--save-state`` writes the SLAM state
+at the end of the run, and every N frames with ``--save-state-every``;
+``--resume`` starts from such a file (``slam/checkpoint.py``).
+``--estimate-calib`` estimates the focal length from the first frame's
+pointmap and runs the calibrated pipeline. Writes
+``logs/[<save-as>/]<sequence>.txt`` (TUM trajectory), ``.ply`` (point
+cloud) and ``keyframes/<sequence>/*.png``.
 
 Flags whose modules are not ported yet raise ``NotImplementedError`` naming
-their ROADMAP.md item: loading checkpoints, saving and resuming the state
-and estimating the focal length (queue 1 item 4), the live viewer and the
-offline renders (item 6, so pass ``--no-viz``), and the sharded BA backends
-and multi-host runs (item 7).
+their ROADMAP.md item: the live viewer and the offline renders (queue 1
+item 6, so pass ``--no-viz``), and the sharded BA backends and multi-host
+runs (item 7).
 """
 
 from __future__ import annotations
@@ -25,7 +35,6 @@ import pathlib
 import sys
 import time
 
-_ITEM4 = "is not ported yet; see ROADMAP.md queue 1 item 4"
 _ITEM6 = "is not ported yet; see ROADMAP.md queue 1 item 6"
 _ITEM7 = "is not ported yet; see ROADMAP.md queue 1 item 7"
 
@@ -69,21 +78,14 @@ def _parser():
 def _refuse_unported(args):
     """Raise ``NotImplementedError`` for a flag whose module is not
     ported."""
-    item4 = {"--checkpoint": args.checkpoint,
-             "--retrieval-checkpoint": args.retrieval_checkpoint,
-             "--codebook": args.codebook, "--save-state": args.save_state,
-             "--save-state-every": args.save_state_every,
-             "--resume": args.resume,
-             "--estimate-calib": args.estimate_calib}
     item7 = {"--ba-backend " + args.ba_backend:
              args.ba_backend not in ("", "dense"),
              "--coordinator": args.coordinator,
              "--num-hosts": args.num_hosts is not None,
              "--host-id": args.host_id is not None}
-    for items, todo in ((item4, _ITEM4), (item7, _ITEM7)):
-        for flag, given in items.items():
-            if given:
-                raise NotImplementedError(f"{flag} {todo}")
+    for flag, given in item7.items():
+        if given:
+            raise NotImplementedError(f"{flag} {_ITEM7}")
     if args.serve_viz is not None:
         raise NotImplementedError(f"--serve-viz (the live viewer) {_ITEM6}")
     if not args.no_viz:
@@ -100,7 +102,9 @@ def main(argv=None):
     from . import config as config_mod
     from ._device import resolve_device
     from .io import datasets, export
+    from .models import convert
     from .models import mast3r as mast3r_mod
+    from .slam import checkpoint
     from .slam import retrieval as retrieval_mod
     from .slam.system import SLAMSystem
 
@@ -133,19 +137,30 @@ def main(argv=None):
     print(f"frame size: {h}x{w}")
 
     rt = cfg.get("runtime", {})
-    model_cfg = mast3r_mod.MASt3RConfig(
-        img_size=(h, w), dtype=rt.get("model_dtype", "bfloat16"),
-        head_dtype=rt.get("head_dtype", "float32"))
-    print("WARNING: no checkpoint; random weights (smoke/perf mode)")
+    dtypes = dict(dtype=rt.get("model_dtype", "bfloat16"),
+                  head_dtype=rt.get("head_dtype", "float32"))
     gen = lambda seed: torch.Generator(device=device).manual_seed(seed)
-    params = mast3r_mod.init_params(model_cfg, gen(args.seed), device=device)
+    if args.checkpoint:
+        # the architecture from the file's instantiation string
+        print(f"loading checkpoint {args.checkpoint}")
+        model_cfg, params = convert.load_released_checkpoint(
+            args.checkpoint, img_size=(h, w), device=device, **dtypes)
+    else:
+        model_cfg = mast3r_mod.MASt3RConfig(img_size=(h, w), **dtypes)
+        print("WARNING: no checkpoint; random weights (smoke/perf mode)")
+        params = mast3r_mod.init_params(model_cfg, gen(args.seed),
+                                        device=device)
 
-    rparams = None            # retrieval and loop closure off
-    if args.random_retrieval:
+    if args.retrieval_checkpoint:
+        rparams = retrieval_mod.convert_retrieval_checkpoint(
+            args.retrieval_checkpoint, args.codebook or None, device=device)
+    elif args.random_retrieval:
         # smoke runs only: a random retriever proposes spurious loops
         rparams = retrieval_mod.init_retrieval_params(
             gen(args.seed + 1), backbone_dim=model_cfg.enc_embed_dim,
             device=device)
+    else:
+        rparams = None        # retrieval and loop closure off
 
     K = None
     if use_calib:
@@ -154,6 +169,26 @@ def main(argv=None):
             sys.exit(0)
         K = torch.as_tensor(dataset.camera_intrinsics.K_frame,
                             dtype=torch.float32)
+    elif args.estimate_calib:
+        # an unknown camera: the focal from the first frame's pointmap,
+        # then the calibrated pipeline with that pinhole model
+        from . import geometry
+        from .io.image import resize_img
+
+        _, img0 = dataset[0]
+        img = torch.from_numpy(
+            resize_img(img0, dataset.img_size)["img"]).to(device)[None]
+        feat, pos = mast3r_mod.encode(params, img, model_cfg)
+        X, C = mast3r_mod.inference_mono(params, feat, pos, model_cfg)
+        f = float(geometry.estimate_focal(X[0], (h, w), conf=C[0, :, 0]))
+        if f > 0.1 * max(h, w):
+            K = torch.tensor([[f, 0.0, w / 2.0], [0.0, f, h / 2.0],
+                              [0.0, 0.0, 1.0]], dtype=torch.float32)
+            cfg["use_calib"] = True
+            print(f"estimated focal: {f:.2f} px (frame size {h}x{w})")
+        else:
+            print(f"estimated focal {f:.2f} px is implausible; staying in "
+                  "the uncalibrated (ray-residual) pipeline")
 
     metrics = None
     if args.metrics:
@@ -164,21 +199,35 @@ def main(argv=None):
     system = SLAMSystem(params, model_cfg, cfg, (h, w),
                         retrieval_params=rparams, K=K, metrics=metrics,
                         device=device)
+    start_frame = 0
+    if args.resume:
+        checkpoint.load_state(args.resume, system)
+        start_frame = system.resume_frame
+        print(f"resumed SLAM state from {args.resume} "
+              f"({len(system.keyframes)} keyframes, "
+              f"{system.factor_graph.n_edges} edges, "
+              f"next frame {start_frame})")
+    run_kwargs = dict(max_frames=args.max_frames, progress=True,
+                      start_frame=start_frame,
+                      checkpoint_path=args.save_state or None,
+                      checkpoint_every=args.save_state_every)
     t0 = time.time()
     if args.profile_dir:
         from .utils.timing import ProfilerTrace
 
         with ProfilerTrace(args.profile_dir):
-            stats = system.run(dataset, max_frames=args.max_frames,
-                               progress=True)
+            stats = system.run(dataset, **run_kwargs)
     else:
-        stats = system.run(dataset, max_frames=args.max_frames,
-                           progress=True)
+        stats = system.run(dataset, **run_kwargs)
     elapsed = time.time() - t0
     n = len(dataset) if args.max_frames is None else min(args.max_frames,
                                                          len(dataset))
     print(f"done: {n} frames in {elapsed:.1f}s = {n / elapsed:.2f} FPS")
     print(f"stats: {stats}")
+
+    if args.save_state:
+        checkpoint.save_state(args.save_state, system)
+        print(f"saved SLAM state to {args.save_state}")
 
     if dataset.save_results:
         save_dir = pathlib.Path("logs")

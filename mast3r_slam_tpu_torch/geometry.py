@@ -88,6 +88,40 @@ def backproject(p, z, K):
     return z * torch.cat([x, y, torch.ones_like(x)], dim=-1)
 
 
+def estimate_focal(X, img_size, pp=None, conf=None, iters: int = 10,
+                   z_eps: float = 1e-6):
+    """Focal length (pixels, fx = fy) from a pointmap in the camera frame
+    (``geometry.py:107``): a pinhole camera gives (u - cx, v - cy) =
+    f (x/z, y/z), so f is a 1-D regression, solved robustly by Weiszfeld
+    IRLS (weights 1 / residual norm, ``iters`` rounds from the weighted
+    least-squares start).
+
+    X (h*w, 3) in row-major pixel order; ``pp`` (2,) the principal point
+    (default: the image centre); ``conf`` (h*w,) non-negative weights.
+    Returns a 0-d tensor."""
+    h, w = img_size
+    if pp is None:
+        pp = torch.tensor([w / 2.0, h / 2.0], dtype=X.dtype).to(X.device)
+    q = pixel_coords(img_size, X.dtype, X.device) - pp
+    z3 = X[:, 2:3]
+    z = torch.clamp(z3.abs(), min=z_eps) * torch.sign(
+        torch.where(z3 == 0, torch.ones_like(z3), z3))
+    r = X[:, :2] / z
+    base_w = torch.ones_like(X[:, 0]) if conf is None else conf
+    rr = torch.sum(r * r, dim=-1)
+    qr = torch.sum(q * r, dim=-1)
+
+    def ls(wts):
+        return torch.sum(wts * qr) / torch.clamp(torch.sum(wts * rr),
+                                                 min=1e-12)
+
+    f = ls(base_w)
+    for _ in range(iters):
+        res = torch.linalg.vector_norm(q - f * r, dim=-1)
+        f = ls(base_w / torch.clamp(res, min=1e-6))
+    return f
+
+
 def pixel_coords(img_size, dtype=torch.float32, device="cpu"):
     """(h*w, 2) [u, v] grid in row-major pixel order."""
     h, w = img_size

@@ -27,7 +27,8 @@ from ..config import RetrievalConfig
 
 __all__ = ["IVF", "RetrievalConfig", "RetrievalDatabase",
            "aggregate_image", "aggregate_residuals", "binarize_pack",
-           "hamming_cdist_packed", "init_retrieval_params", "prep_features",
+           "convert_retrieval_checkpoint", "hamming_cdist_packed",
+           "init_retrieval_params", "prep_features",
            "prep_and_quantize", "quantize"]
 
 
@@ -54,6 +55,41 @@ def init_retrieval_params(generator: torch.Generator = None,
                        "p": torch.eye(proj_dim, device=dev)},
         "centroids": randn(codebook_size, proj_dim),
     }
+
+
+def convert_retrieval_checkpoint(path, codebook_pkl=None, device="cuda"):
+    """The released training-free retrieval ``.pth`` (``prewhiten.{m,p}``,
+    ``projector.{weight,bias}``, optionally ``postwhiten.{m,p}``) and the
+    codebook pickle (``{'train_codebook': {'codebook': {'centroids': ...}}}``
+    or the bare array) -> the retrieval params on ``device``
+    (``retrieval.py:60``): the projector transposed so that every matrix
+    applies as ``x @ p``; ``postwhiten`` None when the file has none; no
+    ``centroids`` without a codebook. Both files are unpickled: load only
+    files you trust."""
+    import pickle
+
+    dev = resolve_device(device)
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ckpt["model"] if "model" in ckpt else ckpt
+    t = lambda k: sd[k].detach().to(torch.float32)
+    put = lambda a: torch.as_tensor(a, dtype=torch.float32).contiguous().to(
+        dev)
+    params = {
+        "prewhiten": {"m": put(t("prewhiten.m").reshape(-1)),
+                      "p": put(t("prewhiten.p"))},
+        "projector": {"w": put(t("projector.weight").T),
+                      "b": put(t("projector.bias"))},
+        "postwhiten": ({"m": put(t("postwhiten.m").reshape(-1)),
+                        "p": put(t("postwhiten.p"))}
+                       if "postwhiten.m" in sd else None),
+    }
+    if codebook_pkl is not None:
+        with open(codebook_pkl, "rb") as f:
+            cb = pickle.load(f)
+        if isinstance(cb, dict) and "train_codebook" in cb:
+            cb = cb["train_codebook"]["codebook"]["centroids"]
+        params["centroids"] = put(np.asarray(cb, dtype=np.float32))
+    return params
 
 
 @torch.no_grad()

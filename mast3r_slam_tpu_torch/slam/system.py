@@ -1,5 +1,5 @@
-"""SLAM system: the per-frame tracking frontend, the backend step and the
-mode machine.
+"""SLAM system: the tracking frontend (per frame and windowed), the backend
+step and the mode machine.
 
 Counterpart of ``mast3r_slam_tpu/slam/system.py``: ``_track_gate_pre``
 (:78), ``_track_frame_body`` (:101), the fused path of ``TrackerRunner``
@@ -19,14 +19,22 @@ stats (the Gauss-Newton solve runs on the device, ``slam/tracker.py``);
 per backend step once per BA iteration (the step norm) and once for the
 retrieval features and word ids.
 
+The windowed frontend (``runtime.tracking_window`` W > 1;
+``_track_window_body`` :245, ``dispatch_window`` / ``consume_window``
+:818, :877) encodes W frames as one batch and tracks them in sequence with
+the keyframe carried on the device: the keyframe decision, the keyframe
+switch and the store-row writes are device work, and the host waits once a
+window, for the (W, 8) stats.
+
 ``run`` (``:1158``) drives a dataset through the frontend: with
-``single_thread`` the backend is drained after every frame, otherwise it
-runs in a host thread beside the frontend, the two serialized by
-``state_lock`` (both issue their work on the same CUDA stream).
+``single_thread`` the backend is drained after every frame (or window),
+otherwise it runs in a host thread beside the frontend, the two serialized
+by ``state_lock`` (both issue their work on the same CUDA stream). It can
+checkpoint the state every N frames (``slam/checkpoint.py``) and start
+from a resumed frame.
 
 Not in this slice (each raises ``NotImplementedError``; see ROADMAP.md):
-the windowed driver (``runtime.tracking_window > 1``), the step-by-step
-tracking path, a separate backend device, and ``run``'s checkpoints and
+the step-by-step tracking path, a separate backend device, and ``run``'s
 live viewer.
 """
 
@@ -34,7 +42,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -168,6 +176,153 @@ def _track_frame_body(model_mod, params, cfg, mcfg, tcfg, feat_f, pos_f,
             valid_match_k[:, 0], Qk[:, 0])
 
 
+class WindowOut(NamedTuple):
+    """Outputs of ``_track_window_body`` (``system.py:212``), all on the
+    device; the host reads ``hoststats`` once a window. The keyframe store
+    is written in place."""
+
+    hoststats: torch.Tensor  # (W, 8): match_frac, match_frac_k, unique_frac,
+    #                          skip, failed, new_kf, frame_score, active
+    T_WCf: torch.Tensor      # (W, 8) per-frame world poses
+    feats: torch.Tensor      # (W, n_patch, d) encoder features
+    poss: torch.Tensor       # (W, n_patch, 2)
+    Xff: torch.Tensor        # (W, n, 3) per-frame canonical pointmaps
+    Cff: torch.Tensor        # (W, n, 1)
+    idx_last: torch.Tensor   # (n,) match warm start for the next window
+    # each frame's match against its carried keyframe (the consecutive-edge
+    # reuse of local_opt.reuse_consec_edge); None without capture_matches
+    idxs: Optional[torch.Tensor]     # (W, n)
+    valids: Optional[torch.Tensor]   # (W, n) bool
+    Qks: Optional[torch.Tensor]      # (W, n)
+    prev_T_WC: torch.Tensor  # (8,) the last active frame's pose
+    feat_last: torch.Tensor  # (n_patch, d) the last active frame's features
+    pos_last: torch.Tensor   # (n_patch, 2)
+
+
+def _put_row(buf, row, value, mask):
+    """``buf[row] = value`` where ``mask`` (a 0-d bool device tensor), in
+    place. ``row`` is a one-element device index: no host read."""
+    old = buf.index_select(0, row)[0]
+    buf.index_copy_(0, row, torch.where(mask, value.to(buf.dtype), old)[None])
+
+
+def _track_window_body(model_mod, params, cfg, mcfg, tcfg, imgs, frame_ids,
+                       idx_init, prev_T_WC, K, last_idx, kfs, ds: int,
+                       fuse_mode: str, score_fn: str, use_calib: bool,
+                       img_size, intrinsics=None,
+                       capture_matches: bool = True) -> WindowOut:
+    """W frames through the tracker with the keyframe carried on the device
+    (``system.py:245``).
+
+    The W frames are encoded as one batch, then tracked in sequence by
+    ``_track_frame_body``. The keyframe decision is made on the device
+    (``kf_every`` from the host-known frame id, otherwise
+    ``min(match_frac_k, unique_frac) < match_frac_thresh``); on a switch the
+    outgoing keyframe's fused state is written at row ``cur`` and the frame
+    at ``cur + 1`` of ``kfs`` (masked in-place row writes), and the rest of
+    the window tracks against it. The chain halts at the first skipped or
+    failed frame: every later frame is inactive and writes nothing. A final
+    flush writes the carried keyframe at ``cur``. ``last_idx`` is the host's
+    index of the current keyframe; the caller keeps ``cur + 1`` inside the
+    store (``len(kfs) + W < capacity``)."""
+    W = imgs.shape[0]
+    dev = imgs.device
+    n = img_size[0] * img_size[1]
+    ident = torch.arange(n, device=dev)
+    feats_all, poss_all = model_mod.encode(params, imgs, cfg)
+
+    cur = torch.full((1,), last_idx, dtype=torch.int64, device=dev)
+    row = lambda buf: buf.index_select(0, cur)[0]
+    # the carried keyframe; its features stay in the store's dtype, as the
+    # per-frame path reads them from the store
+    feat_k, pos_k = row(kfs.feat)[None], row(kfs.pos)[None]
+    kf_X, kf_C, kf_N = row(kfs.X), row(kfs.C), row(kfs.N)
+    kf_NU, kf_sc, kf_T = row(kfs.N_updates), row(kfs.score), row(kfs.T_WC)
+    idx = ident if idx_init is None else idx_init
+    halted = torch.zeros((), dtype=torch.bool, device=dev)
+    feat_last, pos_last = feats_all[0], poss_all[0]
+    one_i = torch.ones((), dtype=kfs.N.dtype, device=dev)
+
+    def flush(mask):
+        """The carried keyframe's fused state into its row ``cur``."""
+        for buf, v in ((kfs.X, kf_X), (kfs.C, kf_C), (kfs.N, kf_N),
+                       (kfs.N_updates, kf_NU), (kfs.score, kf_sc)):
+            _put_row(buf, cur, v, mask)
+
+    o_stats, o_T, o_Xff, o_Cff, o_idx, o_valid, o_Qk = ([] for _ in range(7))
+    for t in range(W):
+        feat_f, pos_f = feats_all[t:t + 1], poss_all[t:t + 1]
+        (idx_f2k, T_WCf, Xff, Cff, kf_Xn, kf_Cn, kf_Nn, kf_NUn, kf_scn,
+         frame_score, stats, vmk, Qk) = _track_frame_body(
+            model_mod, params, cfg, mcfg, tcfg, feat_f, pos_f, feat_k, pos_k,
+            idx[None], kf_X, kf_C, kf_N, kf_NU, kf_sc, kf_T, prev_T_WC, K, ds,
+            fuse_mode, score_fn, use_calib, img_size, intrinsics)
+        ok = (stats[3] < 0.5) & (stats[4] < 0.5)
+        active = ~halted
+        if tcfg.kf_every:
+            want = frame_ids[t] % tcfg.kf_every == 0
+            new_kf = active & ok if want else torch.zeros_like(ok)
+        else:
+            new_kf = active & ok & (torch.minimum(stats[1], stats[2])
+                                    < tcfg.match_frac_thresh)
+
+        # the frame's effect on the carried keyframe (the body gates the
+        # fusion by ok; the whole frame is gated by active)
+        kf_X = torch.where(active, kf_Xn, kf_X)
+        kf_C = torch.where(active, kf_Cn, kf_C)
+        kf_N = torch.where(active, kf_Nn, kf_N)
+        kf_NU = torch.where(active, kf_NUn, kf_NU)
+        kf_sc = torch.where(active, kf_scn, kf_sc)
+        T_WCf = torch.where(active & ok, T_WCf, prev_T_WC)
+
+        # keyframe switch: flush the outgoing keyframe, store the frame
+        flush(new_kf)
+        nxt = cur + 1
+        fid = torch.full((), frame_ids[t], dtype=kfs.dataset_idx.dtype,
+                         device=dev)
+        for buf, v in ((kfs.X, Xff), (kfs.C, Cff[:, 0]), (kfs.N, one_i),
+                       (kfs.N_updates, one_i), (kfs.score, frame_score),
+                       (kfs.T_WC, T_WCf), (kfs.feat, feat_f[0]),
+                       (kfs.pos, pos_f[0]), (kfs.dataset_idx, fid)):
+            _put_row(buf, nxt, v, new_kf)
+
+        # carry the new keyframe (its features through the store's dtype,
+        # as the per-frame path reads them back)
+        feat_k = torch.where(new_kf, feat_f.to(kfs.feat.dtype), feat_k)
+        pos_k = torch.where(new_kf, pos_f, pos_k)
+        kf_X = torch.where(new_kf, Xff, kf_X)
+        kf_C = torch.where(new_kf, Cff[:, 0], kf_C)
+        kf_N = torch.where(new_kf, one_i, kf_N)
+        kf_NU = torch.where(new_kf, one_i, kf_NU)
+        kf_sc = torch.where(new_kf, frame_score.to(kf_sc.dtype), kf_sc)
+        kf_T = torch.where(new_kf, T_WCf, kf_T)
+        cur = cur + new_kf.to(cur.dtype)
+        idx = torch.where(active, torch.where(new_kf, ident, idx_f2k), idx)
+        prev_T_WC = torch.where(active, T_WCf, prev_T_WC)
+        feat_last = torch.where(active, feats_all[t], feat_last)
+        pos_last = torch.where(active, poss_all[t], pos_last)
+        halted = halted | (active & ~ok)
+
+        o_stats.append(torch.cat([stats, torch.stack([
+            new_kf.float(), frame_score.float(), active.float()])]))
+        o_T.append(T_WCf)
+        o_Xff.append(Xff)
+        o_Cff.append(Cff)
+        if capture_matches:
+            o_idx.append(idx_f2k)
+            o_valid.append(vmk)
+            o_Qk.append(Qk)
+
+    flush(torch.ones((), dtype=torch.bool, device=dev))
+    stack = lambda xs: torch.stack(xs) if capture_matches else None
+    return WindowOut(
+        hoststats=torch.stack(o_stats), T_WCf=torch.stack(o_T),
+        feats=feats_all, poss=poss_all, Xff=torch.stack(o_Xff),
+        Cff=torch.stack(o_Cff), idx_last=idx, idxs=stack(o_idx),
+        valids=stack(o_valid), Qks=stack(o_Qk), prev_T_WC=prev_T_WC,
+        feat_last=feat_last, pos_last=pos_last)
+
+
 class TrackerRunner:
     """Frame-to-keyframe tracking driver (fused path, ``system.py:402``)."""
 
@@ -272,11 +427,8 @@ class SLAMSystem:
             raise NotImplementedError(
                 f"runtime.backend_device (a second device for the backend) "
                 f"{_TODO}")
+        # frames per tracking dispatch (the windowed frontend of run())
         self.window = int(rt.get("tracking_window", 1))
-        if self.window > 1:
-            raise NotImplementedError(
-                f"runtime.tracking_window > 1 (the windowed driver) {_TODO}; "
-                "set runtime.tracking_window: 1")
         h, w = img_shape
         self.full_img_shape = (h, w)
         self.downsample = int(config.get("dataset", {}).get("img_downsample",
@@ -336,6 +488,8 @@ class SLAMSystem:
         self.state_lock = threading.Lock()
         self._backend_error: Optional[Exception] = None
         self.last_frame_idx = 0
+        # the next dataset frame after a checkpoint.load_state
+        self.resume_frame = 0
         self.reloc_pending = False
         self.current_frame: Optional[Frame] = None
         self.stats = {"skipped": 0, "keyframes": 0, "loop_closures": 0,
@@ -432,6 +586,93 @@ class SLAMSystem:
             return self.mode
 
         raise RuntimeError(f"invalid mode {self.mode}")
+
+    def dispatch_window(self, ids, imgs_np):
+        """Enqueue ``len(ids)`` frames (uint8 (h, w, 3) each) through the
+        windowed tracker in TRACKING mode (``system.py:818``) without
+        waiting for the device: the frames go up in one copy from pinned
+        memory, the chain and its store-row writes are enqueued, and the
+        returned handle is for ``consume_window``. Work enqueued in between
+        (the backend's) runs after the window on the stream."""
+        assert self.mode == Mode.TRACKING
+        kfs, tr = self.keyframes, self.tracker
+        W = len(ids)
+        assert len(kfs) + W < kfs.capacity, "keyframe buffer nearly full"
+        for fid, im in zip(ids, imgs_np):
+            self._check_frame_shape(fid, im)
+        host = torch.from_numpy(np.ascontiguousarray(np.stack(imgs_np)))
+        if self.device.type == "cuda":
+            imgs = host.pin_memory().to(self.device, non_blocking=True)
+        else:
+            imgs = host.to(self.device)
+        K = (self.K if self.K is not None
+             else torch.eye(3, device=self.device))
+        prev_T = (self.current_frame.T_WC if self.current_frame is not None
+                  else sim3.identity(device=self.device))
+        out = _track_window_body(
+            self.model_mod, self.params, self.model_cfg, tr.mcfg, tr.tcfg,
+            imgs, list(ids), tr.idx_f2k, prev_T, K,
+            len(kfs) - 1, kfs, self.downsample, tr.filtering_mode,
+            tr.filtering_score, self.use_calib, (kfs.h, kfs.w),
+            tr.intrinsics, capture_matches=self._reuse_consec)
+        tr.idx_f2k = out.idx_last
+        return out, list(ids), imgs_np, imgs
+
+    def process_window(self, ids, imgs_np) -> int:
+        """Track ``len(ids)`` frames as one window (``system.py:870``).
+        Returns the number of frames consumed: on a skip or failure the
+        prefix is committed, the system enters RELOC at the offending frame
+        and the caller goes on with the per-frame path."""
+        return self.consume_window(self.dispatch_window(ids, imgs_np))
+
+    def consume_window(self, pending) -> int:
+        """Read the window's stats (the one host wait of a window) and do
+        the host's bookkeeping (``system.py:877``)."""
+        out, ids, imgs_np, imgs = pending
+        kfs, tr = self.keyframes, self.tracker
+        hs = out.hoststats.cpu().numpy()
+        consumed = 0
+        for t in range(len(ids)):
+            if hs[t, 7] < 0.5:           # after the halt: never tracked
+                break
+            skipped = hs[t, 3] > 0.5 or hs[t, 4] > 0.5
+            tr.last_stats = {"match_frac": float(hs[t, 0]),
+                             "match_frac_k": float(hs[t, 1]),
+                             "unique_frac": float(hs[t, 2])}
+            new_kf = hs[t, 5] > 0.5
+            if new_kf:
+                kfs.n_size += 1
+                self.stats["keyframes"] += 1
+                self.backend_queue.append(kfs.n_size - 1)
+                kfs.uimg[kfs.n_size - 1] = self._to_uimg(imgs_np[t])
+                if self._reuse_consec:
+                    self._consec_match[kfs.n_size - 1] = (
+                        out.idxs[t], out.valids[t], out.Qks[t])
+            if self.metrics is not None:
+                self.metrics.log(
+                    event="track", frame=ids[t], new_kf=bool(new_kf),
+                    reloc=bool(skipped), n_kf=len(kfs),
+                    n_edges=self.factor_graph.n_edges,
+                    edges_dropped=self.factor_graph.edges_dropped,
+                    **tr.last_stats)
+            consumed += 1
+            self.stats["frames_tracking"] += 1
+            if skipped:
+                which = "Skipped" if hs[t, 3] > 0.5 else "Cholesky failed"
+                print(f"{which} frame {ids[t]}")
+                self.stats["skipped"] += 1
+                self.mode = Mode.RELOC
+                self.current_frame = Frame(
+                    frame_id=ids[t], img=imgs[t],
+                    uimg=self._to_uimg(imgs_np[t]), T_WC=out.T_WCf[t],
+                    X_canon=out.Xff[t], C=out.Cff[t], feat=out.feats[t],
+                    pos=out.poss[t], N=1, N_updates=1, K=self.K)
+                return consumed
+        self.current_frame = Frame(
+            frame_id=ids[consumed - 1], img=None, uimg=None,
+            T_WC=out.prev_T_WC, feat=out.feat_last, pos=out.pos_last, N=1,
+            N_updates=1, K=self.K)
+        return consumed
 
     def check_invariants(self):
         """Runtime checks of the store and the graph (``system.py:938``);
@@ -611,16 +852,23 @@ class SLAMSystem:
         Each frame is resized (``io.image.resize_img`` to
         ``dataset.img_size``), made (``make_frame`` on its uint8 pixels) and
         processed. With ``single_thread`` the backend is drained after every
-        frame, which makes a run deterministic; otherwise the backend runs in
-        a daemon thread and each ``process_frame`` and ``backend_step``
-        holds ``state_lock``. At the end the backend is drained, the mode
-        becomes ``TERMINATED``, the thread is joined and the deferred edge
-        gates are flushed. ``start_frame`` skips frames already processed;
-        ``progress`` prints the frames/s every 30 frames."""
-        if checkpoint_path or checkpoint_every:
-            raise NotImplementedError(
-                "run(checkpoint_path=, checkpoint_every=): slam/checkpoint.py "
-                "is not ported yet; see ROADMAP.md queue 1 item 4")
+        frame, which makes a run deterministic, and with a
+        ``tracking_window`` W > 1 the frames go W at a time through the
+        windowed tracker while the system is TRACKING and W frames and W
+        keyframe rows are left (``system.py:1206``): the queued keyframes'
+        retrieval prep is enqueued first, then the window, then the backend
+        is drained (its work queues behind the window on the stream), then
+        the window's stats are read. Otherwise the backend runs in a daemon
+        thread and each ``process_frame`` and ``backend_step`` holds
+        ``state_lock`` (frame by frame, as the JAX package does). At the end
+        the backend is drained, the mode becomes ``TERMINATED``, the thread
+        is joined and the deferred edge gates are flushed.
+
+        ``start_frame`` skips frames already processed (a resumed run starts
+        at ``resume_frame``); with ``checkpoint_path`` and
+        ``checkpoint_every`` N the state is saved (``checkpoint.save_state``)
+        each time the frame count passes a multiple of N; ``progress``
+        prints the frames/s every 30 frames."""
         if viewer is not None:
             raise NotImplementedError(
                 "run(viewer=): the live viewer is not ported yet; see "
@@ -634,7 +882,8 @@ class SLAMSystem:
             thread.start()
         try:
             self._run_frames(dataset, int(start_frame), n, progress,
-                             thread is not None)
+                             thread is not None, checkpoint_path,
+                             int(checkpoint_every or 0))
             # drain; in threaded mode wait until the thread has nothing
             # left to do between two steps (it holds the lock for a step)
             while thread is None and self.backend_step():
@@ -657,25 +906,45 @@ class SLAMSystem:
         self.factor_graph.flush()
         return self.stats
 
-    def _run_frames(self, dataset, i, n, progress, threaded):
+    def _run_frames(self, dataset, i, n, progress, threaded,
+                    checkpoint_path=None, checkpoint_every=0):
         t0 = time.time()
+        W = self.window
+        load = lambda t: resize_img(dataset[t][1], dataset.img_size)["img_u8"]
         while i < n:
             i_prev = i
-            _, img = dataset[i]
-            frame = self.make_frame(
-                i, resize_img(img, dataset.img_size)["img_u8"])
-            if threaded:
-                self._check_backend_thread()
-                with self.state_lock:
-                    self.process_frame(frame)
-            else:
-                self.process_frame(frame)
-                while self.backend_step():
+            if (W > 1 and not threaded and self.mode == Mode.TRACKING
+                    and i + W <= n
+                    and len(self.keyframes) + W < self.keyframes.capacity):
+                ids = list(range(i, i + W))
+                self.backend_prefetch()
+                pending = self.dispatch_window(ids, [load(t) for t in ids])
+                # one flush for the whole drain: the earlier windows' gate
+                # readbacks, not this window's keyframes (queued at consume)
+                self.factor_graph.flush()
+                while self.backend_step(flush_deferred=False):
                     pass
-            i += 1
+                i += self.consume_window(pending)
+            else:
+                frame = self.make_frame(i, load(i))
+                if threaded:
+                    self._check_backend_thread()
+                    with self.state_lock:
+                        self.process_frame(frame)
+                else:
+                    self.process_frame(frame)
+                    while self.backend_step():
+                        pass
+                i += 1
             self.last_frame_idx = i
             if progress and i // 30 > i_prev // 30:
                 print(f"FPS: {i / (time.time() - t0):.2f}")
+            if (checkpoint_path and checkpoint_every
+                    and i // checkpoint_every > i_prev // checkpoint_every):
+                from . import checkpoint
+
+                with self.state_lock:
+                    checkpoint.save_state(checkpoint_path, self)
 
     def _backend_loop(self):
         """The backend thread of ``run``: one ``backend_step`` at a time

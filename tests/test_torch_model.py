@@ -139,3 +139,71 @@ def test_init_params_with_generator_is_seeded():
     out = tm.inference_symmetric(a, feat, pos, feat, pos, cfg)
     assert len(out) == 16
     assert all(torch.isfinite(v).all() for v in out.values())
+
+
+# -- released checkpoints -----------------------------------------------------
+
+CFG_FIELDS = ("enc_depth", "enc_embed_dim", "enc_num_heads", "dec_depth",
+              "dec_embed_dim", "dec_num_heads", "desc_dim", "patch_size",
+              "feature_dim", "last_dim", "layer_dims", "rope_base",
+              "img_size", "dtype")
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_jax_released_checkpoint_loads_bit_exact(name, tmp_path):
+    """A ``.pth`` that JAX's ``save_released_checkpoint`` writes gives the
+    port the config JAX's ``load_released_checkpoint`` reads and the
+    tensors of ``from_jax_params``, bit for bit."""
+    jcfg = jm.MASt3RConfig(**CONFIGS[name])
+    params = jax.device_get(jm.init_params(jax.random.PRNGKey(7), jcfg))
+    path = jconvert.save_released_checkpoint(params, jcfg,
+                                             tmp_path / "m.pth")
+    kw = dict(img_size=jcfg.img_size, dtype="float32")
+    jcfg2, _ = jconvert.load_released_checkpoint(path, **kw)
+    tcfg2, model = tconvert.load_released_checkpoint(path, device="cpu",
+                                                     **kw)
+    for f in CFG_FIELDS:
+        assert getattr(tcfg2, f) == getattr(jcfg2, f), f
+    ref = tconvert.from_jax_params(params)
+    sd = model.state_dict()
+    assert sorted(sd) == sorted(ref)
+    for k, v in ref.items():
+        assert torch.equal(sd[k], v), k
+
+
+def test_released_state_dict_keys():
+    """Keys the module does not hold are ignored, a file without
+    ``dec_blocks2`` duplicates ``dec_blocks``, a missing key raises."""
+    cfg = tm.MASt3RConfig(**CONFIGS["tiny"])
+    sd = tm.init_params(cfg, torch.Generator().manual_seed(3),
+                        device="cpu").state_dict()
+    keys = list(sd)
+    extra = dict(sd, mask_token=torch.zeros(1, 1, cfg.dec_embed_dim))
+    got = tconvert.released_state_dict(extra, keys)
+    assert list(got) == keys and all(torch.equal(got[k], sd[k].float())
+                                     for k in keys)
+    one = {k: v for k, v in sd.items() if not k.startswith("dec_blocks2.")}
+    got = tconvert.released_state_dict(one, keys)
+    k2 = "dec_blocks2.0.attn.qkv.weight"
+    assert torch.equal(got[k2], sd["dec_blocks.0.attn.qkv.weight"])
+    with pytest.raises(KeyError, match="lacks 1 of"):
+        tconvert.released_state_dict(
+            {k: v for k, v in sd.items() if k != "enc_norm.bias"}, keys)
+    with pytest.raises(ValueError, match="output_mode"):
+        tconvert.parse_model_args("AsymmetricMASt3R(output_mode='pts3d')")
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_port_released_checkpoint_loads_in_jax_bit_exact(name, tmp_path):
+    jcfg, tcfg, params, model = _models(name, seed=9)
+    path = tconvert.save_released_checkpoint(model, tcfg, tmp_path / "t.pth")
+    jcfg2, params2 = jconvert.load_released_checkpoint(
+        path, img_size=jcfg.img_size, dtype="float32")
+    for f in CFG_FIELDS:
+        assert getattr(jcfg2, f) == getattr(jcfg, f), f
+    for (k, va), vb in zip(jax.tree_util.tree_leaves_with_path(params),
+                           jax.tree_util.tree_leaves(params2)):
+        np.testing.assert_array_equal(np.asarray(va), np.asarray(vb),
+                                      err_msg=jax.tree_util.keystr(k))
+    assert tconvert.model_args_string(tcfg) == jconvert.model_args_string(
+        jcfg)

@@ -299,3 +299,45 @@ def test_init_retrieval_params_shapes_and_seed():
                                    codebook_size=40, device="cpu")
     assert torch.equal(p["centroids"], q["centroids"])
     assert abs(float(p["projector"]["w"].std()) - 32 ** -0.5) < 0.02
+
+
+@pytest.mark.parametrize("postwhiten,wrapped", [(True, True), (False, False)])
+def test_convert_retrieval_checkpoint_equals_jax(tmp_path, postwhiten,
+                                                 wrapped):
+    """A seeded retrieval ``.pth`` in the released layout and a codebook
+    pickle (the released nesting, or the bare array) give equal arrays
+    through both converters."""
+    import pickle
+
+    tree, _, _ = _rparams(seed=4, postwhiten=postwhiten)
+    t = lambda a: torch.from_numpy(np.asarray(a))
+    sd = {"prewhiten.m": t(tree["prewhiten"]["m"])[None],
+          "prewhiten.p": t(tree["prewhiten"]["p"]),
+          "projector.weight": t(tree["projector"]["w"].T),
+          "projector.bias": t(tree["projector"]["b"])}
+    if postwhiten:
+        sd.update({"postwhiten.m": t(tree["postwhiten"]["m"])[None],
+                   "postwhiten.p": t(tree["postwhiten"]["p"])})
+    torch.save({"model": sd}, tmp_path / "r.pth")
+    cb = tree["centroids"]
+    with open(tmp_path / "c.pkl", "wb") as f:
+        pickle.dump({"train_codebook": {"codebook": {"centroids": cb}}}
+                    if wrapped else cb, f)
+    pj = jret.convert_retrieval_checkpoint(tmp_path / "r.pth",
+                                           tmp_path / "c.pkl")
+    pt = tret.convert_retrieval_checkpoint(tmp_path / "r.pth",
+                                           tmp_path / "c.pkl", device="cpu")
+    assert sorted(pt) == sorted(pj)
+    assert (pt["postwhiten"] is None) == (not postwhiten)
+    leaves = [(k, n) for k in ("prewhiten", "projector", "postwhiten")
+              if pj[k] is not None for n in pj[k]]
+    for k, n in leaves:
+        assert pt[k][n].dtype == torch.float32
+        np.testing.assert_array_equal(pt[k][n].numpy(), pj[k][n],
+                                      err_msg=f"{k}.{n}")
+    np.testing.assert_array_equal(pt["centroids"].numpy(), pj["centroids"])
+    np.testing.assert_array_equal(pt["projector"]["w"].numpy(),
+                                  tree["projector"]["w"])
+    # the converted head runs the port's feature prep
+    feats = tret.prep_features(pt, torch.from_numpy(_frames(1)[0]), 16)
+    assert feats.shape == (16, DIM) and torch.isfinite(feats).all()

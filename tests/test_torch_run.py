@@ -264,21 +264,36 @@ def test_run_threaded_backend_failure_is_raised(scene, monkeypatch):
     assert st.mode == Mode.TERMINATED
 
 
-def test_run_max_frames_start_frame_and_unported_arguments(scene):
+def test_run_max_frames_start_frame_and_unported_arguments(scene, tmp_path):
+    """``max_frames`` / ``start_frame``; the checkpoint arguments write the
+    state (each time the frame count passes a multiple of
+    ``checkpoint_every``); the live viewer still raises."""
+    from mast3r_slam_tpu_torch.slam import checkpoint
+
     _, tp, frames = scene
     st = TSystem(tp, TCFG, _cfg(tconfig, "base"), (H, W),
                  keyframe_capacity=16, edge_capacity=64,
                  model_module=T_PNG_ORACLE, device="cpu")
     ds = _dataset(tdatasets, frames)
-    for kw in ({"checkpoint_path": "x", "checkpoint_every": 2},
-               {"viewer": object()}):
-        with pytest.raises(NotImplementedError, match="queue 1 item"):
-            st.run(ds, **kw)
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        st.run(ds, viewer=object())
     assert st.mode == Mode.INIT and not len(st.keyframes)
-    st.run(ds, max_frames=5, start_frame=2)
+    saved = []
+    save = checkpoint.save_state
+    ck = tmp_path / "state.npz"
+    try:
+        checkpoint.save_state = lambda path, system: saved.append(
+            (path, system.last_frame_idx)) or save(path, system)
+        st.run(ds, max_frames=5, start_frame=2, checkpoint_path=ck,
+               checkpoint_every=2)
+    finally:
+        checkpoint.save_state = save
+    assert saved == [(ck, 4)] and ck.exists()
     assert st.last_frame_idx == 5
     assert st.stats["frames_init"] + st.stats["frames_tracking"] == 3
     assert int(st.keyframes.dataset_idx[0]) == 2
+    data = np.load(ck)
+    assert int(data["last_frame_id"]) == 3 and int(data["kf_n_size"]) >= 1
 
 
 # -- the command line ---------------------------------------------------------
@@ -307,6 +322,11 @@ def _narrow_cli_model(monkeypatch):
         return net.eval().requires_grad_(False).store_compute_dtypes()
 
     monkeypatch.setattr(tmast3r, "init_params", init_from_jax)
+    _read_at_working_size(monkeypatch)
+
+
+def _read_at_working_size(monkeypatch):
+    """Both CLIs read their dataset's frames at the working size."""
     for mod in (jdatasets, tdatasets):
         load = mod.load_dataset
 
@@ -383,7 +403,72 @@ def test_cli_writes_the_jax_cli_outputs(tmp_path, monkeypatch, capsys):
     (["--host-id", "0"], 7),
 ])
 def test_cli_unported_flags_raise(flags, item):
+    """The flags of items 6 and 7 raise ``NotImplementedError`` naming
+    their ROADMAP.md item. Item 4's flags are ported: they pass the check
+    and the run fails where the JAX CLI fails, on the missing dataset (no
+    frame to read: ``IndexError``)."""
     viz = [] if flags == [] or flags[0] == "--serve-viz" else ["--no-viz"]
+    argv = ["--dataset", "nowhere", "--device", "cpu"] + viz + flags
+    if item == 4:
+        with pytest.raises(IndexError):
+            tcli.main(argv)
+        return
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md queue 1 item {item}"):
-        tcli.main(["--dataset", "nowhere", "--device", "cpu"] + viz + flags)
+        tcli.main(argv)
+
+
+def test_cli_checkpoint_state_resume_and_focal_match_jax(tmp_path,
+                                                        monkeypatch, capsys):
+    """Both CLIs with ``--checkpoint`` (a TINY ``.pth`` that JAX's
+    ``save_released_checkpoint`` writes), ``--estimate-calib``,
+    ``--save-state`` / ``--save-state-every`` over the first 2 frames, then
+    ``--resume`` for the rest: the same focal estimate (1e-4 relative), the
+    same resume point, stats and output files, and state files with the
+    same keys."""
+    import re
+
+    from mast3r_slam_tpu import cli as jcli
+    from mast3r_slam_tpu.models import convert as jconvert
+
+    _read_at_working_size(monkeypatch)
+    repo = pathlib.Path(__file__).parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "make_synth_dataset", repo / "scripts" / "make_synth_dataset.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    seq = synth.make(tmp_path / "synth_seq", n_frames=8, h=H, w=W)
+    net_j = jax.device_get(jmast3r.init_params(jax.random.PRNGKey(0), JCFG))
+    pth = jconvert.save_released_checkpoint(net_j, JCFG, tmp_path / "m.pth")
+    base = ["--dataset", str(seq), "--config",
+            str(repo / "configs" / "eval_no_calib.yaml"), "--no-viz",
+            "--checkpoint", str(pth), "--estimate-calib", "--save-as", "run"]
+    out = {}
+    for tag, main, extra in (("j", jcli.main, []),
+                             ("t", tcli.main, ["--device", "cpu"])):
+        work = tmp_path / tag
+        work.mkdir()
+        monkeypatch.chdir(work)
+        main(base + extra + ["--max-frames", "2", "--save-state", "a.npz",
+                             "--save-state-every", "1"])
+        first = capsys.readouterr().out
+        main(base + extra + ["--resume", "a.npz", "--save-state", "b.npz"])
+        second = capsys.readouterr().out
+        out[tag] = (first, second, work)
+    (fj, sj, wj), (ft, s_t, wt) = out["j"], out["t"]
+    focal = lambda text: [float(v) for v in re.findall(
+        r"estimated focal:? (\S+) px", text)]
+    assert len(focal(ft)) == len(focal(s_t)) == 1
+    np.testing.assert_allclose(focal(ft) + focal(s_t), focal(fj) + focal(sj),
+                               rtol=1e-4)
+    resumed = lambda text: re.search(r"resumed SLAM state from \S+ (.*)",
+                                     text).group(1)
+    assert resumed(s_t) == resumed(sj) and "next frame 2" in resumed(s_t)
+    assert "loading checkpoint" in ft and "random weights" not in ft
+    stats = lambda text: re.findall(r"stats: (.*)", text)
+    assert stats(ft) == stats(fj) and stats(s_t) == stats(sj)
+    assert _tree(wt / "logs") == _tree(wj / "logs")
+    for name in ("a.npz", "b.npz"):
+        a, b = np.load(wj / name), np.load(wt / name)
+        assert sorted(a.files) == sorted(b.files), name
+        assert int(a["kf_n_size"]) == int(b["kf_n_size"]), name

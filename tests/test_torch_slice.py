@@ -477,10 +477,14 @@ def test_relocalization_success_matches_jax(fixture):
 
 
 def test_left_out_parts_raise():
+    """``tpu_fast_config()`` as shipped builds (the windowed frontend,
+    ``tests/test_torch_window.py``); a separate backend device and the
+    step-by-step tracker still raise."""
     cfg = tconfig.tpu_fast_config()
-    with pytest.raises(NotImplementedError, match="tracking_window"):
-        TSystem(None, TCFG, cfg, (H, W), model_module=toracle, device="cpu")
-    cfg["runtime"]["tracking_window"] = 1
+    shipped = TSystem(None, TCFG, cfg, (H, W), keyframe_capacity=16,
+                      model_module=toracle, device="cpu")
+    assert shipped.window == cfg["runtime"]["tracking_window"] == 8
+    assert shipped.mode == Mode.INIT
     # an empty retrieval tree means no retrieval, as in the JAX package
     assert TSystem(None, TCFG, cfg, (H, W), retrieval_params={},
                    keyframe_capacity=4, device="cpu").retrieval is None
