@@ -97,6 +97,26 @@ Phases (any failure exits non-zero and prints no result line):
    bit-equal), ``--save-state`` and ``--resume``. ``rope_qk`` is also held
    to its plain version at the window's encoder batch (8, 16, 768, 64).
 
+7. The separable search, the step-by-step tracker, the live viewer and
+   the CLI's renders: **separable** (the base run with
+   ``matching.separable_refine: true``: tracking and ``add_factors`` at
+   batch 2 through the ``refine_separable`` kernel, held to base's health
+   gates; ``refine_separable`` is held bit-equal to its plain version at
+   base's shape, r = 3 d = 5 and r = 1 d = 1, bf16 and int8, in phase 2),
+   **steps** (the base run with ``tracker.fused = False``: the fused run's
+   stats and keyframes, keyframe poses within 1e-4; the host syncs of one
+   of its tracked frames), **viewer** (``run()`` as the run_loop run with
+   ``LiveViewer(port=0, refresh_s=0)``, paused from the start: a ``/ctrl``
+   without the token refused, one step advances one frame; run_loop's
+   stats and poses; ``/scene`` equal to ``viz.build_scene`` on CPU copies
+   of the store; ``run()`` timed with the viewer beside run_loop), the
+   viewer's refresh at the loop run's 9 keyframes and at 256 keyframes (ms,
+   bytes read back, host syncs; none when no refresh is due, and a tracked
+   frame with the viewer attached keeps its one sync) and **cli_viz**
+   (``cli.main`` as the cli run without ``--no-viz`` and with
+   ``--serve-viz 0``: the four renders, or the HTML viewer and the
+   ``ImportError`` of the PNG renders where matplotlib is not installed).
+
 The loop run's final factor graph is also put through ``ba_edge_terms``,
 its plain version and the plain version in float64, and one more tracked
 frame of the tpu_fast run counts its host syncs (PyTorch's sync debug
@@ -423,6 +443,15 @@ def check_kernels(model_cfg, orc):
             raise AssertionError(f"refine_matches {label} r={r} d={d}: "
                                  f"{diff} points differ")
 
+    def separable_equal(D11, D21, p1, r, d, label):
+        ref = matching.refine_matches_separable_plain(D11, D21, p1, r, d)
+        got = matching.refine_matches_separable(D11, D21, p1, r, d,
+                                                grid_width=w)
+        diff = int((got != ref).any(-1).sum())
+        if diff:
+            raise AssertionError(f"refine_separable {label} r={r} d={d}: "
+                                 f"{diff} points differ")
+
     for dname, cast, esize in casts:
         D11 = cast(D[0:1]).contiguous()
         D21 = cast(D[1:2].reshape(1, n, -1)).contiguous()
@@ -440,6 +469,20 @@ def check_kernels(model_cfg, orc):
                 "window_gather.py:183 refine_matches_full_unfold, XLA)",
                 "mast3r_slam_tpu_torch/csrc/refine_matches.cu", plain_reps=3,
                 bound_ms_fp32_cores=ops / PEAK_OPS["fp32"] * 1e3)
+            # the separable search: 2 (2r+1) taps a level
+            separable_equal(D11, D21, p1i, r, d, dname)
+            ops = n * d * 2 * (2 * r + 1) * fdim * 2
+            rec("refine_separable", f"{dname} r={r} d={d} (1,196608)", 0.0,
+                lambda: matching.refine_matches_separable(
+                    D11, D21, p1i, r, d, grid_width=w),
+                lambda: matching.refine_matches_separable_plain(
+                    D11, D21, p1i, r, d),
+                None, n * fdim * esize * 2 + n * 8 * 2, ops, dname,
+                "mast3r_slam_tpu/ops/window_gather.py:374 "
+                "(refine_matches_separable with _axis_pass :352, XLA; run "
+                "by ops/matching.py:372 under separable_refine)",
+                "mast3r_slam_tpu_torch/csrc/refine_separable.cu",
+                plain_reps=3, bound_ms_fp32_cores=ops / PEAK_OPS["fp32"] * 1e3)
 
     # the same search from starts that try to break it, full size, every
     # point compared with the plain version
@@ -455,8 +498,10 @@ def check_kernels(model_cfg, orc):
             Ad, Qd = cast(A).contiguous(), cast(Q).contiguous()
             for r, d in ((1, 1), (3, 5)):
                 refine_equal(Ad, Qd, p1, r, d, f"{kind} {dname}")
-                log(f"refine_matches {kind} starts {dname} r={r} d={d}: "
-                    f"equal to the plain version at all {n} points")
+                separable_equal(Ad, Qd, p1, r, d, f"{kind} {dname}")
+                log(f"refine_matches and refine_separable {kind} starts "
+                    f"{dname} r={r} d={d}: equal to the plain versions at "
+                    f"all {n} points")
     check_backend_kernels(rec, X, D, n)
     check_loop_kernels(rec, model_cfg, D)
     torch.cuda.synchronize()
@@ -1097,13 +1142,13 @@ def solver_scaling(rec_log):
 
 def run_slam(preset_cfg, params, model_cfg, n_frames, kf_every, K=None,
              retrieval_params=None, edge_capacity=EDGE_CAPACITY,
-             reinit_after=0):
+             reinit_after=0, fused=True):
     """Drive ``n_frames`` through make_frame / process_frame and drain the
     backend after every frame, as ``SLAMSystem.run`` of the JAX package
     does; with retrieval, ``backend_prefetch()`` comes before every frame.
     Returns the system, the per-frame frontend wall times and one (wall ms,
     GN iterations, keyframes, edges on the device) per backend step (each
-    time ends in a sync)."""
+    time ends in a sync). ``fused=False``: the step-by-step tracker."""
     import numpy as np
     import torch
 
@@ -1121,6 +1166,7 @@ def run_slam(preset_cfg, params, model_cfg, n_frames, kf_every, K=None,
                         keyframe_capacity=16, edge_capacity=edge_capacity,
                         model_module=oracle_timing, device="cuda",
                         metrics=Metrics())
+    system.tracker.fused = fused
     rng = np.random.default_rng(1234)
     frames = [oracle_timing.make_frame_image(i, h, w, rng)
               for i in range(n_frames)]
@@ -1552,7 +1598,7 @@ def run_loop_phase(params, model_cfg, traj, ref, run_launches, every):
         tmp = pathlib.Path(tmp)
         (tmp / "frames").mkdir()
         write_frames(tmp / "frames", N_BASE, h, w)
-        systems = {}
+        systems, walls = {}, {}
         for label, single in (("run_loop", True),
                               ("run_loop_threaded", False)):
             cfg = base_config()
@@ -1568,7 +1614,7 @@ def run_loop_phase(params, model_cfg, traj, ref, run_launches, every):
             t0 = time.perf_counter()
             stats = system.run(dataset)
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
+            wall = walls[label] = (time.perf_counter() - t0) * 1e3
             launches = run_launches[label] = dict(_kernels.LAUNCHES)
             missing = sorted(k for k in every if launches[k] <= 0)
             if missing:
@@ -1626,6 +1672,7 @@ def run_loop_phase(params, model_cfg, traj, ref, run_launches, every):
                                  f"extent {extent}")
         log(f"run_loop exports: {files}; ate_rmse of the TUM file vs the "
             f"oracle trajectory {res} (gate 0.06 x extent {extent:.6f})")
+    return system, walls["run_loop"]
 
 
 def cli_phase(run_launches):
@@ -1984,6 +2031,308 @@ def cli_tpu_fast_phase(net, model_cfg, run_launches):
                 f"outputs {files}, launches {launches}")
 
 
+def _ctrl(base, query, token):
+    """POST ``/ctrl?query`` to a live viewer with ``token``; returns the
+    HTTP status."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"{base}/ctrl?{query}&t={token}",
+                                 method="POST")
+    try:
+        return urllib.request.urlopen(req, timeout=10).status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def _cpu_copy(keyframes, factor_graph):
+    """CPU copies of a store's rows and a graph's edges, for the plain
+    scene of ``viz.build_scene`` on the CPU."""
+    import types
+
+    from mast3r_slam_tpu_torch.slam.frame import KeyframeStore
+
+    n = len(keyframes)
+    kc = KeyframeStore(max(n, 1), keyframes.X.shape[1], 1, 1,
+                       (keyframes.h, keyframes.w), device="cpu")
+    kc.n_size = n
+    for name in ("T_WC", "X", "C", "N"):
+        getattr(kc, name)[:n] = getattr(keyframes, name)[:n].cpu()
+    kc.uimg[:n] = keyframes.uimg[:n]
+    e = factor_graph.n_edges
+    return kc, types.SimpleNamespace(n_edges=e, ii=factor_graph.ii[:e].cpu(),
+                                     jj=factor_graph.jj[:e].cpu())
+
+
+def viewer_phase(params, model_cfg, ref, ref_wall, run_launches, every):
+    """**viewer**: ``SLAMSystem.run`` over PNG files of the base frames (the
+    run_loop run's setting) with ``LiveViewer(port=0, refresh_s=0)``, in a
+    host thread, paused from the start: a ``/ctrl`` without the token is
+    refused; one step through ``/ctrl`` advances exactly one frame; then it
+    is resumed. Its stats and keyframe poses must equal the run_loop run's
+    (the viewer changes nothing), and ``GET /scene`` at the end, unpacked,
+    must equal ``viz.build_scene`` on CPU copies of the final store (the
+    count and colours equal, points within 1e-5). A second run with the
+    viewer is timed beside the run_loop run of this call."""
+    import pathlib
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mast3r_slam_tpu_torch import viz, viz_server
+    from mast3r_slam_tpu_torch.config import base_config
+    from mast3r_slam_tpu_torch.io import datasets
+    from mast3r_slam_tpu_torch.models import oracle_timing
+    from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.slam.system import SLAMSystem
+    from mast3r_slam_tpu_torch.utils.metrics import Metrics
+
+    h, w = model_cfg.img_size
+
+    def make():
+        cfg = base_config()
+        cfg["tracking"] = dict(cfg["tracking"], kf_every=KF_BASE)
+        cfg["single_thread"] = True
+        return SLAMSystem(params, model_cfg, cfg, (h, w),
+                          keyframe_capacity=16, edge_capacity=EDGE_CAPACITY,
+                          model_module=oracle_timing, device="cuda",
+                          metrics=Metrics())
+
+    ref_T = ref.keyframes.T_WC[:len(ref.keyframes)].cpu().numpy()
+
+    def same_as_ref(label, system, stats):
+        T = system.keyframes.T_WC[:len(system.keyframes)].cpu().numpy()
+        if (stats != ref.stats or T.shape != ref_T.shape
+                or not np.array_equal(T, ref_T)):
+            raise AssertionError(f"{label}: stats {stats}, keyframe poses "
+                                 f"{T} vs run_loop's {ref.stats}, {ref_T}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        write_frames(tmp, N_BASE, h, w)
+        system = make()
+        viewer = viz_server.LiveViewer(port=0, refresh_s=0.0).start()
+        base = f"http://127.0.0.1:{viewer.port}"
+        try:
+            refused = _ctrl(base, "pause=1", "no-token")
+            if refused != 403 or viewer.paused:
+                raise AssertionError(f"/ctrl without the token: {refused}")
+            if _ctrl(base, "pause=1", viewer.token) != 200:
+                raise AssertionError("/ctrl pause refused")
+            _kernels.reset_launch_counts()
+            box = {}
+
+            def body():
+                try:
+                    box["stats"] = system.run(datasets.RGBFiles(tmp),
+                                              viewer=viewer)
+                except BaseException as e:     # re-raised below
+                    box["error"] = e
+
+            thread = threading.Thread(target=body)
+            thread.start()
+            time.sleep(1.0)
+            held = system.last_frame_idx
+            _ctrl(base, "step=1", viewer.token)
+            t0 = time.perf_counter()
+            while system.last_frame_idx < 1 and time.perf_counter() - t0 < 60:
+                time.sleep(0.01)
+            time.sleep(1.0)
+            stepped = system.last_frame_idx
+            _ctrl(base, "toggle=1", viewer.token)
+            thread.join(timeout=300)
+            if thread.is_alive():
+                raise AssertionError("viewer run did not finish")
+            if "error" in box:
+                raise box["error"]
+            if (held, stepped) != (0, 1):
+                raise AssertionError(f"pause held at frame {held}, one step "
+                                     f"went to frame {stepped}")
+            launches = run_launches["viewer"] = dict(_kernels.LAUNCHES)
+            missing = sorted(k for k in every if launches[k] <= 0)
+            if missing:
+                raise AssertionError(f"viewer run never launched {missing}")
+            same_as_ref("viewer", system, box["stats"])
+            blob = urllib.request.urlopen(f"{base}/scene", timeout=10).read()
+        finally:
+            viewer.stop()
+        served = viz_server.unpack_scene(blob)
+        kc, fc = _cpu_copy(system.keyframes, system.factor_graph)
+        plain = viz.build_scene(kc, 1.5, viewer.max_points, fc)
+        err = (float(np.abs(served["pts"] - plain["pts"]).max())
+               if len(served["pts"]) == len(plain["pts"]) > 0 else None)
+        if (served["n_kf"] != len(system.keyframes) or err is None
+                or not err <= 1e-5
+                or not np.array_equal(served["cols"], plain["cols"])
+                or not np.array_equal(served["lcols"], plain["lcols"])):
+            raise AssertionError(f"/scene vs viz.build_scene on the CPU: "
+                                 f"{len(served['pts'])} / {len(plain['pts'])}"
+                                 f" points, max err {err}")
+        log(f"viewer: paused at frame {held}, one step to frame {stepped}, "
+            f"/ctrl without the token {refused}; stats and keyframe poses "
+            f"equal to run_loop's; /scene: {len(served['pts'])} points, "
+            f"{len(served['lpts'])} line ends, max abs err vs the CPU build "
+            f"{err}; launches {launches}")
+
+        # the same run() with a viewer refreshing after every frame, timed
+        system = make()
+        viewer = viz_server.LiveViewer(port=0, refresh_s=0.0).start()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = system.run(datasets.RGBFiles(tmp), viewer=viewer)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            viewer.stop()
+        same_as_ref("viewer (timed)", system, stats)
+        log(f"run() per frame over the {N_BASE} base frames: "
+            f"{wall / N_BASE:.3f} ms with the viewer refreshing after every "
+            f"frame, {ref_wall / N_BASE:.3f} ms without (run_loop, this "
+            f"call); last refresh {viewer.last_render}")
+
+
+def scene_cost(label, system, factor_graph=None):
+    """The live viewer's refresh on ``system``'s store: ms and bytes read
+    back, the first refresh (the colour cache filled) and a second one;
+    the host syncs of a refresh and of an update with no refresh due (gate:
+    none)."""
+    from mast3r_slam_tpu_torch import viz_server
+
+    viewer = viz_server.LiveViewer(port=0, refresh_s=0.0).start()
+    try:
+        out = {}
+        for run in ("first", "second"):
+            t0 = time.perf_counter()
+            viewer.update(system, force=True)
+            out[f"update_{run}_ms"] = (time.perf_counter() - t0) * 1e3
+            out[f"render_{run}"] = dict(viewer.last_render)
+        out["refresh_syncs_at"] = host_syncs_of(
+            lambda: viewer.update(system, force=True))
+        viewer.refresh_s = 3600.0
+        idle = host_syncs_of(lambda: viewer.update(system))
+        if idle:
+            raise AssertionError(f"{label}: an update with no refresh due "
+                                 f"waited for the device at {idle}")
+        out["not_due_syncs"] = 0
+    finally:
+        viewer.stop()
+    log(f"scene refresh at {len(system.keyframes)} keyframes ({label}): "
+        + json.dumps(out))
+
+
+def big_store_scene_cost(model_cfg, src):
+    """``scene_cost`` on a store of 256 keyframes filled from ``src``'s
+    rows (each copy moved along x), with a chain of 510 edges."""
+    import types
+
+    import torch
+
+    from mast3r_slam_tpu_torch.slam.frame import KeyframeStore
+
+    n, k = 256, len(src)
+    h, w = model_cfg.img_size
+    kfs = KeyframeStore(n, h * w, model_cfg.num_patches, 1, (h, w),
+                        device="cuda")
+    rows = torch.arange(n, device="cuda") % k
+    kfs.X.copy_(src.X[rows])
+    kfs.C.copy_(src.C[rows])
+    kfs.N.copy_(src.N[rows])
+    kfs.T_WC.copy_(src.T_WC[rows])
+    kfs.T_WC[:, 0] += torch.arange(n, device="cuda") * 0.05
+    for i in range(n):
+        kfs.set_uimg(i, src.uimg[i % k])
+    kfs.n_size = n
+    ii = torch.arange(n - 1, device="cuda", dtype=torch.int32)
+    fg = types.SimpleNamespace(n_edges=2 * (n - 1), ii=torch.cat([ii, ii + 1]),
+                               jj=torch.cat([ii + 1, ii]))
+    system = types.SimpleNamespace(keyframes=kfs, factor_graph=fg,
+                                   last_frame_idx=n)
+    scene_cost("a store filled from base's rows", system)
+
+
+def cli_viz_phase(run_launches):
+    """``cli.main`` as the cli run (``configs/eval_no_calib.yaml``, random
+    weights, 8 of ``scripts/make_synth_dataset.py``'s frames) without
+    ``--no-viz`` and with ``--serve-viz 0``: the live viewer is served
+    during the run and stopped after it, and the renders are written. The
+    HTML viewer needs only numpy and comes first; the three PNGs need
+    matplotlib. Where matplotlib is installed all four files must be
+    written; where it is not, ``cli.main`` must raise the ``ImportError``
+    naming matplotlib (as the JAX CLI would) after writing the HTML."""
+    import ast
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import pathlib
+    import re
+    import tempfile
+
+    import torch
+
+    from mast3r_slam_tpu_torch import cli
+    from mast3r_slam_tpu_torch.ops import _kernels
+
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    repo = pathlib.Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        "make_synth_dataset", repo / "scripts" / "make_synth_dataset.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        seq = synth.make(tmp / "synth_seq", n_frames=16)
+        cwd = os.getcwd()
+        buf = io.StringIO()
+        _kernels.reset_launch_counts()
+        raised = None
+        t0 = time.perf_counter()
+        os.chdir(tmp)
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli.main(["--dataset", str(seq), "--config",
+                          str(repo / "configs" / "eval_no_calib.yaml"),
+                          "--max-frames", "8", "--save-as", "smoke",
+                          "--serve-viz", "0"])
+        except ImportError as e:
+            raised = e
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = run_launches["cli_viz"] = dict(_kernels.LAUNCHES)
+        printed = buf.getvalue()
+        for ln in printed.splitlines():
+            log(f"cli_viz | {ln}")
+        if has_mpl and raised is not None:
+            raise raised
+        if not has_mpl and (raised is None or raised.name != "matplotlib"):
+            raise AssertionError(f"cli_viz without matplotlib: {raised!r}")
+        out = tmp / "logs" / "smoke"
+        stats = ast.literal_eval(re.search(r"stats: (\{.*\})",
+                                           printed).group(1))
+        files = check_exports(out, "synth_seq", stats["keyframes"])
+        html = (out / "synth_seq_viewer.html").read_text()
+        pts = int(re.search(r"points: (\d+)", html).group(1))
+        pngs = [f"synth_seq{s}.png" for s in ("_traj", "_cloud",
+                                              "_keyframes")]
+        written = sorted(p.name for p in out.glob("synth_seq_*"))
+        expect = sorted(["synth_seq_viewer.html"] + (pngs if has_mpl else []))
+        if (written != expect or launches["rope_qk"] <= 0
+                or "live viewer: http://localhost:" not in printed
+                or not re.search(r"done: 8 frames in", printed)):
+            raise AssertionError(f"cli_viz: wrote {written}, expected "
+                                 f"{expect}; launches {launches}")
+        log(f"cli_viz phase: {wall:.3f} s, stats {stats}, outputs {files}, "
+            f"renders {written} (HTML viewer with {pts} points; matplotlib "
+            f"{'present' if has_mpl else f'absent: {raised}'}), launches "
+            f"{launches}")
+
+
 def main():
     import torch
 
@@ -2090,7 +2439,8 @@ def main():
 
     # the base presets: radius 3, dilation 5, 10 LM iterations; edges by
     # symmetric decode + match, bundle adjustment on every point
-    every = set(_kernels.SOURCES) - {"coarse_correlate"}   # loop run's
+    # every kernel but the loop run's and the separable search's
+    every = set(_kernels.SOURCES) - {"coarse_correlate", "refine_separable"}
     sys_b, _, launches_b = drive("base", base_config(), N_BASE, KF_BASE,
                                  every)
     split_b = stage_split(params, model_cfg, sys_b.tracker.mcfg,
@@ -2115,6 +2465,7 @@ def main():
     log("loop split (isolated, ms): " + json.dumps(loop_split(sys_l)))
     log("ba_edge_terms on the loop run's final graph: "
         + json.dumps(check_loop_graph(sys_l)))
+    scene_cost("the loop run", sys_l)
     loop_ref = {"stats": dict(sys_l.stats),
                 "edges": sys_l.factor_graph.n_edges}
     log(f"loop peak device memory: "
@@ -2171,7 +2522,8 @@ def main():
         del system
 
     # phase 5: the run loop, the exports and the command line
-    run_loop_phase(params, model_cfg, traj, sys_b, run_launches, every)
+    run_sys, run_wall = run_loop_phase(params, model_cfg, traj, sys_b,
+                                       run_launches, every)
     cli_phase(run_launches)
 
     # phase 6: the windowed frontend, checkpoints and resume, and the CLI
@@ -2179,6 +2531,56 @@ def main():
     window_phase(params, model_cfg, traj, fast_ref, loop_ref, rparams,
                  run_launches)
     cli_tpu_fast_phase(net, model_cfg, run_launches)
+
+    # phase 7: the separable search, the step-by-step tracker, the viewer
+    # and the CLI's renders
+    sep_cfg = base_config()
+    sep_cfg["matching"] = dict(sep_cfg["matching"], separable_refine=True)
+    _, _, launches_s = drive("separable", sep_cfg, N_BASE, KF_BASE,
+                             (every - {"refine_matches"})
+                             | {"refine_separable"})
+    if launches_s["refine_matches"]:
+        raise AssertionError(f"separable run launched the full search: "
+                             f"{launches_s}")
+    sys_s, _, _ = drive("steps", base_config(), N_BASE, KF_BASE, every,
+                        fused=False)
+    k = len(sys_b.keyframes)
+    dT = float((sys_s.keyframes.T_WC[:k] - sys_b.keyframes.T_WC[:k]).abs()
+               .max()) if len(sys_s.keyframes) == k else None
+    if (sys_s.stats != sys_b.stats or dT is None or not dT <= 1e-4
+            or not torch.equal(sys_s.keyframes.dataset_idx[:k],
+                               sys_b.keyframes.dataset_idx[:k])):
+        raise AssertionError(f"steps run: stats {sys_s.stats}, keyframe pose "
+                             f"diff {dT} vs the fused base run's "
+                             f"{sys_b.stats}")
+    log(f"steps run vs the fused base run: the same stats and keyframes, "
+        f"keyframe poses within {dT} (gate 1e-4)")
+    log("host syncs of one tracked frame, step path: " + json.dumps(
+        host_syncs(sys_s, N_BASE, oracle_timing.make_frame_image(
+            N_BASE, h, w))))
+    del sys_s
+    viewer_phase(params, model_cfg, run_sys, run_wall, run_launches, every)
+    big_store_scene_cost(model_cfg, sys_b.keyframes)
+    # a tracked frame with a viewer attached and no refresh due: the
+    # frame's own syncs only
+    from mast3r_slam_tpu_torch import viz_server
+
+    viewer = viz_server.LiveViewer(port=0, refresh_s=0.0).start()
+    try:
+        viewer.update(sys_b, force=True)
+        viewer.refresh_s = 3600.0
+        frame = sys_b.make_frame(N_BASE, oracle_timing.make_frame_image(
+            N_BASE, h, w))
+        with_viewer = host_syncs_of(lambda: (sys_b.process_frame(frame),
+                                             viewer.update(sys_b)))
+    finally:
+        viewer.stop()
+    if len(with_viewer) != 1:
+        raise AssertionError(f"a tracked frame with the viewer attached "
+                             f"waited at {with_viewer}")
+    log(f"host syncs of one tracked frame with the viewer attached and no "
+        f"refresh due: {with_viewer}")
+    cli_viz_phase(run_launches)
 
     for r in records:
         r["launches_by_run"] = {label: ln[r["name"]]

@@ -6,7 +6,7 @@
         [--retrieval-checkpoint retrieval.pth --codebook codebook.pkl] \
         [--save-state state.npz [--save-state-every N]] \
         [--resume state.npz] [--estimate-calib] [--max-frames N] \
-        [--device cuda|cpu]
+        [--serve-viz PORT [--serve-viz-host ADDR]] [--device cuda|cpu]
 
 Counterpart of ``mast3r_slam_tpu/cli.py``; it takes the same flags, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch versions of
@@ -18,24 +18,31 @@ turns on retrieval and loop closure. ``--save-state`` writes the SLAM state
 at the end of the run, and every N frames with ``--save-state-every``;
 ``--resume`` starts from such a file (``slam/checkpoint.py``).
 ``--estimate-calib`` estimates the focal length from the first frame's
-pointmap and runs the calibrated pipeline. Writes
+pointmap and runs the calibrated pipeline. ``--serve-viz`` serves the live
+viewer (``viz_server.LiveViewer``) during the run. Writes
 ``logs/[<save-as>/]<sequence>.txt`` (TUM trajectory), ``.ply`` (point
-cloud) and ``keyframes/<sequence>/*.png``.
+cloud) and ``keyframes/<sequence>/*.png``, and without ``--no-viz`` the
+renders ``<sequence>_viewer.html``, ``_traj.png``, ``_cloud.png`` and
+``_keyframes.png`` (the PNGs need matplotlib; the HTML viewer is written
+first and needs only numpy).
 
-Flags whose modules are not ported yet raise ``NotImplementedError`` naming
-their ROADMAP.md item: the live viewer and the offline renders (queue 1
-item 6, so pass ``--no-viz``), and the sharded BA backends and multi-host
-runs (item 7).
+``--ba-backend edge_sharded|schur`` solves dense when at most one GPU is
+visible, as the JAX CLI does on one device. What needs more than one
+device raises ``NotImplementedError`` naming ROADMAP.md queue 1 item 7:
+those backends with several GPUs visible, and multi-host runs
+(``--coordinator``, ``--host-id``, ``--num-hosts`` above 1).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import pathlib
 import sys
 import time
 
-_ITEM6 = "is not ported yet; see ROADMAP.md queue 1 item 6"
+import torch
+
 _ITEM7 = "is not ported yet; see ROADMAP.md queue 1 item 7"
 
 
@@ -76,28 +83,51 @@ def _parser():
 
 
 def _refuse_unported(args):
-    """Raise ``NotImplementedError`` for a flag whose module is not
-    ported."""
-    item7 = {"--ba-backend " + args.ba_backend:
-             args.ba_backend not in ("", "dense"),
-             "--coordinator": args.coordinator,
-             "--num-hosts": args.num_hosts is not None,
-             "--host-id": args.host_id is not None}
-    for flag, given in item7.items():
+    """Raise ``NotImplementedError`` for a multi-host run. ``--num-hosts 1``
+    (or ``SLAM_NUM_PROCESSES=1``) is a single-process run, as the JAX
+    package's ``init_distributed`` treats it."""
+    n_hosts = args.num_hosts
+    if n_hosts is None:
+        n_hosts = int(os.environ.get("SLAM_NUM_PROCESSES", "1"))
+    for flag, given in (("--coordinator", args.coordinator),
+                        ("--host-id", args.host_id is not None),
+                        ("--num-hosts above 1", n_hosts > 1)):
         if given:
-            raise NotImplementedError(f"{flag} {_ITEM7}")
-    if args.serve_viz is not None:
-        raise NotImplementedError(f"--serve-viz (the live viewer) {_ITEM6}")
-    if not args.no_viz:
+            raise NotImplementedError(f"{flag} (a multi-host run) {_ITEM7}")
+
+
+def _ba_backend(cfg, device):
+    """The JAX CLI's device rule for a sharded ``parallel.ba_backend``: with
+    one device the dense solver runs; with several the port would have to
+    shard, which it cannot yet."""
+    backend = cfg.get("parallel", {}).get("ba_backend", "dense")
+    if backend == "dense":
+        return
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    if n_dev > 1:
         raise NotImplementedError(
-            f"the offline renders (viz.py) {_ITEM6}; pass --no-viz")
+            f"global BA {backend} over {n_dev} GPUs {_ITEM7}")
+    print(f"global BA: {backend} requested but only one device visible; "
+          "using the dense solver")
+
+
+def _renders(save_dir, seq_name, system):
+    """The offline renders of the JAX CLI (``cli.py:278``); the HTML viewer
+    first, since it needs no matplotlib."""
+    from . import viz
+
+    kfs, fg = system.keyframes, system.factor_graph
+    viz.export_html_viewer(kfs, save_dir / f"{seq_name}_viewer.html",
+                           factor_graph=fg)
+    viz.plot_trajectory(kfs, save_dir / f"{seq_name}_traj.png")
+    viz.render_pointcloud(kfs, save_dir / f"{seq_name}_cloud.png",
+                          factor_graph=fg)
+    viz.keyframe_mosaic(kfs, save_dir / f"{seq_name}_keyframes.png")
 
 
 def main(argv=None):
     args = _parser().parse_args(argv)
     _refuse_unported(args)
-
-    import torch
 
     from . import config as config_mod
     from ._device import resolve_device
@@ -190,6 +220,7 @@ def main(argv=None):
             print(f"estimated focal {f:.2f} px is implausible; staying in "
                   "the uncalibrated (ray-residual) pipeline")
 
+    _ba_backend(cfg, device)
     metrics = None
     if args.metrics:
         from .utils.metrics import Metrics
@@ -207,18 +238,29 @@ def main(argv=None):
               f"({len(system.keyframes)} keyframes, "
               f"{system.factor_graph.n_edges} edges, "
               f"next frame {start_frame})")
+    viewer = None
+    if args.serve_viz is not None:
+        from .viz_server import LiveViewer
+
+        viewer = LiveViewer(port=args.serve_viz,
+                            host=args.serve_viz_host).start()
+        print(f"live viewer: http://localhost:{viewer.port}/")
     run_kwargs = dict(max_frames=args.max_frames, progress=True,
                       start_frame=start_frame,
                       checkpoint_path=args.save_state or None,
-                      checkpoint_every=args.save_state_every)
+                      checkpoint_every=args.save_state_every, viewer=viewer)
     t0 = time.time()
-    if args.profile_dir:
-        from .utils.timing import ProfilerTrace
+    try:
+        if args.profile_dir:
+            from .utils.timing import ProfilerTrace
 
-        with ProfilerTrace(args.profile_dir):
+            with ProfilerTrace(args.profile_dir):
+                stats = system.run(dataset, **run_kwargs)
+        else:
             stats = system.run(dataset, **run_kwargs)
-    else:
-        stats = system.run(dataset, **run_kwargs)
+    finally:
+        if viewer is not None:
+            viewer.stop()
     elapsed = time.time() - t0
     n = len(dataset) if args.max_frames is None else min(args.max_frames,
                                                          len(dataset))
@@ -240,6 +282,8 @@ def main(argv=None):
                                    system.keyframes, 1.5)
         export.save_keyframes(save_dir / "keyframes" / seq_name,
                               dataset.timestamps, system.keyframes)
+        if not args.no_viz:
+            _renders(save_dir, seq_name, system)
         print(f"saved results under {save_dir}")
     return stats
 

@@ -104,7 +104,8 @@ class FactorGraphConfig(NamedTuple):
     Q_conf: float = 1.5
     min_match_frac: float = 0.1
     matcher: str = "iter_proj"  # or "dense" (ops/dense_matcher.py)
-    ba_backend: str = "dense"   # the sharded backends are not ported yet
+    ba_backend: str = "dense"   # "edge_sharded" / "schur": dense without a
+    #                             device mesh (ROADMAP.md queue 1 item 7)
 
 
 class RetrievalConfig(NamedTuple):

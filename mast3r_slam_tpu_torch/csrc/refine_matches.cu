@@ -46,86 +46,17 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "desc_search.cuh"
+
 namespace {
 
-// A block owns a PATCH_W x PATCH_H patch of the query grid and keeps TAPS
-// taps in flight per thread.
-constexpr int PATCH_W = 16;
-constexpr int PATCH_H = 8;
+using desc::PATCH_H;
+using desc::PATCH_W;
+using desc::Query;
+using desc::THREADS;
+
+// TAPS taps in flight per thread.
 constexpr int TAPS = 7;
-constexpr int THREADS = PATCH_W * PATCH_H;
-
-__device__ __forceinline__ float bf16_lo(unsigned x) {
-  return __uint_as_float(x << 16);
-}
-__device__ __forceinline__ float bf16_hi(unsigned x) {
-  return __uint_as_float(x & 0xffff0000u);
-}
-
-// A query descriptor in registers and its score against one row. The row
-// is F / 8 units: uint4 of 8 bf16 values, or uint2 of 8 int8 values.
-template <typename T, int F>
-struct Query;
-
-template <int F>
-struct Query<uint16_t, F> {
-  using Unit = uint4;
-  float q[F];
-  __device__ __forceinline__ void load(const Unit* src) {
-#pragma unroll
-    for (int p = 0; p < F / 8; ++p) {
-      Unit v = src[p];
-      q[8 * p + 0] = bf16_lo(v.x);
-      q[8 * p + 1] = bf16_hi(v.x);
-      q[8 * p + 2] = bf16_lo(v.y);
-      q[8 * p + 3] = bf16_hi(v.y);
-      q[8 * p + 4] = bf16_lo(v.z);
-      q[8 * p + 5] = bf16_hi(v.z);
-      q[8 * p + 6] = bf16_lo(v.w);
-      q[8 * p + 7] = bf16_hi(v.w);
-    }
-  }
-  __device__ __forceinline__ float score(const Unit* row) const {
-    float s = 0.0f;
-#pragma unroll
-    for (int p = 0; p < F / 8; ++p) {
-      const Unit v = row[p];
-      s = __fadd_rn(s, __fmul_rn(bf16_lo(v.x), q[8 * p + 0]));
-      s = __fadd_rn(s, __fmul_rn(bf16_hi(v.x), q[8 * p + 1]));
-      s = __fadd_rn(s, __fmul_rn(bf16_lo(v.y), q[8 * p + 2]));
-      s = __fadd_rn(s, __fmul_rn(bf16_hi(v.y), q[8 * p + 3]));
-      s = __fadd_rn(s, __fmul_rn(bf16_lo(v.z), q[8 * p + 4]));
-      s = __fadd_rn(s, __fmul_rn(bf16_hi(v.z), q[8 * p + 5]));
-      s = __fadd_rn(s, __fmul_rn(bf16_lo(v.w), q[8 * p + 6]));
-      s = __fadd_rn(s, __fmul_rn(bf16_hi(v.w), q[8 * p + 7]));
-    }
-    return s;
-  }
-};
-
-template <int F>
-struct Query<int8_t, F> {
-  using Unit = uint2;
-  int q[F / 4];
-  __device__ __forceinline__ void load(const Unit* src) {
-#pragma unroll
-    for (int p = 0; p < F / 8; ++p) {
-      Unit v = src[p];
-      q[2 * p + 0] = (int)v.x;
-      q[2 * p + 1] = (int)v.y;
-    }
-  }
-  __device__ __forceinline__ float score(const Unit* row) const {
-    int s = 0;
-#pragma unroll
-    for (int p = 0; p < F / 8; ++p) {
-      const Unit v = row[p];
-      s = __dp4a((int)v.x, q[2 * p + 0], s);
-      s = __dp4a((int)v.y, q[2 * p + 1], s);
-    }
-    return (float)s;
-  }
-};
 
 // One level of the search for one point: the (2r+1)^2 taps around (u0, v0)
 // at dilation d.
@@ -205,26 +136,9 @@ refine_kernel(const T* __restrict__ D11, const T* __restrict__ D21,
               int N, int grid_w, int radius, int dilation_max) {
   using Unit = typename Query<T, F>::Unit;
   constexpr int RU = F / 8;
-  const int tid = threadIdx.x;
   int b, local;
   bool valid;
-  if (grid_w > 0) {
-    const int grid_h = N / grid_w;
-    const int bx = (grid_w + PATCH_W - 1) / PATCH_W;
-    const int by = (grid_h + PATCH_H - 1) / PATCH_H;
-    b = blockIdx.x / (bx * by);
-    const int r = blockIdx.x - b * (bx * by);
-    const int byi = r / bx;
-    const int qx = (r - byi * bx) * PATCH_W + tid % PATCH_W;
-    const int qy = byi * PATCH_H + tid / PATCH_W;
-    valid = qx < grid_w && qy < grid_h;
-    local = qy * grid_w + qx;
-  } else {
-    const int per_item = (N + THREADS - 1) / THREADS;
-    b = blockIdx.x / per_item;
-    local = (blockIdx.x - b * per_item) * THREADS + tid;
-    valid = local < N;
-  }
+  desc::locate_query(N, grid_w, b, local, valid);
   const long long i = (long long)b * N + local;
   const Unit* img =
       reinterpret_cast<const Unit*>(D11) + (long long)b * H * W * RU;
@@ -251,14 +165,7 @@ template <typename T, int F>
 int launch_f(const void* D11, const void* D21, const int* p1, int* out, int B,
              int H, int W, int N, int grid_w, int radius, int dilation_max,
              cudaStream_t stream) {
-  long long blocks;
-  if (grid_w > 0) {
-    const int grid_h = N / grid_w;
-    blocks = (long long)B * ((grid_w + PATCH_W - 1) / PATCH_W) *
-             ((grid_h + PATCH_H - 1) / PATCH_H);
-  } else {
-    blocks = (long long)B * ((N + THREADS - 1) / THREADS);
-  }
+  const long long blocks = desc::query_blocks(B, N, grid_w);
   if (blocks == 0) return (int)cudaGetLastError();
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   refine_kernel<T, F><<<(unsigned)blocks, THREADS, 0, stream>>>(

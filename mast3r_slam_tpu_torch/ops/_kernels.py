@@ -36,6 +36,8 @@ SOURCES = {
                   [_P] * 5 + [_I] * 7 + [_F, _F, _P]),
     "refine_matches": ("refine_matches_launch",
                        [_P] * 4 + [_I] * 9 + [_P]),
+    "refine_separable": ("refine_separable_launch",
+                         [_P] * 4 + [_I] * 9 + [_P]),
     "gather_rows": ("gather_rows_launch", [_P, _P, _P, _I, _I, _I, _P]),
     "take_along": ("take_along_launch", [_P] * 6 + [_I] * 5 + [_P]),
     "gn_step": ("gn_step_launch",

@@ -9,7 +9,10 @@ kernels carry it on the GPU:
   of ``gradient.prep_rays_grad_padded``, which it reads with vector loads;
 * ``refine_matches`` -> ``csrc/refine_matches.cu`` (replaces
   ``refine_matches``, ``matching.py:189-231``, shipped as
-  ``window_gather.refine_matches_full_unfold``, ``window_gather.py:183``).
+  ``window_gather.refine_matches_full_unfold``, ``window_gather.py:183``);
+* ``refine_matches_separable`` -> ``csrc/refine_separable.cu`` (replaces
+  ``window_gather.refine_matches_separable``, ``window_gather.py:374``,
+  which ``match`` runs with ``separable_refine``).
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 PyTorch version beside it for CPU tensors; nothing else falls back. The
@@ -160,11 +163,19 @@ def _iter_proj_cuda(img, pts3d_norm, p_init, max_iter, lambda_init,
 # -- refine_matches ----------------------------------------------------------
 
 
+def _scores(cand, q):
+    """Descriptor scores of the candidates (..., k, f) against the queries
+    (..., f): the fp32 products summed over f in order, as the kernels sum
+    (bf16/int8 products are exact in fp32, so the two agree to the bit)."""
+    s = torch.zeros(cand.shape[:-1], dtype=torch.float32, device=cand.device)
+    for c in range(cand.shape[-1]):
+        s = s + cand[..., c].to(torch.float32) * q[..., c, None]
+    return s
+
+
 def refine_matches_plain(D11, D21, p1, radius: int = 3,
                          dilation_max: int = 5):
-    """Plain dilated window search; scores summed over f in order, as the
-    kernel does (bf16/int8 products are exact in fp32, so the two agree to
-    the bit)."""
+    """Plain dilated window search, the kernel's order of operations."""
     b, h, w, f = D11.shape
     n = D21.shape[1]
     flat = D11.reshape(b, h * w, f)
@@ -183,10 +194,7 @@ def refine_matches_plain(D11, D21, p1, radius: int = 3,
         vc = v.clamp(0, h - 1)
         idx = (vc * w + uc).reshape(b, n * k * k)
         cand = torch.gather(flat, 1, idx[..., None].expand(-1, -1, f))
-        cand = cand.reshape(b, n, k * k, f)
-        s = torch.zeros((b, n, k * k), dtype=torch.float32, device=D11.device)
-        for c in range(f):
-            s = s + cand[..., c].to(torch.float32) * q[..., c, None]
+        s = _scores(cand.reshape(b, n, k * k, f), q)
         s = torch.where(inside, s, torch.full_like(s, -math.inf))
         best = torch.argmax(s, dim=-1, keepdim=True)
         u0 = torch.gather(uc, -1, best)[..., 0]
@@ -209,32 +217,88 @@ def refine_matches(D11, D21, p1, radius: int = 3, dilation_max: int = 5,
     """
     if D11.device.type == "cpu":
         return refine_matches_plain(D11, D21, p1, radius, dilation_max)
-    if D11.dtype not in (torch.bfloat16, torch.int8):
-        raise ValueError(f"refine_matches: descriptors must be bf16 or int8, "
-                         f"got {D11.dtype}")
-    _kernels.check_cuda(D11, "refine_matches D11", D11.dtype, 4)
+    return _refine_cuda("refine_matches", D11, D21, p1, radius, dilation_max,
+                        grid_width)
+
+
+def refine_matches_separable_plain(D11, D21, p1, radius: int = 3,
+                                   dilation_max: int = 5):
+    """Plain separable search, the kernel's order of operations: for
+    d = dilation_max .. 1 a u-pass over the 2r+1 candidates
+    u0 + (j - r) d at v0, then a v-pass over v0 + (i - r) d at the new u0;
+    a candidate outside the image scores -inf, the first maximum wins (a
+    NaN counts as the maximum), the choice is clamped into the image. The
+    fixed coordinate is clamped for the reads (``match``'s starts are
+    inside the image)."""
     b, h, w, f = D11.shape
-    _kernels.check_cuda(D21, "refine_matches D21", D11.dtype, 3, f)
-    _kernels.check_cuda(p1, "refine_matches p1", torch.int32, 3, 2)
+    n = D21.shape[1]
+    flat = D11.reshape(b, h * w, f)
+    q = D21.to(torch.float32)
+    u0 = p1[..., 0].to(torch.int64)
+    v0 = p1[..., 1].to(torch.int64)
+    offs = torch.arange(-radius, radius + 1, device=D11.device)
+
+    def axis_pass(c0, fixed, d, along_u):
+        lim, lim_fixed = (w, h) if along_u else (h, w)
+        c = c0[..., None] + offs * d                       # (b, n, 2r+1)
+        cc = c.clamp(0, lim - 1)
+        fx = fixed.clamp(0, lim_fixed - 1)[..., None]
+        pix = (fx * w + cc) if along_u else (cc * w + fx)
+        cand = torch.gather(flat, 1, pix.reshape(b, -1)[..., None].expand(
+            -1, -1, f)).reshape(b, n, -1, f)
+        s = _scores(cand, q)
+        s = torch.where((c >= 0) & (c < lim), s, torch.full_like(s,
+                                                                 -math.inf))
+        best = torch.argmax(s, dim=-1)
+        return (c0 + (best - radius) * d).clamp(0, lim - 1)
+
+    for d in range(dilation_max, 0, -1):
+        u0 = axis_pass(u0, v0, d, True)
+        v0 = axis_pass(v0, u0, d, False)
+    return torch.stack([u0, v0], dim=-1).to(torch.int32)
+
+
+def refine_matches_separable(D11, D21, p1, radius: int = 3,
+                             dilation_max: int = 5, grid_width=None):
+    """Separable descriptor search (``window_gather.py:374``): 2 (2r+1)
+    candidates a level instead of (2r+1)^2; equal to ``refine_matches``
+    where the score peaks on the axes the passes walk. Arguments and
+    result as ``refine_matches``."""
+    if D11.device.type == "cpu":
+        return refine_matches_separable_plain(D11, D21, p1, radius,
+                                              dilation_max)
+    return _refine_cuda("refine_separable", D11, D21, p1, radius,
+                        dilation_max, grid_width)
+
+
+def _refine_cuda(kernel, D11, D21, p1, radius, dilation_max, grid_width):
+    """Checks and launch of the two descriptor-search kernels."""
+    if D11.dtype not in (torch.bfloat16, torch.int8):
+        raise ValueError(f"{kernel}: descriptors must be bf16 or int8, "
+                         f"got {D11.dtype}")
+    _kernels.check_cuda(D11, f"{kernel} D11", D11.dtype, 4)
+    b, h, w, f = D11.shape
+    _kernels.check_cuda(D21, f"{kernel} D21", D11.dtype, 3, f)
+    _kernels.check_cuda(p1, f"{kernel} p1", torch.int32, 3, 2)
     n = D21.shape[1]
     if D21.shape[0] != b or p1.shape[:2] != (b, n):
-        raise ValueError("refine_matches: batch/point counts disagree")
+        raise ValueError(f"{kernel}: batch/point counts disagree")
     if f not in (8, 16, 24, 32):
-        raise ValueError(f"refine_matches: descriptor width {f} not built "
+        raise ValueError(f"{kernel}: descriptor width {f} not built "
                          "(8, 16, 24 or 32)")
     if radius < 0:
-        raise ValueError(f"refine_matches: radius {radius} < 0")
+        raise ValueError(f"{kernel}: radius {radius} < 0")
     gw = 0 if grid_width is None else int(grid_width)
     if gw < 0 or (gw > 0 and n % gw):
-        raise ValueError(f"refine_matches: grid_width {grid_width} does not "
+        raise ValueError(f"{kernel}: grid_width {grid_width} does not "
                          f"divide the {n} queries")
     # a descriptor row is read as units of 8 values: 16 bytes (bf16), 8 (int8)
     unit = 8 * D11.element_size()
     if D11.data_ptr() % unit or D21.data_ptr() % unit or p1.data_ptr() % 8:
-        raise ValueError(f"refine_matches: descriptors must be {unit}-byte "
+        raise ValueError(f"{kernel}: descriptors must be {unit}-byte "
                          "aligned and p1 8-byte aligned")
     out = torch.empty((b, n, 2), dtype=torch.int32, device=p1.device)
-    _kernels.launch("refine_matches", _kernels.ptr(D11), _kernels.ptr(D21),
+    _kernels.launch(kernel, _kernels.ptr(D11), _kernels.ptr(D21),
                     _kernels.ptr(p1), _kernels.ptr(out), b, h, w, n, f,
                     int(radius), int(dilation_max),
                     int(D11.dtype == torch.int8), gw)
@@ -263,9 +327,6 @@ def match(X11, X21, D11, D21, idx_1_to_2_init=None, max_iter: int = 10,
     queries (a sub-grid needs ``idx_1_to_2_init``). Returns (idx (b, n)
     int64, valid (b, n, 1) bool) and, with ``subpixel``, p_sub (b, n, 2).
     """
-    if separable_refine:
-        raise NotImplementedError(
-            "separable_refine is not ported yet (ROADMAP.md, queue 1)")
     if payload is not None:
         raise NotImplementedError(
             "payload riding is a TPU layout workaround and is not ported")
@@ -333,10 +394,13 @@ def match(X11, X21, D11, D21, idx_1_to_2_init=None, max_iter: int = 10,
     if radius > 0:
         cast = (_quantize_int8 if refine_dtype == "int8"
                 else (lambda x: x.to(torch.bfloat16)))
-        p1i = refine_matches(cast(D11).contiguous(),
-                             cast(D21.reshape(b, n, -1)).contiguous(),
-                             p1i.contiguous(), radius, dilation_max,
-                             grid_width=wq)
+        # separable_refine: the axis-by-axis search (approximate; see
+        # refine_matches_separable)
+        refine = (refine_matches_separable if separable_refine
+                  else refine_matches)
+        p1i = refine(cast(D11).contiguous(),
+                     cast(D21.reshape(b, n, -1)).contiguous(),
+                     p1i.contiguous(), radius, dilation_max, grid_width=wq)
 
     idx = pixel_to_lin(p1i.to(torch.int64), w)
     if not subpixel:

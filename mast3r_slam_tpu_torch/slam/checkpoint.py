@@ -106,6 +106,7 @@ def load_state(path, system):
         if f"kf_{name}" in data:
             into(getattr(kf, name), f"kf_{name}")
     kf.uimg[:kf.n_size] = data["kf_uimg"][:kf.n_size]
+    kf.uimg_gen[:kf.n_size] += 1
 
     e = int(data["fg_n_edges"])
     if not fg.ensure_capacity(e):

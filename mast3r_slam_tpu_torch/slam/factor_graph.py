@@ -17,8 +17,11 @@ row, so no write needs the host to know how many rows were kept. The
 device keeps its own edge count (``n_edges_dev``) for the same reason:
 ``add_factors(defer=True)`` followed by a solve needs no host read.
 
-Not ported yet (raises ``NotImplementedError``; see ROADMAP.md): the
-sharded BA backends (``ba_backend`` other than ``"dense"``).
+``ba_backend`` ``"edge_sharded"`` and ``"schur"`` shard the solve over a
+device mesh in the JAX package and fall back to the dense solve without
+one (``factor_graph.py:604``, ``:658``). The port has no mesh yet
+(ROADMAP.md queue 1 item 7), so every backend solves dense, as the JAX
+package does on one device.
 """
 
 from __future__ import annotations
@@ -35,8 +38,6 @@ from .frame import KeyframeStore
 
 __all__ = ["FactorGraph", "FactorGraphConfig", "MatchingConfig",
            "constrain_all"]
-
-_TODO = "is not ported yet; see ROADMAP.md queue 1"
 
 
 @torch.no_grad()
@@ -202,10 +203,6 @@ class FactorGraph:
                  cfg: FactorGraphConfig, ba_cfg: BAConfig,
                  mcfg: MatchingConfig, K=None, downsample: int = 1,
                  model_module=mast3r):
-        if cfg.ba_backend != "dense":
-            raise NotImplementedError(
-                f"parallel.ba_backend={cfg.ba_backend!r} (sharded bundle "
-                f"adjustment) {_TODO}")
         self.device = keyframes.X.device
         self.downsample = downsample
         self.model_mod = model_module

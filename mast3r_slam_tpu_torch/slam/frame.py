@@ -110,7 +110,8 @@ class Frame:
             if mode == "best_score":
                 self.score = _score(C, score_fn)
             return
-        N_t = torch.tensor(self.N, dtype=torch.int32, device=X.device)
+        # a fill, not an upload: the host does not wait for the device
+        N_t = torch.full((), self.N, dtype=torch.int32, device=X.device)
         if mode == "best_score":
             Xn, Cn, Nn, self.score = fuse_pointmap(
                 mode, self.X_canon, self.C, N_t, X, C, self.score, score_fn)
@@ -147,6 +148,9 @@ class KeyframeStore:
         self.pos = z((capacity, num_patches, 2), torch.int64)
         self.score = z((capacity,), dtype)
         self.uimg = np.zeros((capacity, h, w, 3), np.float32)
+        # bumped at every write of a uimg row, so that a reader holding a
+        # copy of a row (the live viewer's colours) can tell it is stale
+        self.uimg_gen = np.zeros(capacity, np.int64)
         self.K = None
 
     def __len__(self):
@@ -163,18 +167,26 @@ class KeyframeStore:
 
     def set_frame(self, idx: int, frame: Frame):
         self.n_size = max(self.n_size, idx + 1)
-        self.dataset_idx[idx] = frame.frame_id
+        # the host integers as fills (an indexed assignment of a Python
+        # number uploads it and waits for the device)
+        self.dataset_idx[idx].fill_(frame.frame_id)
         self.T_WC[idx] = frame.T_WC
         self.X[idx] = frame.X_canon
         self.C[idx] = frame.C[..., 0]
-        self.N[idx] = frame.N
-        self.N_updates[idx] = frame.N_updates
+        self.N[idx].fill_(frame.N)
+        self.N_updates[idx].fill_(frame.N_updates)
         self.feat[idx] = frame.feat
         self.pos[idx] = frame.pos
         if frame.score is not None:
             self.score[idx] = frame.score
-        if frame.uimg is not None:
-            self.uimg[idx] = np.asarray(frame.uimg)
+        # a frame taken from this row (get_frame) carries a view of it
+        if frame.uimg is not None and not np.may_share_memory(
+                frame.uimg, self.uimg[idx]):
+            self.set_uimg(idx, frame.uimg)
+
+    def set_uimg(self, idx: int, uimg):
+        self.uimg[idx] = np.asarray(uimg)
+        self.uimg_gen[idx] += 1
 
     def get_frame(self, idx: int) -> Frame:
         return Frame(

@@ -1,9 +1,10 @@
 """SLAM system: the tracking frontend (per frame and windowed), the backend
 step and the mode machine.
 
-Counterpart of ``mast3r_slam_tpu/slam/system.py``: ``_track_gate_pre``
-(:78), ``_track_frame_body`` (:101), the fused path of ``TrackerRunner``
-(:442), ``SLAMSystem.make_frame`` / ``process_frame`` (:744, :764) with the
+Counterpart of ``mast3r_slam_tpu/slam/system.py``: ``_track_gate`` /
+``_track_gate_pre`` (:63, :78), ``_track_frame_body`` (:101), both paths of
+``TrackerRunner`` (the fused one, :442, and the step-by-step one, :497),
+``SLAMSystem.make_frame`` / ``process_frame`` (:744, :764) with the
 INIT, TRACKING and RELOC modes, ``backend_prefetch`` (:961) and
 ``backend_step`` (:993): every promoted keyframe is queued, gets its
 consecutive edge (from the tracker's match, or by a symmetric decode +
@@ -30,12 +31,12 @@ window, for the (W, 8) stats.
 ``single_thread`` the backend is drained after every frame (or window),
 otherwise it runs in a host thread beside the frontend, the two serialized
 by ``state_lock`` (both issue their work on the same CUDA stream). It can
-checkpoint the state every N frames (``slam/checkpoint.py``) and start
-from a resumed frame.
+checkpoint the state every N frames (``slam/checkpoint.py``), start from a
+resumed frame and feed a live viewer (``viz_server.LiveViewer``).
 
-Not in this slice (each raises ``NotImplementedError``; see ROADMAP.md):
-the step-by-step tracking path, a separate backend device, and ``run``'s
-live viewer.
+A backend on a second device (``runtime.backend_device`` naming one)
+raises ``NotImplementedError`` (ROADMAP.md queue 1 item 7); on one device
+the setting resolves to None and the run goes on, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from ..io.image import resize_img
 from ..lie import sim3
 from ..models import mast3r
 from ..ops import matching
+from ..parallel.backend_device import pick_backend_device
 from . import tracker as tracker_mod
 from .factor_graph import FactorGraph
 from .frame import Frame, KeyframeStore, Mode, _score, fuse_pointmap
@@ -82,6 +84,14 @@ def _track_match(model_mod, params, cfg, mcfg, feat_f, pos_f, feat_k, pos_k,
     flat = lambda a: a.reshape(hw, -1)
     return (idx[0], valid[0], flat(Xff), flat(C[0:1]), flat(Q[0:1]),
             flat(Xkf), flat(C[1:2]), flat(Q[1:2]), p_sub[0])
+
+
+def _track_gate(idx_f2k, valid_match_k, Qff, Qkf, Cf_avg, Ck_avg, C_conf,
+                Q_conf):
+    """The gate of the step-by-step path (``system.py:63``): the frame's
+    values gathered at the match indices, then ``_track_gate_pre``."""
+    return _track_gate_pre(idx_f2k, valid_match_k, Qff[idx_f2k, 0:1], Qkf,
+                           Cf_avg[idx_f2k], Ck_avg, C_conf, Q_conf)
 
 
 def _track_gate_pre(idx_f2k, valid_match_k, Qff_at, Qkf, Cf_at, Ck_avg,
@@ -324,7 +334,8 @@ def _track_window_body(model_mod, params, cfg, mcfg, tcfg, imgs, frame_ids,
 
 
 class TrackerRunner:
-    """Frame-to-keyframe tracking driver (fused path, ``system.py:402``)."""
+    """Frame-to-keyframe tracking driver (``system.py:402``): the fused path
+    by default, the step-by-step one with ``fused = False``."""
 
     def __init__(self, params, model_cfg, keyframes: KeyframeStore,
                  tcfg, mcfg, filtering_mode: str = "weighted_pointmap",
@@ -357,9 +368,9 @@ class TrackerRunner:
 
     def track(self, frame: Frame):
         """Returns (new_kf, try_reloc)."""
-        if not self.fused:
-            raise NotImplementedError(f"the step-by-step tracking path {_TODO}")
-        return self._track_fused(frame)
+        if self.fused:
+            return self._track_fused(frame)
+        return self._track_steps(frame)
 
     def _track_fused(self, frame: Frame):
         kfs = self.keyframes
@@ -411,6 +422,73 @@ class TrackerRunner:
             self.reset_idx()
         return bool(new_kf), False
 
+    def _track_steps(self, frame: Frame):
+        """Step-by-step tracking (``system.py:497``), the reference-shaped
+        path: the match, the frame's pointmap, the gate, the stats read,
+        the Gauss-Newton solve (the ``gn_step`` kernel), a read of its
+        failure flag, then the keyframe's fusion through ``Frame`` and
+        ``KeyframeStore.set_frame``. It waits for the device where the JAX
+        path does; the fused path is the fast one."""
+        kfs, tcfg = self.keyframes, self.tcfg
+        kf = kfs.last_keyframe()
+        idx_init = self.idx_f2k
+        (idx_f2k, valid_match_k, Xff, Cff, Qff, Xkf, Ckf, Qkf,
+         _) = _track_match(self.model_mod, self.params, self.model_cfg,
+                           self.mcfg, frame.feat[None], frame.pos[None],
+                           kf.feat[None], kf.pos[None],
+                           idx_init[None] if idx_init is not None else None,
+                           self.downsample)
+        self.idx_f2k = idx_f2k
+        frame.update_pointmap(Xff, Cff, self.filtering_mode,
+                              self.filtering_score)
+
+        Qk, valid_opt, stats = _track_gate(
+            idx_f2k, valid_match_k, Qff, Qkf, frame.get_average_conf(),
+            kf.get_average_conf(), tcfg.C_conf, tcfg.Q_conf)
+        match_frac, match_frac_k, unique_frac = stats.cpu().numpy()
+        self.last_stats = {"match_frac": float(match_frac),
+                           "match_frac_k": float(match_frac_k),
+                           "unique_frac": float(unique_frac)}
+        if match_frac < tcfg.min_match_frac:
+            print(f"Skipped frame {frame.frame_id}")
+            return False, True
+
+        Xf, Xk = frame.X_canon, kf.X_canon
+        img_size = (kfs.h, kfs.w)
+        if self.use_calib:
+            Xf = geometry.constrain_points_to_ray(img_size, Xf, self.K)
+            Xk = geometry.constrain_points_to_ray(img_size, Xk, self.K)
+        T_init = sim3.rel(kf.T_WC, frame.T_WC)
+        if not self.use_calib:
+            res = tracker_mod.opt_pose_ray_dist_sim3(
+                Xf[idx_f2k], Xk, T_init, Qk, valid_opt, tcfg)
+        else:
+            meas_k, valid_meas_k = tracker_mod.calib_measurements(
+                Xk, self.K, img_size, tcfg.depth_eps)
+            res = tracker_mod.opt_pose_calib_sim3(
+                Xf[idx_f2k], Xk, T_init, Qk, valid_opt, meas_k, valid_meas_k,
+                self.K, img_size, tcfg, self.intrinsics)
+        if bool(res.failed):
+            print(f"Cholesky failed {frame.frame_id}")
+            return False, True
+
+        T_CkCf = res.T_CkCf
+        frame.T_WC = sim3.mul(kf.T_WC, T_CkCf)
+        # the keyframe's points seen from the frame, into keyframe
+        # coordinates, fused into its row
+        kf.update_pointmap(sim3.act(T_CkCf, Xkf), Ckf, self.filtering_mode,
+                           self.filtering_score)
+        kfs.set_frame(len(kfs) - 1, kf)
+
+        if tcfg.kf_every:
+            new_kf = frame.frame_id % tcfg.kf_every == 0
+        else:
+            new_kf = min(match_frac_k, unique_frac) < tcfg.match_frac_thresh
+        if new_kf:
+            self.last_match = None   # the backend decodes the edge
+            self.reset_idx()
+        return bool(new_kf), False
+
 
 class SLAMSystem:
     """Frontend and backend with the reference's mode machine
@@ -422,11 +500,12 @@ class SLAMSystem:
                  metrics=None):
         self.device = resolve_device(device)
         rt = config.get("runtime", {})
-        if rt.get("backend_device", "none") not in (None, "none", "None", 0,
-                                                    False, ""):
+        spec = rt.get("backend_device", "none")
+        backend_dev = pick_backend_device(spec, self.device)
+        if backend_dev is not None:
             raise NotImplementedError(
-                f"runtime.backend_device (a second device for the backend) "
-                f"{_TODO}")
+                f"runtime.backend_device={spec!r} names {backend_dev}: a "
+                f"second device for the backend {_TODO} item 7")
         # frames per tracking dispatch (the windowed frontend of run())
         self.window = int(rt.get("tracking_window", 1))
         h, w = img_shape
@@ -644,7 +723,7 @@ class SLAMSystem:
                 kfs.n_size += 1
                 self.stats["keyframes"] += 1
                 self.backend_queue.append(kfs.n_size - 1)
-                kfs.uimg[kfs.n_size - 1] = self._to_uimg(imgs_np[t])
+                kfs.set_uimg(kfs.n_size - 1, self._to_uimg(imgs_np[t]))
                 if self._reuse_consec:
                     self._consec_match[kfs.n_size - 1] = (
                         out.idxs[t], out.valids[t], out.Qks[t])
@@ -868,11 +947,14 @@ class SLAMSystem:
         at ``resume_frame``); with ``checkpoint_path`` and
         ``checkpoint_every`` N the state is saved (``checkpoint.save_state``)
         each time the frame count passes a multiple of N; ``progress``
-        prints the frames/s every 30 frames."""
-        if viewer is not None:
-            raise NotImplementedError(
-                "run(viewer=): the live viewer is not ported yet; see "
-                "ROADMAP.md queue 1 item 6")
+        prints the frames/s every 30 frames.
+
+        ``viewer`` (``viz_server.LiveViewer``, ``system.py:1200``): its
+        pause gate runs before each frame or window, a paused run released
+        by a step takes the per-frame path (one frame, also at W > 1), its
+        ``update`` follows each frame or window (throttled, reading host
+        values only until a refresh is due) and is forced once at the
+        end."""
         n = len(dataset) if max_frames is None else min(max_frames,
                                                         len(dataset))
         thread = None
@@ -883,7 +965,7 @@ class SLAMSystem:
         try:
             self._run_frames(dataset, int(start_frame), n, progress,
                              thread is not None, checkpoint_path,
-                             int(checkpoint_every or 0))
+                             int(checkpoint_every or 0), viewer)
             # drain; in threaded mode wait until the thread has nothing
             # left to do between two steps (it holds the lock for a step)
             while thread is None and self.backend_step():
@@ -904,17 +986,23 @@ class SLAMSystem:
         self._check_backend_thread()
         # host bookkeeping catches up with the last deferred edge gates
         self.factor_graph.flush()
+        if viewer is not None:
+            viewer.update(self, force=True)
         return self.stats
 
     def _run_frames(self, dataset, i, n, progress, threaded,
-                    checkpoint_path=None, checkpoint_every=0):
+                    checkpoint_path=None, checkpoint_every=0, viewer=None):
         t0 = time.time()
         W = self.window
         load = lambda t: resize_img(dataset[t][1], dataset.img_size)["img_u8"]
         while i < n:
             i_prev = i
+            if viewer is not None:
+                viewer.wait_if_paused()
+            # a step released while paused advances one frame
+            stepping = viewer is not None and viewer.paused
             if (W > 1 and not threaded and self.mode == Mode.TRACKING
-                    and i + W <= n
+                    and not stepping and i + W <= n
                     and len(self.keyframes) + W < self.keyframes.capacity):
                 ids = list(range(i, i + W))
                 self.backend_prefetch()
@@ -937,6 +1025,8 @@ class SLAMSystem:
                         pass
                 i += 1
             self.last_frame_idx = i
+            if viewer is not None:
+                viewer.update(self)     # takes state_lock for its snapshot
             if progress and i // 30 > i_prev // 30:
                 print(f"FPS: {i / (time.time() - t0):.2f}")
             if (checkpoint_path and checkpoint_every

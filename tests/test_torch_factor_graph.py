@@ -335,14 +335,78 @@ def test_add_factors_dense_is_reloc_equals_jax(oracle_params):
 
 
 def test_left_out_backends_raise(oracle_params):
+    """An unknown matcher raises; the sharded BA backends build and, with
+    no device mesh, solve dense (``test_sharded_backends_solve_dense``)."""
     _, tp = oracle_params
     fg = _port_graph(tp, toracle, matcher="nearest")
     with pytest.raises(ValueError, match="matcher"):
         fg.add_factors([0], [1], min_match_frac=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfg.FactorGraph(None, None, fg.frames,
-                        FactorGraphConfig(ba_backend="schur"), BAConfig(),
-                        MatchingConfig())
+    for backend in ("schur", "edge_sharded"):
+        g = tfg.FactorGraph(None, None, fg.frames,
+                            FactorGraphConfig(ba_backend=backend), BAConfig(),
+                            MatchingConfig())
+        assert g.cfg.ba_backend == backend
+
+
+@pytest.mark.parametrize("backend", ["edge_sharded", "schur"])
+def test_sharded_backends_solve_dense(backend):
+    """``ba_backend`` ``edge_sharded`` / ``schur`` without a mesh: the JAX
+    graph with ``mesh=None`` solves dense (``factor_graph.py:604``), and so
+    does the port; the same poses as the JAX solve (1e-4, the tolerance of
+    ``test_growth_and_solve_from_jax_state``) and as the port's dense
+    solve (bit-equal)."""
+    key = jax.random.PRNGKey(3)
+    n_kf, P = 4, 96
+    pts_w = jax.random.normal(key, (P, 3)) + jnp.array([0.0, 0.0, 4.0])
+    T_true = [js.identity()]
+    for i in range(1, n_kf):
+        T_true.append(js.mul(T_true[-1], js.exp(
+            0.1 * jax.random.normal(jax.random.fold_in(key, i), (7,)))))
+    T_true = jnp.stack(T_true)
+    Xs = jax.vmap(lambda T: js.act(js.inv(T), pts_w))(T_true)
+    noise = 0.03 * jax.random.normal(jax.random.fold_in(key, 9), (n_kf, 7))
+    T_init = jax.vmap(js.retr)(T_true, noise.at[0].set(0.0))
+    idx = np.arange(P, dtype=np.int32)
+    pairs = [(i, i + 1) for i in range(n_kf - 1)] + [(0, n_kf - 1)]
+
+    kfs = JStore(8, P, 4, 8, (8, 12), donate=False)
+    kfs.n_size = n_kf
+    kfs.T_WC = kfs.T_WC.at[:n_kf].set(T_init)
+    kfs.X = kfs.X.at[:n_kf].set(Xs)
+    kfs.C = kfs.C.at[:n_kf].set(5.0)
+    kfs.N = kfs.N.at[:n_kf].set(1)
+    fj = jfg.FactorGraph(None, None, kfs, jfg.FactorGraphConfig(
+        edge_capacity=16, ba_backend=backend), jba.BAConfig(
+            max_iters=10, point_chunk=P), jfg.MatchingConfig(), mesh=None)
+
+    def port_graph(ba_backend):
+        tk = TStore(8, P, 4, 8, (8, 12), device="cpu")
+        tk.n_size = n_kf
+        tk.T_WC[:n_kf] = _t(T_init)
+        tk.X[:n_kf] = _t(Xs)
+        tk.C[:n_kf] = 5.0
+        tk.N[:n_kf] = 1
+        return tfg.FactorGraph(None, None, tk, FactorGraphConfig(
+            edge_capacity=16, ba_backend=ba_backend), BAConfig(max_iters=10),
+            MatchingConfig())
+
+    ft, fd = port_graph(backend), port_graph("dense")
+    for i, j in pairs:
+        for a, b in ((i, j), (j, i)):
+            fj._append_edge(a, b, jnp.asarray(idx), jnp.ones(P, bool),
+                            jnp.full(P, 4.0))
+            for g in (ft, fd):
+                g._append_edge(a, b, _t(idx).long(), torch.ones(P,
+                                                                dtype=bool),
+                               torch.full((P,), 4.0))
+    fj.solve_GN_rays()
+    ft.solve_GN_rays()
+    fd.solve_GN_rays()
+    got = ft.frames.T_WC[:n_kf].numpy()
+    np.testing.assert_allclose(got, np.asarray(fj.frames.T_WC[:n_kf]),
+                               atol=1e-4)
+    np.testing.assert_array_equal(got, fd.frames.T_WC[:n_kf].numpy())
+    assert np.abs(got - np.asarray(T_init)).max() > 1e-3   # it moved
 
 
 # -- growth and the solve from one carried-over state --------------------------

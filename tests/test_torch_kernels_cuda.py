@@ -15,7 +15,8 @@ retraction uses CUDA's sinf/expm1f); the fused BA system (``edge_system``)
 is held to 1e-5 of the largest entry of each output. ``rope_qk`` rounds every
 product and sum as the plain version does: bit-equal. ``refine_matches``
 adds exact products in the plain version's order (bf16) or exact integers
-(int8): equal at every point, on both of its paths. ``coarse_correlate``
+(int8): equal at every point, on both of its paths, and so must the
+separable search (``refine_separable``). ``coarse_correlate``
 runs on the tensor cores, which add in an order of their own: it is held to
 ``dense_matcher.check_coarse_correlate``'s tie rule (the chosen cell's plain
 score within one bf16 step of the row's plain maximum, the plain index where
@@ -591,6 +592,40 @@ def test_refine_matches_adversarial_starts(cuda, kind, dtype):
                                           grid_width=grid_width)
             assert _kernels.LAUNCHES["refine_matches"] == n0 + 1
             assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("kind,dtype", [
+    (k, t) for k in ("smooth", "random", "border", "nan")
+    for t in ("bf16", "int8") if (k, t) != ("nan", "int8")])   # no int8 NaN
+def test_refine_separable_matches_plain(cuda, kind, dtype):
+    """The separable search on the same inputs as
+    ``test_refine_matches_adversarial_starts``, at base's descriptor width
+    and both window sizes, and at every built width: equal at every point
+    to ``refine_matches_separable_plain``."""
+    from mast3r_slam_tpu_torch.ops import _kernels, matching
+    from mast3r_slam_tpu_torch.utils import kernel_cases
+
+    cast = (matching._quantize_int8 if dtype == "int8"
+            else (lambda x: x.to(torch.bfloat16)))
+    for gh, gw, h, w, f, cases in ((37, 53, 96, 128, 24,
+                                    ((1, 1), (3, 5), (2, 2))),
+                                   (9, 17, 20, 36, 8, ((3, 5),)),
+                                   (9, 17, 20, 36, 16, ((1, 3),)),
+                                   (9, 17, 20, 36, 32, ((2, 1),))):
+        A, Q, p1 = (torch.from_numpy(a).to(cuda) for a in
+                    kernel_cases.refine_case(kind, 2, gh, gw, h, w, f,
+                                             seed=5))
+        A, Q = cast(A).contiguous(), cast(Q).contiguous()
+        for r, d in cases:
+            ref = matching.refine_matches_separable_plain(A, Q, p1, r, d)
+            for grid_width in (gw, None):
+                n0 = _kernels.LAUNCHES["refine_separable"]
+                got = matching.refine_matches_separable(
+                    A, Q, p1, r, d, grid_width=grid_width)
+                assert _kernels.LAUNCHES["refine_separable"] == n0 + 1
+                assert torch.equal(got, ref), (f, r, d, grid_width)
+    with pytest.raises(ValueError, match="refine_separable"):
+        matching.refine_matches_separable(A.float(), Q, p1)
 
 
 @pytest.mark.parametrize("b,h,w,f,n,stride", [

@@ -1,5 +1,6 @@
-"""Port matcher (the plain versions behind the ``iter_proj`` and
-``refine_matches`` CUDA kernels, and ``match``) == the JAX matcher."""
+"""Port matcher (the plain versions behind the ``iter_proj``,
+``refine_matches`` and ``refine_separable`` CUDA kernels, and ``match``)
+== the JAX matcher."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -250,7 +251,99 @@ def test_match_raises_like_jax():
         tm.match(X11, X21, D11, D21, refine_dtype="fp8")
     with pytest.raises(ValueError, match="sub-grid"):
         tm.match(X11, X21[:, :, ::2], D11, D21[:, :, ::2])
-    with pytest.raises(NotImplementedError):
-        tm.match(X11, X21, D11, D21, separable_refine=True)
+    # separable_refine runs the axis-by-axis search, as in JAX
+    ij, vj = jm.match(*(jnp.asarray(a.numpy()) for a in (X11, X21, D11,
+                                                          D21)),
+                      separable_refine=True)
+    it, vt = tm.match(X11, X21, D11, D21, separable_refine=True)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
     with pytest.raises(NotImplementedError):
         tm.match(X11, X21, D11, D21, payload=X11)
+
+
+# -- the separable search (window_gather.refine_matches_separable) -------------
+
+_CASTS = {"bfloat16": (lambda a: jnp.asarray(a).astype(jnp.bfloat16),
+                       lambda a: torch.from_numpy(a).bfloat16()),
+          "int8": (lambda a: jnp.asarray(tm._quantize_int8(
+                       torch.from_numpy(a)).numpy()),
+                   lambda a: tm._quantize_int8(torch.from_numpy(a)))}
+
+
+def _planted_axis_peaks(seed=7, h=24, w=32, f=8):
+    """``tests/test_window_gather.py::test_refine_separable_exact_on_axis_
+    peaks``'s inputs, made with numpy: each query's descriptor planted on
+    its start row, a few pixels off its start, on a sparse grid so that no
+    window reaches another query's peak."""
+    rng = np.random.default_rng(seed)
+    vs, us = np.arange(3, h - 3, 6), np.arange(3, w - 3, 6)
+    v0, u_true = (a.ravel() for a in np.meshgrid(vs, us, indexing="ij"))
+    n = v0.size
+    u0 = np.clip(u_true + rng.integers(-2, 3, n), 2, w - 3)
+    D11 = 0.01 * rng.standard_normal((1, h, w, f)).astype(np.float32)
+    D21 = rng.standard_normal((1, n, f)).astype(np.float32)
+    D21 /= np.linalg.norm(D21, axis=-1, keepdims=True)
+    D11[0, v0, u_true] = D21[0]
+    p1 = np.stack([u0, v0], -1)[None].astype(np.int32)
+    return D11, D21, p1, u_true
+
+
+@pytest.mark.parametrize("refine_dtype", ["bfloat16", "int8"])
+def test_refine_separable_exact_on_planted_peaks(refine_dtype):
+    """Exactly JAX's result, the full window search's and the planted
+    positions."""
+    D11, D21, p1, u_true = _planted_axis_peaks()
+    cj, ct = _CASTS[refine_dtype]
+    pj = np.asarray(window_gather.refine_matches_separable(
+        cj(D11), cj(D21), jnp.asarray(p1), 2, 1))
+    pt = tm.refine_matches_separable_plain(ct(D11), ct(D21),
+                                           torch.from_numpy(p1), 2, 1)
+    full = tm.refine_matches_plain(ct(D11), ct(D21), torch.from_numpy(p1), 2,
+                                   1)
+    np.testing.assert_array_equal(pt.numpy(), pj)
+    np.testing.assert_array_equal(pt.numpy(), full.numpy())
+    np.testing.assert_array_equal(pt.numpy()[0, :, 0], u_true)
+    np.testing.assert_array_equal(pt.numpy()[0, :, 1], p1[0, :, 1])
+
+
+@pytest.mark.parametrize("refine_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("radius,dil", [(1, 1), (2, 2), (3, 5)])
+def test_refine_separable_random_descriptors_vs_jax(refine_dtype, radius,
+                                                    dil):
+    """Random descriptors and starts (borders included): int8 scores are
+    exact integers, so every index equals JAX's; bf16 scores are fp32 sums
+    whose order may differ from XLA's reduction, so at least 99% of the
+    queries must equal JAX's (all of them do at f = 8)."""
+    rng = np.random.default_rng(radius * 10 + dil)
+    h, w, f, n = 24, 32, 8, 400
+    D11 = rng.standard_normal((1, h, w, f)).astype(np.float32)
+    D11 /= np.linalg.norm(D11, axis=-1, keepdims=True)
+    D21 = rng.standard_normal((1, n, f)).astype(np.float32)
+    D21 /= np.linalg.norm(D21, axis=-1, keepdims=True)
+    p1 = np.stack([rng.integers(0, w, n), rng.integers(0, h, n)],
+                  -1)[None].astype(np.int32)
+    cj, ct = _CASTS[refine_dtype]
+    pj = np.asarray(window_gather.refine_matches_separable(
+        cj(D11), cj(D21), jnp.asarray(p1), radius, dil))
+    pt = tm.refine_matches_separable(ct(D11), ct(D21), torch.from_numpy(p1),
+                                     radius, dil).numpy()
+    same = (pt == pj).all(-1).mean()
+    assert same == 1.0 if refine_dtype == "int8" else same >= 0.99
+    assert ((pt >= 0) & (pt < [w, h])).all()
+
+
+@pytest.mark.parametrize("preset", ["base", "tpu_fast"])
+@pytest.mark.parametrize("refine_dtype", ["bfloat16", "int8"])
+def test_match_separable_refine_matches_jax(preset, refine_dtype):
+    """``match(separable_refine=True)`` as ``test_match_matches_jax``
+    holds the full search."""
+    X11, X21, D11, D21 = _pair_maps(h=32, w=48)
+    kw = dict(PRESETS[preset], refine_dtype=refine_dtype,
+              separable_refine=True)
+    ij, vj = jm.match(*(jnp.asarray(a) for a in (X11, X21, D11, D21)), **kw)
+    it, vt = tm.match(*(torch.from_numpy(a) for a in (X11, X21, D11, D21)),
+                      **kw)
+    assert np.mean(np.asarray(ij) != it.numpy()) <= 1e-3
+    assert np.mean(np.asarray(vj) != vt.numpy()) <= 1e-3
+    assert it.shape == ij.shape and vt.shape == vj.shape

@@ -267,16 +267,25 @@ def test_run_threaded_backend_failure_is_raised(scene, monkeypatch):
 def test_run_max_frames_start_frame_and_unported_arguments(scene, tmp_path):
     """``max_frames`` / ``start_frame``; the checkpoint arguments write the
     state (each time the frame count passes a multiple of
-    ``checkpoint_every``); the live viewer still raises."""
+    ``checkpoint_every``); a viewer is asked to wait before each frame and
+    updated after it and once more at the end (``tests/test_torch_viz.py``
+    runs the live viewer itself)."""
     from mast3r_slam_tpu_torch.slam import checkpoint
 
     _, tp, frames = scene
-    st = TSystem(tp, TCFG, _cfg(tconfig, "base"), (H, W),
-                 keyframe_capacity=16, edge_capacity=64,
-                 model_module=T_PNG_ORACLE, device="cpu")
+    make = lambda: TSystem(tp, TCFG, _cfg(tconfig, "base"), (H, W),
+                           keyframe_capacity=16, edge_capacity=64,
+                           model_module=T_PNG_ORACLE, device="cpu")
     ds = _dataset(tdatasets, frames)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        st.run(ds, viewer=object())
+    calls = []
+    viewer = types.SimpleNamespace(
+        paused=False, wait_if_paused=lambda: calls.append("wait"),
+        update=lambda system, force=False: calls.append(
+            ("update", system.last_frame_idx, force)))
+    make().run(ds, max_frames=2, viewer=viewer)
+    assert calls == ["wait", ("update", 1, False), "wait",
+                     ("update", 2, False), ("update", 2, True)]
+    st = make()
     assert st.mode == Mode.INIT and not len(st.keyframes)
     saved = []
     save = checkpoint.save_state
@@ -386,6 +395,48 @@ def test_cli_writes_the_jax_cli_outputs(tmp_path, monkeypatch, capsys):
     assert f"element vertex {len(rt)}" in ht
 
 
+def test_cli_renders_viewer_and_one_device_ba_backend(tmp_path, monkeypatch,
+                                                     capsys):
+    """Without ``--no-viz`` both CLIs write the same files: beside the
+    trajectory, PLY and keyframe images the four renders
+    ``<seq>_viewer.html``, ``_traj.png``, ``_cloud.png`` and
+    ``_keyframes.png``; both with ``--serve-viz 0`` (the live viewer served
+    during the run and stopped after it). The port also gets
+    ``--ba-backend schur``: on one device it says so and solves dense, as
+    the JAX CLI does on one device."""
+    pytest.importorskip("matplotlib")
+    from mast3r_slam_tpu import cli as jcli
+
+    _narrow_cli_model(monkeypatch)
+    repo = pathlib.Path(__file__).parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "make_synth_dataset", repo / "scripts" / "make_synth_dataset.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    seq = synth.make(tmp_path / "synth_seq", n_frames=8, h=H, w=W)
+    args = ["--dataset", str(seq), "--config",
+            str(repo / "configs" / "eval_no_calib.yaml"), "--max-frames",
+            "3", "--save-as", "run", "--serve-viz", "0"]
+    trees, printed = {}, {}
+    for tag, main, extra in (
+            ("j", jcli.main, []),
+            ("t", tcli.main, ["--device", "cpu", "--ba-backend", "schur"])):
+        work = tmp_path / tag
+        work.mkdir()
+        monkeypatch.chdir(work)
+        main(args + extra)
+        printed[tag] = capsys.readouterr().out
+        trees[tag] = _tree(work / "logs")
+    assert trees["t"] == trees["j"]
+    for suffix in ("_viewer.html", "_traj.png", "_cloud.png",
+                   "_keyframes.png"):
+        assert f"run/synth_seq{suffix}" in trees["t"]
+    for tag in "jt":
+        assert "live viewer: http://localhost:" in printed[tag]
+    assert ("global BA: schur requested but only one device visible; "
+            "using the dense solver") in printed["t"]
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--checkpoint", "m.pth"], 4),
     (["--retrieval-checkpoint", "r.pth"], 4),
@@ -396,25 +447,27 @@ def test_cli_writes_the_jax_cli_outputs(tmp_path, monkeypatch, capsys):
     (["--estimate-calib"], 4),
     (["--serve-viz", "0"], 6),
     ([], 6),                                  # the offline renders
-    (["--ba-backend", "edge_sharded"], 7),
+    (["--ba-backend", "edge_sharded"], 7),    # one device: dense
     (["--ba-backend", "schur"], 7),
-    (["--coordinator", "localhost:1234"], 7),
-    (["--num-hosts", "2"], 7),
-    (["--host-id", "0"], 7),
+    (["--num-hosts", "1"], 7),                # one process
+    (["--coordinator", "localhost:1234"], None),
+    (["--num-hosts", "2"], None),
+    (["--host-id", "0"], None),
 ])
 def test_cli_unported_flags_raise(flags, item):
-    """The flags of items 6 and 7 raise ``NotImplementedError`` naming
-    their ROADMAP.md item. Item 4's flags are ported: they pass the check
-    and the run fails where the JAX CLI fails, on the missing dataset (no
-    frame to read: ``IndexError``)."""
+    """Only the multi-host flags (item 7) raise ``NotImplementedError``
+    naming their ROADMAP.md item (``item`` None here). The flags of items
+    4 and 6 are ported, and item 7's on one device or one host run as the
+    JAX CLI runs them: they pass the check and the run fails where the JAX
+    CLI fails, on the missing dataset (no frame to read: ``IndexError``)."""
     viz = [] if flags == [] or flags[0] == "--serve-viz" else ["--no-viz"]
     argv = ["--dataset", "nowhere", "--device", "cpu"] + viz + flags
-    if item == 4:
+    if item is not None:
         with pytest.raises(IndexError):
             tcli.main(argv)
         return
     with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1 item {item}"):
+                       match="ROADMAP.md queue 1 item 7"):
         tcli.main(argv)
 
 

@@ -476,10 +476,16 @@ def test_relocalization_success_matches_jax(fixture):
     _compare_backend(sj, st)
 
 
-def test_left_out_parts_raise():
+def test_left_out_parts_raise(fixture):
     """``tpu_fast_config()`` as shipped builds (the windowed frontend,
-    ``tests/test_torch_window.py``); a separate backend device and the
-    step-by-step tracker still raise."""
+    ``tests/test_torch_window.py``); ``runtime.backend_device`` follows the
+    JAX package's rule on one device (``auto`` / True: None, the run goes
+    on; an index with no device behind it: ``ValueError``); the
+    step-by-step tracker runs (``tests/test_torch_steps.py``)."""
+    from mast3r_slam_tpu_torch.parallel.backend_device import (
+        pick_backend_device)
+
+    _, tp, _ = fixture
     cfg = tconfig.tpu_fast_config()
     shipped = TSystem(None, TCFG, cfg, (H, W), keyframe_capacity=16,
                       model_module=toracle, device="cpu")
@@ -488,16 +494,24 @@ def test_left_out_parts_raise():
     # an empty retrieval tree means no retrieval, as in the JAX package
     assert TSystem(None, TCFG, cfg, (H, W), retrieval_params={},
                    keyframe_capacity=4, device="cpu").retrieval is None
+    for spec in ("none", "None", "", None, 0, False, "auto", True):
+        assert pick_backend_device(spec, "cpu") is None
+    for spec in (1, "1", -1, 2):
+        with pytest.raises(ValueError,
+                           match="only 1 local devices"):
+            pick_backend_device(spec, "cpu")
     cfg["runtime"]["backend_device"] = 1
-    with pytest.raises(NotImplementedError, match="backend_device"):
+    with pytest.raises(ValueError, match="backend_device=1 but only 1"):
         TSystem(None, TCFG, cfg, (H, W), model_module=toracle, device="cpu")
-    cfg["runtime"]["backend_device"] = "none"
-    s = TSystem(None, TCFG, cfg, (H, W), keyframe_capacity=4,
+    cfg["runtime"]["backend_device"] = "auto"
+    s = TSystem(tp, TCFG, cfg, (H, W), keyframe_capacity=4,
                 model_module=toracle, device="cpu")
     assert s.backend_step() is False          # nothing queued: no work
     s.reloc_pending = True          # without retrieval a relocalization fails
     assert s.backend_step() is True
     assert s.stats["reloc_failed"] == 1 and not s.reloc_pending
     s.tracker.fused = False
-    with pytest.raises(NotImplementedError):
-        s.tracker.track(None)
+    for i in range(2):
+        s.process_frame(s.make_frame(i, toracle.make_frame_image(i, H, W)))
+    assert s.mode == Mode.TRACKING and s.stats["frames_tracking"] == 1
+    assert s.tracker.last_stats["match_frac"] > 0.5
