@@ -31,9 +31,14 @@ Phases (any failure exits non-zero and prints no result line):
    ``dense_matcher.check_coarse_correlate``'s tie rule at both shapes, to
    exact planted winners, and to rows whose answer is known (NaN query,
    all-equal row, a maximum of zero, a NaN cell; widths 8, 16 and 32; a row
-   count that is no multiple of a block's rows). ``refine_matches`` must
-   equal its plain version at every point, also from uniformly random
-   starts, starts on the image border and with NaNs planted, at full size.
+   count that is no multiple of a block's rows). ``refine_matches`` and
+   ``refine_separable`` must equal their plain versions at every point,
+   on every ``utils/kernel_cases`` kind at full size (smooth, uniformly
+   random and border starts, NaNs, exact ties, +-inf, values whose
+   products overflow and underflow fp32); the separable search is timed
+   on the oracle's starts at batch 1 and 2, also on smooth and random
+   starts (``by_starts_ms``), and both searches report registers a thread
+   and resident blocks an SM (from their ptxas lines).
    ``gn_step`` (the tracker's whole solve in one launch) is held to
    ``tracker.gn_solve_plain`` at N = 196,608 in both residual modes: a
    solve that converges, one with no valid match (fails in 1 iteration)
@@ -102,7 +107,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``matching.separable_refine: true``: tracking and ``add_factors`` at
    batch 2 through the ``refine_separable`` kernel, held to base's health
    gates; ``refine_separable`` is held bit-equal to its plain version at
-   base's shape, r = 3 d = 5 and r = 1 d = 1, bf16 and int8, in phase 2),
+   base's shape, r = 3 d = 5 and r = 1 d = 1, bf16 and int8, batch 1 and
+   2, in phase 2),
    **steps** (the base run with ``tracker.fused = False``: the fused run's
    stats and keyframes, keyframe poses within 1e-4; the host syncs of one
    of its tracked frames), **viewer** (``run()`` as the run_loop run with
@@ -273,6 +279,42 @@ def teleport_traj(n_good, n_bad, n_back=0):
     return torch.stack(Ts)
 
 
+def refine_occupancy():
+    """Registers a thread and resident 128-thread blocks an SM of the two
+    descriptor searches, from their ptxas lines: ``refine_matches`` by
+    (dtype, F), ``refine_separable`` by (dtype, F, radius) for the radii it
+    specialises (blocks from the register file: 256-register warp slots,
+    16,384 registers an SM partition, at most 2,048 threads an SM)."""
+    import re
+
+    from mast3r_slam_tpu_torch.ops import _kernels
+
+    occ = {}
+    for name, kernel in (("refine_matches", "refine_kernel"),
+                         ("refine_separable", "separable_kernel")):
+        _kernels.library(name)
+        text = (_kernels.BUILD_DIR / f"{name}.log").read_text()
+        entry = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                t = re.search(kernel + r"I([ta])Li(\d+)E(?:Li(n?\d+)E)?",
+                              entry)
+                regs = int(m.group(1))
+                warp = -(-regs * 32 // 256) * 256
+                key = (name, "int8" if t.group(1) == "a" else "bf16",
+                       int(t.group(2)))
+                if t.group(3) is not None:
+                    key += (int(t.group(3).replace("n", "-")),)
+                occ[key] = {"registers": regs,
+                            "blocks_per_sm": min(16384 // warp, 2048 // 128)}
+                entry = None
+    return occ
+
+
 # -- phase 2: kernels ----------------------------------------------------------
 
 
@@ -428,11 +470,17 @@ def check_kernels(model_cfg, orc):
 
     # 3. refine_matches: bf16 and int8, r=1 d=1 (tpu_fast), r=3 d=5 (base),
     # on the oracle's smooth starts
+    from mast3r_slam_tpu_torch.utils import kernel_cases
+
     p1i = p_iters[(1, 10)].to(torch.int32)
     p1i = torch.stack([p1i[..., 0].clamp(0, w - 1),
                        p1i[..., 1].clamp(0, h - 1)], -1).contiguous()
+    p1e = p_iters[(2, 10)].to(torch.int32)          # the edge batch's
+    p1e = torch.stack([p1e[..., 0].clamp(0, w - 1),
+                       p1e[..., 1].clamp(0, h - 1)], -1).contiguous()
     casts = (("bf16", lambda x: x.to(torch.bfloat16), 2),
              ("int8", matching._quantize_int8, 1))
+    occ = refine_occupancy()
 
     def refine_equal(D11, D21, p1, r, d, label):
         """The kernel against the plain version, point by point."""
@@ -468,33 +516,69 @@ def check_kernels(model_cfg, orc):
                 "mast3r_slam_tpu/ops/matching.py:189 (refine_matches; "
                 "window_gather.py:183 refine_matches_full_unfold, XLA)",
                 "mast3r_slam_tpu_torch/csrc/refine_matches.cu", plain_reps=3,
-                bound_ms_fp32_cores=ops / PEAK_OPS["fp32"] * 1e3)
-            # the separable search: 2 (2r+1) taps a level
-            separable_equal(D11, D21, p1i, r, d, dname)
-            ops = n * d * 2 * (2 * r + 1) * fdim * 2
-            rec("refine_separable", f"{dname} r={r} d={d} (1,196608)", 0.0,
-                lambda: matching.refine_matches_separable(
-                    D11, D21, p1i, r, d, grid_width=w),
-                lambda: matching.refine_matches_separable_plain(
-                    D11, D21, p1i, r, d),
-                None, n * fdim * esize * 2 + n * 8 * 2, ops, dname,
-                "mast3r_slam_tpu/ops/window_gather.py:374 "
-                "(refine_matches_separable with _axis_pass :352, XLA; run "
-                "by ops/matching.py:372 under separable_refine)",
-                "mast3r_slam_tpu_torch/csrc/refine_separable.cu",
-                plain_reps=3, bound_ms_fp32_cores=ops / PEAK_OPS["fp32"] * 1e3)
+                bound_ms_fp32_cores=ops / PEAK_OPS["fp32"] * 1e3,
+                **occ[("refine_matches", dname, fdim)])
 
-    # the same search from starts that try to break it, full size, every
-    # point compared with the plain version
-    from mast3r_slam_tpu_torch.utils import kernel_cases
-
-    for kind in ("random", "border", "nan"):
+    # the separable search: 2 (2r+1) taps a level, on the oracle's starts
+    # (the tracker's at batch 1, add_factors' at batch 2); each record also
+    # times it on smooth and on uniformly random starts at the same batch
+    # (by_starts_ms), every point of every input compared first
+    sep_inputs = {(1, "oracle"): (D[0:1], D[1:2].reshape(1, n, -1), p1i),
+                  (2, "oracle"): (D, D.flip(0).reshape(2, n, -1), p1e)}
+    for starts in ("smooth", "random"):
         A, Q, p1 = (torch.from_numpy(a).cuda() for a in
-                    kernel_cases.refine_case(kind, 1, h, w, h, w, D.shape[-1],
-                                            seed=3))
+                    kernel_cases.refine_case(starts, 1, h, w, h, w,
+                                             D.shape[-1], seed=3))
+        sep_inputs[(1, starts)] = (A, Q, p1)
+        # batch 2: the second item is the first one mirrored left to right
+        # (image, query grid and starts), the same kind of starts
+        mirror = lambda x: x.reshape(1, h, w, -1).flip(2).reshape(1, n, -1)
+        p1m = mirror(torch.stack([w - 1 - p1[..., 0], p1[..., 1]], -1))
+        sep_inputs[(2, starts)] = (torch.cat([A, A.flip(2)]),
+                                   torch.cat([Q, mirror(Q)]),
+                                   torch.cat([p1, p1m]).contiguous())
+    for dname, cast, esize in casts:
+        for r, d in ((1, 1), (3, 5)):
+            for b_ in (1, 2):
+                by_starts = {}
+                for starts in ("oracle", "smooth", "random"):
+                    A, Q, p1 = sep_inputs[(b_, starts)]
+                    D11, D21 = cast(A).contiguous(), cast(Q).contiguous()
+                    separable_equal(D11, D21, p1, r, d, f"{starts} {dname}")
+                    if starts != "oracle":
+                        by_starts[starts] = device_ms(
+                            lambda: matching.refine_matches_separable(
+                                D11, D21, p1, r, d, grid_width=w), reps=10)
+                A, Q, p1 = sep_inputs[(b_, "oracle")]
+                D11, D21 = cast(A).contiguous(), cast(Q).contiguous()
+                fdim = D11.shape[-1]
+                ops = b_ * n * d * 2 * (2 * r + 1) * fdim * 2
+                rec("refine_separable",
+                    f"{dname} r={r} d={d} oracle starts ({b_},{n})", 0.0,
+                    lambda: matching.refine_matches_separable(
+                        D11, D21, p1, r, d, grid_width=w),
+                    lambda: matching.refine_matches_separable_plain(
+                        D11, D21, p1, r, d),
+                    None, b_ * (n * fdim * esize * 2 + n * 8 * 2), ops,
+                    dname,
+                    "mast3r_slam_tpu/ops/window_gather.py:374 "
+                    "(refine_matches_separable with _axis_pass :353, XLA; "
+                    "run by ops/matching.py:372 under separable_refine)",
+                    "mast3r_slam_tpu_torch/csrc/refine_separable.cu",
+                    plain_reps=3 if b_ == 1 else 1,
+                    bound_ms_fp32_cores=ops / PEAK_OPS["fp32"] * 1e3,
+                    by_starts_ms=by_starts,
+                    **occ[("refine_separable", dname, fdim, r)])
+
+    # both searches from starts that try to break them, full size, every
+    # point compared with the plain versions
+    for kind in kernel_cases.REFINE_KINDS:
+        A, Q, p1 = sep_inputs.get((1, kind)) or (
+            torch.from_numpy(a).cuda() for a in kernel_cases.refine_case(
+                kind, 1, h, w, h, w, D.shape[-1], seed=3))
         for dname, cast, _ in casts:
-            if kind == "nan" and dname == "int8":
-                continue                      # int8 has no NaN
+            if dname == "int8" and kind in kernel_cases.BF16_ONLY_KINDS:
+                continue
             Ad, Qd = cast(A).contiguous(), cast(Q).contiguous()
             for r, d in ((1, 1), (3, 5)):
                 refine_equal(Ad, Qd, p1, r, d, f"{kind} {dname}")
@@ -2385,7 +2469,10 @@ def main():
     params = oracle_timing.make_params(net, orc)
 
     # phase 2: every kernel against its plain version
+    t0 = time.perf_counter()
     records = check_kernels(model_cfg, orc)
+    log(f"phase 2 (kernels against their plain versions): "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # phase 3: the main path, tpu_fast presets; frontend and backend
     run_launches = {}       # run label -> kernel launches of that run

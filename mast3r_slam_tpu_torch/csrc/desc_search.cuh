@@ -5,7 +5,9 @@
 // one descriptor row, which arrives as F / 8 vector units (uint4 of 8 bf16
 // values, uint2 of 8 int8 values). bf16: the fp32 sum of the products in
 // feature order, each multiply and add rounded on its own (a product of
-// two bf16 values is exact in fp32), as the plain PyTorch versions sum.
+// two bf16 values is exact in fp32), as refine_matches_plain sums;
+// score_fma rounds each multiply-add once, as
+// refine_matches_separable_plain sums (in float64, rounded to fp32 a step).
 // int8: the products and every partial sum are integers below 2^24, exact
 // in fp32 in any order, so the sum is taken with dp4a and converted once.
 //
@@ -69,6 +71,26 @@ struct Query<uint16_t, F> {
       s = __fadd_rn(s, __fmul_rn(bf16_hi(v.z), q[8 * p + 5]));
       s = __fadd_rn(s, __fmul_rn(bf16_lo(v.w), q[8 * p + 6]));
       s = __fadd_rn(s, __fmul_rn(bf16_hi(v.w), q[8 * p + 7]));
+    }
+    return s;
+  }
+  // The same sum as a chain of fused multiply-adds in feature order: each
+  // step rounds s + a * b once (the product of two bf16 values is exact),
+  // equal to score() wherever every product lies in fp32's normal range.
+  // __fmaf_rn stays fused under -fmad=false.
+  __device__ __forceinline__ float score_fma(const Unit* row) const {
+    float s = 0.0f;
+#pragma unroll
+    for (int p = 0; p < F / 8; ++p) {
+      const Unit v = row[p];
+      s = __fmaf_rn(bf16_lo(v.x), q[8 * p + 0], s);
+      s = __fmaf_rn(bf16_hi(v.x), q[8 * p + 1], s);
+      s = __fmaf_rn(bf16_lo(v.y), q[8 * p + 2], s);
+      s = __fmaf_rn(bf16_hi(v.y), q[8 * p + 3], s);
+      s = __fmaf_rn(bf16_lo(v.z), q[8 * p + 4], s);
+      s = __fmaf_rn(bf16_hi(v.z), q[8 * p + 5], s);
+      s = __fmaf_rn(bf16_lo(v.w), q[8 * p + 6], s);
+      s = __fmaf_rn(bf16_hi(v.w), q[8 * p + 7], s);
     }
     return s;
   }

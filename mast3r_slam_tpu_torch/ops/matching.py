@@ -221,6 +221,22 @@ def refine_matches(D11, D21, p1, radius: int = 3, dilation_max: int = 5,
                         grid_width)
 
 
+def _scores_fma(cand, q):
+    """``_scores`` with one rounding a step, as a fused multiply-add rounds:
+    each step is float32(float64(s) + float64(a) * float64(b)). A bf16 or
+    int8 product is exact in float64, and rounding the float64 sum to fp32
+    gives the single rounding of the exact sum (53 >= 2 x 24 + 2 bits: the
+    double rounding is innocuous), so this is the kernel's ``__fmaf_rn``
+    chain to the bit, overflow and underflow included. It equals
+    ``_scores`` wherever every product lies in fp32's normal range."""
+    s = torch.zeros(cand.shape[:-1], dtype=torch.float32, device=cand.device)
+    q64 = q.to(torch.float64)
+    for c in range(cand.shape[-1]):
+        s = (s.to(torch.float64) + cand[..., c].to(torch.float64)
+             * q64[..., c, None]).to(torch.float32)
+    return s
+
+
 def refine_matches_separable_plain(D11, D21, p1, radius: int = 3,
                                    dilation_max: int = 5):
     """Plain separable search, the kernel's order of operations: for
@@ -229,7 +245,7 @@ def refine_matches_separable_plain(D11, D21, p1, radius: int = 3,
     a candidate outside the image scores -inf, the first maximum wins (a
     NaN counts as the maximum), the choice is clamped into the image. The
     fixed coordinate is clamped for the reads (``match``'s starts are
-    inside the image)."""
+    inside the image). Scores by ``_scores_fma``, the kernel's FMA chain."""
     b, h, w, f = D11.shape
     n = D21.shape[1]
     flat = D11.reshape(b, h * w, f)
@@ -246,7 +262,7 @@ def refine_matches_separable_plain(D11, D21, p1, radius: int = 3,
         pix = (fx * w + cc) if along_u else (cc * w + fx)
         cand = torch.gather(flat, 1, pix.reshape(b, -1)[..., None].expand(
             -1, -1, f)).reshape(b, n, -1, f)
-        s = _scores(cand, q)
+        s = _scores_fma(cand, q)
         s = torch.where((c >= 0) & (c < lim), s, torch.full_like(s,
                                                                  -math.inf))
         best = torch.argmax(s, dim=-1)

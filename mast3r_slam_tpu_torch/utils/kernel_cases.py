@@ -8,7 +8,10 @@ from __future__ import annotations
 
 import numpy as np
 
-REFINE_KINDS = ("smooth", "random", "border", "nan")
+REFINE_KINDS = ("smooth", "random", "border", "nan", "ties", "inf",
+                "extreme")
+# kinds whose values an int8 cast cannot keep (NaN, 2^+-70)
+BF16_ONLY_KINDS = ("nan", "extreme")
 
 
 def _unit(a):
@@ -29,6 +32,31 @@ def smooth_descriptors(b, h, w, f, rng, noise=0.02):
     return _unit(field)
 
 
+def tie_descriptors(b, h, w, f, rng, palette=4):
+    """A (b, h, w, f) image whose pixels take one of ``palette`` vectors of
+    multiples of 1/8 in [-3/8, 3/8] (feature 0 in [1/8, 3/8]): every
+    product and sum is exact in any order and every window holds equal
+    scores."""
+    pal = rng.integers(-3, 4, (b, palette, f)).astype(np.float32) / 8.0
+    pal[..., 0] = rng.integers(1, 4, (b, palette)) / 8.0
+    pick = rng.integers(0, palette, (b, h, w))
+    return np.take_along_axis(pal[:, None, None], pick[..., None, None],
+                              axis=3)[..., 0, :]
+
+
+def extreme_descriptors(b, h, w, f, rng):
+    """Values of magnitude near 2^70 or 2^-70: each pixel all large, all
+    small, or mixed value by value, so products overflow fp32 (2^140),
+    underflow it (2^-140, subnormal or zero) or land near 1."""
+    cls = rng.integers(0, 3, (b, h, w, 1))
+    big = rng.integers(0, 2, (b, h, w, f)).astype(bool)
+    big = np.where(cls == 0, False, np.where(cls == 1, True, big))
+    e = np.where(big, 70, -70) + rng.integers(-2, 3, (b, h, w, f))
+    m = rng.uniform(1.0, 2.0, (b, h, w, f)) * rng.choice([-1.0, 1.0],
+                                                        (b, h, w, f))
+    return np.ldexp(m, e).astype(np.float32)
+
+
 def refine_case(kind, b, gh, gw, h, w, f, seed=0, jitter=4):
     """Inputs of ``refine_matches`` for a (gh, gw) query grid against an
     (h, w) descriptor image: D11 (b, h, w, f) and D21 (b, gh * gw, f)
@@ -42,21 +70,38 @@ def refine_case(kind, b, gh, gw, h, w, f, seed=0, jitter=4):
     * ``border``: every start on the image border, the corners included
       (most taps fall outside the image);
     * ``nan``: the smooth case with NaNs planted in single values of D11 and
-      of a few queries (a NaN score counts as the maximum)."""
+      of a few queries (a NaN score counts as the maximum);
+    * ``ties``: ``tie_descriptors``, each query its true pixel's vector:
+      equal exact scores inside every window (the first maximum wins);
+    * ``inf``: ``ties`` with +-inf planted in single values of D11, -inf in
+      feature 0 of some queries (every tap inside the image scores -inf:
+      tap 0 wins) and +inf in another feature of a few: scores +-inf and
+      NaN (inf x 0, inf - inf);
+    * ``extreme``: ``extreme_descriptors``, each query its true pixel's
+      values: products that overflow and underflow fp32, where a chain of
+      FMAs and a chain of separate roundings part (bf16 only, as ``nan``).
+
+    ``ties``, ``inf`` and ``extreme`` start as ``smooth`` does."""
     if kind not in REFINE_KINDS:
         raise ValueError(f"unknown refine case {kind!r}")
     rng = np.random.default_rng(seed)
     n = gh * gw
-    D11 = smooth_descriptors(b, h, w, f, rng)
+    if kind in ("ties", "inf"):
+        D11 = tie_descriptors(b, h, w, f, rng)
+    elif kind == "extreme":
+        D11 = extreme_descriptors(b, h, w, f, rng)
+    else:
+        D11 = smooth_descriptors(b, h, w, f, rng)
     # the query grid looks at the image through a shifted, scaled window
     qv, qu = np.meshgrid(np.arange(gh), np.arange(gw), indexing="ij")
     su, sv = (w - 1) / max(gw - 1, 1), (h - 1) / max(gh - 1, 1)
     tu = np.clip(np.round(qu * su * 0.9 + 0.05 * w), 0, w - 1).astype(int)
     tv = np.clip(np.round(qv * sv * 0.9 + 0.05 * h), 0, h - 1).astype(int)
     D21 = D11[:, tv, tu].reshape(b, n, f)
-    D21 = _unit(D21 + 0.05 * rng.standard_normal(D21.shape))
+    if kind not in ("ties", "inf", "extreme"):
+        D21 = _unit(D21 + 0.05 * rng.standard_normal(D21.shape))
     true = np.stack([tu, tv], -1).reshape(1, n, 2)
-    if kind in ("smooth", "nan"):
+    if kind not in ("random", "border"):
         p1 = true + rng.integers(-jitter, jitter + 1, (b, n, 2))
         p1 = np.clip(p1, 0, [w - 1, h - 1])
     elif kind == "random":
@@ -80,6 +125,16 @@ def refine_case(kind, b, gh, gw, h, w, f, seed=0, jitter=4):
         qhits = max(2, n // 1000)
         D21[rng.integers(0, b, qhits), rng.integers(0, n, qhits),
             rng.integers(0, f, qhits)] = np.nan
+    if kind == "inf":
+        D11 = D11.copy()
+        hits = max(4, (b * h * w) // 200)
+        D11[rng.integers(0, b, hits), rng.integers(0, h, hits),
+            rng.integers(0, w, hits), rng.integers(0, f, hits)] = (
+                rng.choice([-np.inf, np.inf], hits))
+        qhits = max(2, n // 50)
+        D21[rng.integers(0, b, qhits), rng.integers(0, n, qhits), 0] = -np.inf
+        D21[rng.integers(0, b, qhits), rng.integers(0, n, qhits),
+            rng.integers(1, f, qhits)] = np.inf
     return (np.ascontiguousarray(D11, np.float32),
             np.ascontiguousarray(D21, np.float32),
             np.ascontiguousarray(p1, np.int32))

@@ -594,38 +594,67 @@ def test_refine_matches_adversarial_starts(cuda, kind, dtype):
             assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("kind,dtype", [
-    (k, t) for k in ("smooth", "random", "border", "nan")
-    for t in ("bf16", "int8") if (k, t) != ("nan", "int8")])   # no int8 NaN
-def test_refine_separable_matches_plain(cuda, kind, dtype):
-    """The separable search on the same inputs as
-    ``test_refine_matches_adversarial_starts``, at base's descriptor width
-    and both window sizes, and at every built width: equal at every point
-    to ``refine_matches_separable_plain``."""
-    from mast3r_slam_tpu_torch.ops import _kernels, matching
+def _kinds_and_types():
+    from mast3r_slam_tpu_torch.utils import kernel_cases
+
+    return [(k, t) for k in kernel_cases.REFINE_KINDS for t in ("bf16", "int8")
+            if not (t == "int8" and k in kernel_cases.BF16_ONLY_KINDS)]
+
+
+def _refine_inputs(cuda, kind, dtype):
+    """(f, grid width, D11, D21, p1) at every built descriptor width: b = 2,
+    query grids that are no multiple of any block's patch (ragged patches),
+    the base width at a larger image."""
+    from mast3r_slam_tpu_torch.ops import matching
     from mast3r_slam_tpu_torch.utils import kernel_cases
 
     cast = (matching._quantize_int8 if dtype == "int8"
             else (lambda x: x.to(torch.bfloat16)))
-    for gh, gw, h, w, f, cases in ((37, 53, 96, 128, 24,
-                                    ((1, 1), (3, 5), (2, 2))),
-                                   (9, 17, 20, 36, 8, ((3, 5),)),
-                                   (9, 17, 20, 36, 16, ((1, 3),)),
-                                   (9, 17, 20, 36, 32, ((2, 1),))):
+    for gh, gw, h, w, f in ((9, 17, 20, 36, 8), (9, 17, 20, 36, 16),
+                            (37, 53, 96, 128, 24), (11, 13, 20, 36, 32)):
         A, Q, p1 = (torch.from_numpy(a).to(cuda) for a in
                     kernel_cases.refine_case(kind, 2, gh, gw, h, w, f,
                                              seed=5))
-        A, Q = cast(A).contiguous(), cast(Q).contiguous()
-        for r, d in cases:
-            ref = matching.refine_matches_separable_plain(A, Q, p1, r, d)
-            for grid_width in (gw, None):
-                n0 = _kernels.LAUNCHES["refine_separable"]
-                got = matching.refine_matches_separable(
-                    A, Q, p1, r, d, grid_width=grid_width)
-                assert _kernels.LAUNCHES["refine_separable"] == n0 + 1
-                assert torch.equal(got, ref), (f, r, d, grid_width)
+        yield f, gw, cast(A).contiguous(), cast(Q).contiguous(), p1
+
+
+@pytest.mark.parametrize("kind,dtype", _kinds_and_types())
+def test_refine_separable_matches_plain(cuda, kind, dtype):
+    """The separable search on ``kernel_cases``' inputs (smooth, random and
+    border starts, NaNs, exact ties, +-inf, values whose products overflow
+    and underflow fp32), at every built width, r = 0-5 with every dilation
+    up to 5, with and without the grid width: equal at every point to
+    ``refine_matches_separable_plain``."""
+    from mast3r_slam_tpu_torch.ops import _kernels, matching
+
+    for f, gw, A, Q, p1 in _refine_inputs(cuda, kind, dtype):
+        for r in range(6):
+            for d in range(1, 6):
+                ref = matching.refine_matches_separable_plain(A, Q, p1, r, d)
+                for grid_width in (gw, None):
+                    n0 = _kernels.LAUNCHES["refine_separable"]
+                    got = matching.refine_matches_separable(
+                        A, Q, p1, r, d, grid_width=grid_width)
+                    assert _kernels.LAUNCHES["refine_separable"] == n0 + 1
+                    assert torch.equal(got, ref), (f, r, d, grid_width)
     with pytest.raises(ValueError, match="refine_separable"):
         matching.refine_matches_separable(A.float(), Q, p1)
+
+
+@pytest.mark.parametrize("kind,dtype", _kinds_and_types())
+def test_refine_matches_matches_plain_on_separable_inputs(cuda, kind, dtype):
+    """``refine_matches`` on the separable search's inputs: still equal at
+    every point to its own plain version (separate roundings)."""
+    from mast3r_slam_tpu_torch.ops import matching
+
+    for f, gw, A, Q, p1 in _refine_inputs(cuda, kind, dtype):
+        for r in range(6):
+            for d in (1, 3, 5):
+                ref = matching.refine_matches_plain(A, Q, p1, r, d)
+                for grid_width in (gw, None):
+                    got = matching.refine_matches(A, Q, p1, r, d,
+                                                  grid_width=grid_width)
+                    assert torch.equal(got, ref), (f, r, d, grid_width)
 
 
 @pytest.mark.parametrize("b,h,w,f,n,stride", [

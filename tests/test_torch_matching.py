@@ -347,3 +347,49 @@ def test_match_separable_refine_matches_jax(preset, refine_dtype):
     assert np.mean(np.asarray(ij) != it.numpy()) <= 1e-3
     assert np.mean(np.asarray(vj) != vt.numpy()) <= 1e-3
     assert it.shape == ij.shape and vt.shape == vj.shape
+
+
+@pytest.mark.parametrize("kind", ["ties", "inf"])
+@pytest.mark.parametrize("refine_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("radius,dil", [(1, 1), (2, 2), (3, 5)])
+def test_refine_separable_pinned_winner_kinds_equal_jax(kind, refine_dtype,
+                                                        radius, dil):
+    """``kernel_cases``' ``ties`` (equal exact scores inside every window)
+    and ``inf`` (+-inf and NaN scores, windows that score -inf throughout):
+    every score is exact in any order, so the first-maximum rule alone
+    decides, and every index equals JAX's."""
+    from mast3r_slam_tpu_torch.utils import kernel_cases
+
+    D11, D21, p1 = kernel_cases.refine_case(kind, 2, 12, 16, 24, 32, 8,
+                                            seed=radius + dil)
+    cj, ct = _CASTS[refine_dtype]
+    pj = np.asarray(window_gather.refine_matches_separable(
+        cj(D11), cj(D21), jnp.asarray(p1), radius, dil))
+    pt = tm.refine_matches_separable(ct(D11), ct(D21), torch.from_numpy(p1),
+                                     radius, dil).numpy()
+    np.testing.assert_array_equal(pt, pj)
+    assert (pt != p1).any()                   # the search really ran
+
+
+def test_separable_fma_score_equals_mul_add_on_unit_descriptors():
+    """The separable plain search's score (one rounding a step, the
+    kernel's FMA) equals the mul-then-add score bit for bit on unit-norm
+    bf16 descriptors, so its results on the CPU did not move; on
+    ``kernel_cases``' ``extreme`` values (products that overflow and
+    underflow fp32) the two part."""
+    from mast3r_slam_tpu_torch.utils import kernel_cases
+
+    rng = np.random.default_rng(3)
+    unit = lambda a: a / np.linalg.norm(a, axis=-1, keepdims=True)
+    for f in (8, 24):
+        cand = torch.from_numpy(unit(rng.standard_normal(
+            (2, 500, 7, f))).astype(np.float32)).bfloat16()
+        q = torch.from_numpy(unit(rng.standard_normal(
+            (2, 500, f))).astype(np.float32)).bfloat16().float()
+        assert torch.equal(tm._scores_fma(cand, q), tm._scores(cand, q))
+    D11, D21, _ = kernel_cases.refine_case("extreme", 1, 8, 8, 8, 8, 24)
+    cand = torch.from_numpy(D11).bfloat16().reshape(1, 1, 64, 24).expand(
+        1, 64, 64, 24)                       # every query against every pixel
+    q = torch.from_numpy(D21).bfloat16().float()
+    a, b = tm._scores_fma(cand, q), tm._scores(cand, q)
+    assert not torch.equal(a.nan_to_num(0.5), b.nan_to_num(0.5))
