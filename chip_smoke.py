@@ -123,6 +123,25 @@ Phases (any failure exits non-zero and prints no result line):
    ``--serve-viz 0``: the four renders, or the HTML viewer and the
    ``ImportError`` of the PNG renders where matplotlib is not installed).
 
+8. The backend across devices, over a device list that repeats cuda:0
+   (the machine has one GPU, so no cross-GPU copy is measured): **mirror**
+   (the loop run and teleport (return) with ``runtime.backend_device: 1``
+   over (cuda:0, cuda:0), the factor graph on a ``BackendMirror``: the
+   loop run's counts, 9 keyframes, 13 loop closures, 42 edges, none
+   dropped, its keyframe poses within 1e-5 of the dense loop run's, the
+   teleport relocalized through ``seed_pose``; the syncs, bytes and ms of
+   a sync, the host syncs of one backend step), **sharded BA on the loop
+   graph** (its final graph solved dense, edge-sharded over 2 and 4 shards,
+   keyframe-sharded over 2 and by Schur over 2, which falls back to
+   edge-sharded when the separator dominates; poses within 1e-4 of dense,
+   iterations and their step norms, ms per solve, the host syncs of a
+   sharded solve), **Schur on a chain** (24 synthetic
+   keyframes at 384x512 with two loop edges, not separator-dominated over
+   2 or 4 shards: rays and calibrated, dense, edge-sharded and Schur,
+   poses within 1e-4 of dense) and **sharded loop** (the loop run with
+   ``parallel.ba_backend: edge_sharded`` over 2 x cuda:0: the dense loop
+   run's gates and counts, keyframe poses within 1e-4 of it).
+
 The loop run's final factor graph is also put through ``ba_edge_terms``,
 its plain version and the plain version in float64, and one more tracked
 frame of the tpu_fast run counts its host syncs (PyTorch's sync debug
@@ -1226,13 +1245,16 @@ def solver_scaling(rec_log):
 
 def run_slam(preset_cfg, params, model_cfg, n_frames, kf_every, K=None,
              retrieval_params=None, edge_capacity=EDGE_CAPACITY,
-             reinit_after=0, fused=True):
+             reinit_after=0, fused=True, runtime=None, parallel=None,
+             **system_kw):
     """Drive ``n_frames`` through make_frame / process_frame and drain the
     backend after every frame, as ``SLAMSystem.run`` of the JAX package
     does; with retrieval, ``backend_prefetch()`` comes before every frame.
     Returns the system, the per-frame frontend wall times and one (wall ms,
     GN iterations, keyframes, edges on the device) per backend step (each
-    time ends in a sync). ``fused=False``: the step-by-step tracker."""
+    time ends in a sync). ``fused=False``: the step-by-step tracker.
+    ``runtime`` / ``parallel``: keys set in those config sections;
+    ``system_kw``: ``SLAMSystem``'s ``mesh`` and ``local_devices``."""
     import numpy as np
     import torch
 
@@ -1244,12 +1266,14 @@ def run_slam(preset_cfg, params, model_cfg, n_frames, kf_every, K=None,
     cfg["tracking"] = dict(cfg["tracking"], kf_every=kf_every)
     cfg["reloc"] = dict(cfg["reloc"], reinit_after=reinit_after)
     cfg["use_calib"] = K is not None
+    cfg["runtime"] = dict(cfg["runtime"], **(runtime or {}))
+    cfg["parallel"] = dict(cfg.get("parallel", {}), **(parallel or {}))
     h, w = model_cfg.img_size
     system = SLAMSystem(params, model_cfg, cfg, (h, w), K=K,
                         retrieval_params=retrieval_params,
                         keyframe_capacity=16, edge_capacity=edge_capacity,
                         model_module=oracle_timing, device="cuda",
-                        metrics=Metrics())
+                        metrics=Metrics(), **system_kw)
     system.tracker.fused = fused
     rng = np.random.default_rng(1234)
     frames = [oracle_timing.make_frame_image(i, h, w, rng)
@@ -2417,6 +2441,397 @@ def cli_viz_phase(run_launches):
             f"{launches}")
 
 
+# -- phase 8: the backend across devices --------------------------------------
+
+# the second device of every phase-8 run is cuda:0 again: the card's machine
+# has one GPU, so cross-GPU copies are not measured
+MIRROR_TOL = 1e-5        # the mirrored loop run against the dense loop run
+SHARD_TOL = 1e-4         # a sharded solve's poses against the dense solve's
+CHAIN_KF = 24            # the synthetic chain where Schur eliminates
+CHAIN_LOOPS = [(0, 23), (6, 17)]
+
+
+def loop_graph_of(system):
+    """A copy of what a global solve of the run's final graph reads: poses,
+    maps, average confidences, the active edges, the active keyframe count
+    and the BA settings."""
+    fg, kfs = system.factor_graph, system.keyframes
+    Kb, (*edges, n_kf) = fg._solve_args()
+    return {"T": kfs.T_WC[:Kb].clone(), "Xs": kfs.X[:Kb].clone(),
+            "Cs": kfs.average_confs(Kb).clone(),
+            "edges": [a.clone() for a in edges], "n_kf": n_kf,
+            "cfg": fg.ba_cfg}
+
+
+def mirror_phase(params, model_cfg, traj, loop_ref, rparams, net,
+                 return_expect, run_launches):
+    """**mirror**: the loop run and the teleport (return) run with
+    ``runtime.backend_device: 1`` over the local devices (cuda:0, cuda:0):
+    the factor graph reads a ``BackendMirror``. The loop run must give the
+    dense loop run's counts and its keyframe poses within ``MIRROR_TOL``;
+    the teleport run must relocalize through ``seed_pose``. Counts the
+    syncs and their rows, times one sync, and lists the host syncs of one
+    backend step with the mirror."""
+    import torch
+
+    from mast3r_slam_tpu_torch.config import tpu_fast_config
+    from mast3r_slam_tpu_torch.models import oracle, oracle_timing
+    from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.parallel import backend_device as bdev
+
+    local = [torch.device("cuda", 0)] * 2
+    seen = {"syncs": 0, "rows": 0, "seeds": 0}
+    sync0, seed0 = bdev.BackendMirror.sync, bdev.BackendMirror.seed_pose
+
+    def sync(self):
+        n = self.main.n_size
+        seen["syncs"] += 1
+        seen["rows"] += n - max(0, min(self._mirror_n - 1, n - 1))
+        sync0(self)
+
+    def seed_pose(self, idx, T):
+        seen["seeds"] += 1
+        seed0(self, idx, T)
+
+    bdev.BackendMirror.sync, bdev.BackendMirror.seed_pose = sync, seed_pose
+    try:
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        system, _, _ = run_slam(
+            tpu_fast_config(), params, model_cfg, N_LOOP, KF_LOOP,
+            retrieval_params=rparams, edge_capacity=EDGE_CAPACITY_LOOP,
+            runtime={"backend_device": 1}, local_devices=local)
+        wall = time.perf_counter() - t0
+        launches = run_launches["mirror_loop"] = dict(_kernels.LAUNCHES)
+        loop_syncs, stats = dict(seen), dict(system.stats)
+        bm, fg = system._backend_mirror, system.factor_graph
+        rmse, extent = assert_healthy(system, N_LOOP, KF_LOOP, traj,
+                                      "mirror_loop")
+        k = len(system.keyframes)
+        counts = (k, system.stats["loop_closures"], fg.n_edges,
+                  fg.edges_dropped)
+        dT = (float((system.keyframes.T_WC[:k].cpu()
+                     - torch.from_numpy(loop_ref["T"])).abs().max())
+              if k == len(loop_ref["T"]) else None)
+        missing = sorted(n for n in LOOP_KERNELS if launches[n] <= 0)
+        if (bm is None or fg.frames is not bm or counts != (9, 13, 42, 0)
+                or system.stats != loop_ref["stats"]
+                or fg.n_edges != loop_ref["edges"] or dT is None
+                or not dT <= MIRROR_TOL or missing):
+            raise AssertionError(
+                f"mirror_loop run: mirror {bm is not None}, counts "
+                f"(keyframes, loop closures, edges, dropped) {counts}, stats "
+                f"{system.stats} vs {loop_ref['stats']}, pose diff {dT}, "
+                f"never launched {missing}")
+        # one sync of the latest row and the poses, timed alone
+        n = bm.n_size
+        row_bytes = sum(getattr(bm, f)[0].numel()
+                        * getattr(bm, f).element_size()
+                        for f in ("X", "C", "N", "feat", "pos"))
+        pose_bytes = bm.T_WC.numel() * bm.T_WC.element_size()
+
+        def one_row():
+            bm._mirror_n = n
+            sync0(bm)
+
+        sync_ms = time_ms(one_row, reps=10)
+        sync_device_ms = device_ms(one_row, reps=10)
+        sync_syncs = host_syncs_of(one_row)
+        # one more backend step with work: the last keyframe queued again
+        system.backend_queue.append(n - 1)
+        step_syncs = host_syncs_of(system.backend_step)
+        log(f"mirror_loop: {N_LOOP} frames in {wall:.3f} s, stats "
+            f"{stats}, edges {counts[2]} (dropped {counts[3]}), keyframe "
+            f"poses within {dT} of the dense "
+            f"loop run (gate {MIRROR_TOL}), RMSE after BA {rmse:.6f} of "
+            f"{extent:.6f}, launches {launches}")
+        log("mirror syncs: " + json.dumps({
+            "syncs": loop_syncs["syncs"], "rows_copied": loop_syncs["rows"],
+            "bytes_per_row": row_bytes, "pose_bytes": pose_bytes,
+            "bytes_per_one_row_sync": row_bytes + pose_bytes,
+            "ms_per_one_row_sync": sync_ms,
+            "device_ms_per_one_row_sync": sync_device_ms,
+            "host_syncs_of_one_sync": sync_syncs,
+            "host_syncs_of_one_backend_step": len(step_syncs),
+            "host_syncs_at": step_syncs}))
+        del system
+
+        traj_t = teleport_traj(4, 2, 3)
+        orc_t = oracle.make_params(traj_t.cuda(), desc_dim=model_cfg.desc_dim,
+                                   seed=0, device="cuda")
+        seen.update(syncs=0, rows=0, seeds=0)
+        _kernels.reset_launch_counts()
+        system, _, _ = run_slam(
+            tpu_fast_config(), oracle_timing.make_params(net, orc_t),
+            model_cfg, len(traj_t), KF_TELEPORT, retrieval_params=rparams,
+            edge_capacity=EDGE_CAPACITY_LOOP, runtime={"backend_device": 1},
+            local_devices=local)
+        launches = run_launches["mirror_teleport_return"] = dict(
+            _kernels.LAUNCHES)
+    finally:
+        bdev.BackendMirror.sync, bdev.BackendMirror.seed_pose = sync0, seed0
+    assert_teleport(system, "mirror_teleport_return", return_expect)
+    if system._backend_mirror is None or seen["seeds"] < 1:
+        raise AssertionError(f"mirror_teleport_return: seed_pose called "
+                             f"{seen['seeds']} times")
+    log(f"mirror_teleport_return: end mode {system.mode.name}, stats "
+        f"{system.stats}, edges {system.factor_graph.n_edges}, syncs "
+        f"{seen['syncs']}, seed_pose calls {seen['seeds']}, launches "
+        f"{launches}")
+
+
+def _padded(edges, n):
+    from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+
+    fills = (0, 0, 0, False, 0, 0)
+    return [mesh_mod.pad_to_multiple(a, n, 0, f) for a, f in zip(edges, fills)]
+
+
+def _kf_sharded(T, Xs, Cs, edges, n_kf, m, cfg):
+    from mast3r_slam_tpu_torch.parallel import dist_ba
+    from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+
+    ii, jj, idx, vm, Q, mask = _padded(edges, m.size)
+    Xs_b, Cs_b = dist_ba.shard_keyframe_store(
+        m, mesh_mod.pad_to_multiple(Xs, m.size),
+        mesh_mod.pad_to_multiple(Cs, m.size))
+    pre = dist_ba.prep_edges_kf_sharded(m, Xs_b, Cs_b, ii, jj, idx, vm,
+                                        stride=cfg.point_stride)
+    return dist_ba.gauss_newton_rays_dist_pre(T, pre, ii, jj, vm, Q, mask,
+                                              n_kf, m, cfg)
+
+
+def _schur_or_fallback(T, Xs, Cs, K, edges, n_kf, m, cfg, residual,
+                       img_size):
+    """The factor graph's rule (``slam/factor_graph.py``): Schur unless the
+    separator dominates, then edge-sharded. Returns (result, separator
+    count, fell back)."""
+    from mast3r_slam_tpu_torch.parallel import dist_ba, schur
+
+    ii, jj, *_ = edges
+    mask = edges[5]
+    part, order, keep = schur.schur_partition(
+        ii.cpu().numpy(), jj.cpu().numpy(), mask.cpu().numpy() > 0,
+        K_cap=T.shape[0], n_shards=m.size)
+    n_sep = int((part.sep_slot[:n_kf] >= 0).sum())
+    if schur.separator_dominated(part, n_kf):
+        return dist_ba.gauss_newton_dist(
+            T, Xs, Cs, K, *_padded(edges, m.size), n_kf, m, cfg,
+            residual=residual, img_size=img_size), n_sep, True
+    return schur.gauss_newton_schur(
+        T, Xs, Cs, K, part.owner, part.int_slot, part.sep_slot,
+        *schur.reorder_edges(order, keep, *edges), n_kf, part.I_cap,
+        part.S_cap, m, cfg, residual=residual, img_size=img_size), n_sep, False
+
+
+def run_solves(label, solves, ref, run_launches, reps=3):
+    """Each solve once with the launch counts from zero (its result held to
+    ``ref``'s poses within ``SHARD_TOL``), then timed: wall ms of a whole
+    solve, host syncs included, median of ``reps``."""
+    import torch
+
+    from mast3r_slam_tpu_torch.ops import _kernels
+
+    out = {}
+    for name, fn in solves.items():
+        _kernels.reset_launch_counts()
+        got = fn()
+        # a BAResult, or (BAResult, separators, fell back) from a Schur solve
+        res = got if hasattr(got, "T_WC") else got[0]
+        torch.cuda.synchronize()
+        run_launches[f"{label}_{name}"] = dict(_kernels.LAUNCHES)
+        T = res.T_WC
+        d = float((T - ref).abs().max())
+        if not (torch.isfinite(T).all() and d <= SHARD_TOL):
+            raise AssertionError(f"{label} {name}: poses {d} from the dense "
+                                 f"solve (gate {SHARD_TOL})")
+        rec = {"iters": res.iters, "step_norms": list(res.deltas),
+               "max_pose_diff": d,
+               "ms": time_ms(fn, reps=reps, warmup=0),
+               "launches": {k: v for k, v in
+                            run_launches[f"{label}_{name}"].items() if v}}
+        if res is not got:
+            rec.update(separators=got[1], fell_back=got[2])
+        out[name] = rec
+    return out
+
+
+def sharded_graph_phase(g, run_launches):
+    """**sharded BA on the loop graph**: the loop run's final graph solved
+    from poses moved off its converged ones, dense, edge-sharded over 2 and
+    4 shards of cuda:0, keyframe-sharded over 2, and by Schur over 2 (which
+    falls back to edge-sharded when the separator dominates), each with
+    its iterations' step norms; then the host syncs of one sharded
+    solve."""
+    import torch
+
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.parallel import dist_ba
+    from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+    from mast3r_slam_tpu_torch.slam import ba
+
+    T0, Xs, Cs, edges = g["T"], g["Xs"], g["Cs"], g["edges"]
+    n_kf, cfg = g["n_kf"], g["cfg"]
+    cuda0 = torch.device("cuda", 0)
+    mesh = lambda n: mesh_mod.make_mesh([cuda0] * n)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xi = 0.01 * torch.randn((T0.shape[0], 7), generator=gen, device="cuda")
+    xi[:cfg.pin] = 0.0
+    T = sim3.retr(T0, xi).contiguous()
+    dense = ba.gauss_newton_rays(T, Xs, Cs, *edges, n_kf, cfg)
+    solves = {
+        "dense": lambda: ba.gauss_newton_rays(T, Xs, Cs, *edges, n_kf, cfg),
+        **{f"edge_sharded_{n}": (lambda n=n: dist_ba.gauss_newton_rays_dist(
+            T, Xs, Cs, *_padded(edges, n), n_kf, mesh(n), cfg))
+           for n in (2, 4)},
+        "kf_sharded_2": lambda: _kf_sharded(T, Xs, Cs, edges, n_kf, mesh(2),
+                                            cfg),
+        "schur_2": lambda: _schur_or_fallback(T, Xs, Cs, None, edges, n_kf,
+                                              mesh(2), cfg, "rays", None),
+    }
+    out = {"keyframes": n_kf, "edges": int(edges[5].sum()),
+           "points_per_edge": len(range(0, edges[2].shape[1],
+                                        cfg.point_stride)),
+           "solves_from_moved_poses": run_solves(
+               "loop_graph", solves, dense.T_WC, run_launches)}
+    syncs = host_syncs_of(solves["edge_sharded_2"])
+    out["host_syncs_edge_sharded_2"] = {
+        "count": len(syncs), "expected": 1 + dense.iters, "at": syncs}
+    log("sharded BA on the loop graph: " + json.dumps(out))
+    return out
+
+
+def schur_chain_phase(model_cfg, cfg, run_launches):
+    """**Schur where it eliminates**: a synthetic chain of ``CHAIN_KF``
+    keyframes at the model's resolution (every keyframe sees the same
+    random world points, matched by pixel index, as ``tests/test_schur.py``
+    builds its world) with the loop edges ``CHAIN_LOOPS``, poses noised;
+    rays and calibrated, solved dense, edge-sharded and by Schur over 2
+    and 4 shards of cuda:0. The partition must not be separator-dominated
+    and every solve must give the dense poses within ``SHARD_TOL``."""
+    import torch
+
+    from mast3r_slam_tpu_torch import geometry
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.parallel import dist_ba
+    from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+    from mast3r_slam_tpu_torch.parallel import schur
+    from mast3r_slam_tpu_torch.slam import ba
+
+    h, w = model_cfg.img_size
+    P, n_kf, dev = h * w, CHAIN_KF, "cuda"
+    gen = torch.Generator(device=dev).manual_seed(5)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    pts = randn(P, 3) * torch.tensor([1.0, 1.0, 0.5], device=dev)
+    pts = pts + torch.tensor([0.0, 0.0, 4.0], device=dev)
+    T_true = [sim3.identity(device=dev)]
+    for _ in range(1, n_kf):
+        T_true.append(sim3.mul(T_true[-1], sim3.exp(0.05 * randn(7))))
+    T_true = torch.stack(T_true)
+    Xs = sim3.act(sim3.inv(T_true)[:, None], pts[None])
+    noise = 0.05 * randn(n_kf, 7)
+    noise[0] = 0.0
+    T = sim3.retr(T_true, noise).contiguous()
+    pairs = [(i, i + 1) for i in range(n_kf - 1)] + CHAIN_LOOPS
+    ii = torch.tensor([a for p in pairs for a in p], dtype=torch.int32,
+                      device=dev)
+    jj = torch.tensor([a for p in pairs for a in p[::-1]], dtype=torch.int32,
+                      device=dev)
+    E = ii.shape[0]
+    edges = [ii, jj,
+             torch.arange(P, dtype=torch.int32, device=dev).repeat(E, 1),
+             torch.ones((E, P), dtype=torch.bool, device=dev),
+             torch.full((E, P), 4.0, device=dev),
+             torch.ones((E,), device=dev)]
+    Cs = torch.full((n_kf, P), 5.0, device=dev)
+    f = 0.8 * w
+    K = torch.tensor([[f, 0.0, w / 2.0], [0.0, f, h / 2.0], [0.0, 0.0, 1.0]],
+                     device=dev)
+    cuda0 = torch.device("cuda", 0)
+    mesh = lambda n: mesh_mod.make_mesh([cuda0] * n)
+    ij = [a.cpu().numpy() for a in (ii, jj)]
+    parts = {n: schur.schur_partition(*ij, edges[5].cpu().numpy(), n_kf, n)[0]
+             for n in (2, 4)}
+    seps = {n: int((p.sep_slot >= 0).sum()) for n, p in parts.items()}
+    if any(schur.separator_dominated(p, n_kf) for p in parts.values()):
+        raise AssertionError(f"schur chain: separator-dominated, separators "
+                             f"{seps} of {n_kf}")
+    out = {"keyframes": n_kf, "edges": E, "points_per_edge":
+           len(range(0, P, cfg.point_stride)), "separators": seps}
+    Xc = geometry.constrain_points_to_ray((h, w), Xs, K)
+    dense_solves = {
+        "rays": lambda: ba.gauss_newton_rays(T, Xs, Cs, *edges, n_kf, cfg),
+        "calib": lambda: ba.gauss_newton_calib(T, Xc, Cs, K, *edges, n_kf,
+                                               (h, w), cfg)}
+    for residual, Xr in (("rays", Xs), ("calib", Xc)):
+        Kr = K if residual == "calib" else None
+        size = (h, w) if residual == "calib" else None
+        solves = {"dense": dense_solves[residual]}
+        for n in (2, 4):
+            solves[f"edge_sharded_{n}"] = (
+                lambda n=n, Xr=Xr, Kr=Kr, size=size, r=residual:
+                dist_ba.gauss_newton_dist(T, Xr, Cs, Kr, *_padded(edges, n),
+                                          n_kf, mesh(n), cfg, residual=r,
+                                          img_size=size))
+            solves[f"schur_{n}"] = (
+                lambda n=n, Xr=Xr, Kr=Kr, size=size, r=residual:
+                _schur_or_fallback(T, Xr, Cs, Kr, edges, n_kf, mesh(n), cfg,
+                                   r, size))
+        out[residual] = run_solves(f"schur_chain_{residual}", solves,
+                                   solves["dense"]().T_WC, run_launches)
+        for n in (2, 4):
+            if out[residual][f"schur_{n}"]["fell_back"]:
+                raise AssertionError(f"schur chain {residual}: fell back "
+                                     f"over {n} shards")
+    log("Schur on the chain: " + json.dumps(out))
+    return out
+
+
+def sharded_loop_phase(params, model_cfg, traj, loop_ref, rparams,
+                       run_launches):
+    """**sharded loop run**: the whole loop run with ``parallel.ba_backend:
+    edge_sharded`` over a mesh of 2 x cuda:0: the dense loop run's health
+    gates and counts, and its keyframe poses within ``SHARD_TOL``."""
+    import torch
+
+    from mast3r_slam_tpu_torch.config import tpu_fast_config
+    from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+
+    m = mesh_mod.make_mesh([torch.device("cuda", 0)] * 2)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    system, _, backend = run_slam(
+        tpu_fast_config(), params, model_cfg, N_LOOP, KF_LOOP,
+        retrieval_params=rparams, edge_capacity=EDGE_CAPACITY_LOOP,
+        parallel={"ba_backend": "edge_sharded"}, mesh=m)
+    wall = time.perf_counter() - t0
+    launches = run_launches["sharded_loop"] = dict(_kernels.LAUNCHES)
+    rmse, extent = assert_healthy(system, N_LOOP, KF_LOOP, traj,
+                                  "sharded_loop")
+    fg = system.factor_graph
+    k = len(system.keyframes)
+    missing = sorted(n for n in LOOP_KERNELS if launches[n] <= 0)
+    dT = (float((system.keyframes.T_WC[:k].cpu()
+                 - torch.from_numpy(loop_ref["T"])).abs().max())
+          if k == len(loop_ref["T"]) else None)
+    if (system.stats != loop_ref["stats"] or fg.n_edges != loop_ref["edges"]
+            or fg.last_solve_backend != "edge_sharded" or missing
+            or dT is None or not dT <= SHARD_TOL):
+        raise AssertionError(
+            f"sharded_loop run: stats {system.stats} vs {loop_ref['stats']}, "
+            f"edges {fg.n_edges} vs {loop_ref['edges']}, last solve by "
+            f"{fg.last_solve_backend}, never launched {missing}, keyframe "
+            f"poses max abs diff {dT} (gate {SHARD_TOL})")
+    log(f"sharded_loop: {N_LOOP} frames in {wall:.3f} s, stats "
+        f"{system.stats}, edges {fg.n_edges}, RMSE after BA {rmse:.6f} of "
+        f"{extent:.6f} (gate 0.06 of it), keyframe poses within {dT} of the "
+        f"dense loop run (gate {SHARD_TOL}), backend per step (wall ms, GN iterations, "
+        f"keyframes, edges): "
+        f"{[(round(t, 3), it, kk, e) for t, it, kk, e in backend]}, "
+        f"launches {launches}")
+
+
 def main():
     import torch
 
@@ -2554,7 +2969,10 @@ def main():
         + json.dumps(check_loop_graph(sys_l)))
     scene_cost("the loop run", sys_l)
     loop_ref = {"stats": dict(sys_l.stats),
-                "edges": sys_l.factor_graph.n_edges}
+                "edges": sys_l.factor_graph.n_edges,
+                "T": sys_l.keyframes.T_WC[:len(sys_l.keyframes)].cpu()
+                .numpy()}
+    loop_graph = loop_graph_of(sys_l)       # for phase 8
     log(f"loop peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (codebook "
         f"{CODEBOOK * 1024 * 4 / 2**20:.0f} MiB, edge buffers at capacity "
@@ -2668,6 +3086,17 @@ def main():
     log(f"host syncs of one tracked frame with the viewer attached and no "
         f"refresh due: {with_viewer}")
     cli_viz_phase(run_launches)
+
+    # phase 8: the backend across devices, over cuda:0 repeated
+    t8 = time.perf_counter()
+    mirror_phase(params, model_cfg, traj, loop_ref, rparams, net,
+                 teleports["teleport_return"][2], run_launches)
+    sharded_graph_phase(loop_graph, run_launches)
+    schur_chain_phase(model_cfg, loop_graph["cfg"], run_launches)
+    sharded_loop_phase(params, model_cfg, traj, loop_ref, rparams,
+                       run_launches)
+    log(f"phase 8 (the backend across devices): "
+        f"{time.perf_counter() - t8:.2f} s")
 
     for r in records:
         r["launches_by_run"] = {label: ln[r["name"]]

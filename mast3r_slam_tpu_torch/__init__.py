@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of the mast3r_slam_tpu dense SLAM system.
+"""PyTorch/CUDA port of the dense SLAM system ``mast3r_slam_tpu``.
 
 The package mirrors the layout of ``mast3r_slam_tpu`` (the JAX reference)
 module for module. It imports ``torch`` and never ``jax`` or anything of

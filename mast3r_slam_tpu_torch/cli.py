@@ -26,11 +26,11 @@ renders ``<sequence>_viewer.html``, ``_traj.png``, ``_cloud.png`` and
 ``_keyframes.png`` (the PNGs need matplotlib; the HTML viewer is written
 first and needs only numpy).
 
-``--ba-backend edge_sharded|schur`` solves dense when at most one GPU is
-visible, as the JAX CLI does on one device. What needs more than one
-device raises ``NotImplementedError`` naming ROADMAP.md queue 1 item 7:
-those backends with several GPUs visible, and multi-host runs
-(``--coordinator``, ``--host-id``, ``--num-hosts`` above 1).
+``--ba-backend edge_sharded|schur`` shards the global bundle adjustment
+over every visible GPU when there are several (``parallel/mesh.py``), and
+solves dense on one, as the JAX CLI does. Multi-host runs
+(``--coordinator``, ``--host-id``, ``--num-hosts`` above 1) raise
+``NotImplementedError`` naming ROADMAP.md queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ import time
 
 import torch
 
-_ITEM7 = "is not ported yet; see ROADMAP.md queue 1 item 7"
+_MULTI_HOST = "is not ported yet; see ROADMAP.md queue 1 item 4"
 
 
 def _parser():
@@ -93,22 +93,26 @@ def _refuse_unported(args):
                         ("--host-id", args.host_id is not None),
                         ("--num-hosts above 1", n_hosts > 1)):
         if given:
-            raise NotImplementedError(f"{flag} (a multi-host run) {_ITEM7}")
+            raise NotImplementedError(
+                f"{flag} (a multi-host run) {_MULTI_HOST}")
 
 
-def _ba_backend(cfg, device):
-    """The JAX CLI's device rule for a sharded ``parallel.ba_backend``: with
-    one device the dense solver runs; with several the port would have to
-    shard, which it cannot yet."""
+def _ba_mesh(cfg, n_devices: int):
+    """The JAX CLI's device rule for a sharded ``parallel.ba_backend``
+    (``cli.py:199-206``): a mesh over the ``n_devices`` visible GPUs when
+    there are several, else None and the dense solver."""
+    from .parallel import mesh as mesh_mod
+
     backend = cfg.get("parallel", {}).get("ba_backend", "dense")
     if backend == "dense":
-        return
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    if n_dev > 1:
-        raise NotImplementedError(
-            f"global BA {backend} over {n_dev} GPUs {_ITEM7}")
+        return None
+    if n_devices > 1:
+        mesh = mesh_mod.make_mesh(n_devices)
+        print(f"global BA: {backend} over {mesh.size} devices")
+        return mesh
     print(f"global BA: {backend} requested but only one device visible; "
           "using the dense solver")
+    return None
 
 
 def _renders(save_dir, seq_name, system):
@@ -220,7 +224,8 @@ def main(argv=None):
             print(f"estimated focal {f:.2f} px is implausible; staying in "
                   "the uncalibrated (ray-residual) pipeline")
 
-    _ba_backend(cfg, device)
+    mesh = _ba_mesh(cfg, torch.cuda.device_count()
+                    if device.type == "cuda" else 1)
     metrics = None
     if args.metrics:
         from .utils.metrics import Metrics
@@ -229,7 +234,7 @@ def main(argv=None):
 
     system = SLAMSystem(params, model_cfg, cfg, (h, w),
                         retrieval_params=rparams, K=K, metrics=metrics,
-                        device=device)
+                        device=device, mesh=mesh)
     start_frame = 0
     if args.resume:
         checkpoint.load_state(args.resume, system)

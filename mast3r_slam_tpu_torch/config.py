@@ -104,8 +104,8 @@ class FactorGraphConfig(NamedTuple):
     Q_conf: float = 1.5
     min_match_frac: float = 0.1
     matcher: str = "iter_proj"  # or "dense" (ops/dense_matcher.py)
-    ba_backend: str = "dense"   # "edge_sharded" / "schur": dense without a
-    #                             device mesh (ROADMAP.md queue 1 item 7)
+    ba_backend: str = "dense"   # "edge_sharded" / "schur": sharded over
+    #                             a mesh of several devices, else dense
 
 
 class RetrievalConfig(NamedTuple):

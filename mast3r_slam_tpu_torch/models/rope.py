@@ -99,12 +99,10 @@ def rope_qk(q, k, q_tables, k_tables, out_dtype=torch.float32):
     tbk = _table_stride(k_tables, b, nk, d, "rope_qk k tables")
     q_out = torch.empty((b, heads, nq, d), dtype=out_dtype, device=q.device)
     k_out = torch.empty((b, heads, nk, d), dtype=out_dtype, device=q.device)
-    ptrs = (q.data_ptr(), k.data_ptr(), q_tables[0].data_ptr(),
-            q_tables[1].data_ptr(), k_tables[0].data_ptr(),
-            k_tables[1].data_ptr(), q_out.data_ptr(), k_out.data_ptr())
+    tensors = (q, k, *q_tables, *k_tables, q_out, k_out)
     strides = (qs[0], qs[1], qs[2], ks[0], ks[1], ks[2])
     vec4 = int(d % 16 == 0 and not any(s % 4 for s in strides)
-               and not any(a % 16 for a in ptrs))
-    _kernels.launch("rope_qk", *ptrs, *strides, tbq, tbk, b, heads, nq, nk,
+               and not any(t.data_ptr() % 16 for t in tensors))
+    _kernels.launch("rope_qk", *tensors, *strides, tbq, tbk, b, heads, nq, nk,
                     d, int(out_dtype == torch.bfloat16), vec4)
     return q_out, k_out

@@ -134,12 +134,26 @@ def library(name):
 
 
 def launch(name, *args):
-    """Call kernel ``name``'s C launcher on the current CUDA stream; raises
-    if the launch reported a CUDA error. Counts the launch."""
+    """Call kernel ``name``'s C launcher; raises if the launch reported a
+    CUDA error. Counts the launch.
+
+    Tensor arguments are passed as tensors and become device pointers here.
+    They must all lie on one device: the kernel launches there, with that
+    device current and on its current stream, whatever device the calling
+    thread has current. So a kernel of the backend on a second GPU is
+    ordered with the PyTorch work on that GPU's stream."""
     import torch
 
+    devices = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devices) != 1:
+        raise ValueError(f"CUDA kernel {name}: its tensors lie on "
+                         f"{sorted(map(str, devices))}, not on one device")
+    (dev,) = devices
+    c_args = [ptr(a) if isinstance(a, torch.Tensor) else a for a in args]
     fn = getattr(library(name), SOURCES[name][0])
-    err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        err = fn(*c_args, ctypes.c_void_p(stream.cuda_stream))
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")

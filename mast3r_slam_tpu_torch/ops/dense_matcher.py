@@ -162,8 +162,8 @@ def coarse_correlate(D21, D11, stride: int = 4):
                          "the kernel's cell index arithmetic holds")
     n = D21.shape[1]
     out = torch.empty((b, n), dtype=torch.int32, device=D11.device)
-    _kernels.launch("coarse_correlate", _kernels.ptr(D21), _kernels.ptr(D11),
-                    _kernels.ptr(out), b, n, h, w, f, int(stride))
+    _kernels.launch("coarse_correlate", D21, D11, out, b, n, h, w, f,
+                    int(stride))
     return out
 
 

@@ -40,8 +40,7 @@ def gather_rows(table, idx):
     out = torch.empty((n, c), dtype=torch.float32, device=table.device)
     vec4 = int(c % 4 == 0 and table.data_ptr() % 16 == 0
                and out.data_ptr() % 16 == 0)
-    _kernels.launch("gather_rows", _kernels.ptr(table), _kernels.ptr(idx),
-                    _kernels.ptr(out), n, c, vec4)
+    _kernels.launch("gather_rows", table, idx, out, n, c, vec4)
     return out
 
 
@@ -69,9 +68,8 @@ def _take_along_cuda(problems, axis):
     t1, i1 = problems[-1]
     outs = [torch.empty(i.shape, dtype=torch.float32, device=t.device)
             for t, i in problems]
-    p = _kernels.ptr
-    _kernels.launch("take_along", p(t0), p(i0), p(outs[0]), p(t1), p(i1),
-                    p(outs[-1]), len(problems), axis, t0.shape[1],
+    _kernels.launch("take_along", t0, i0, outs[0], t1, i1, outs[-1],
+                    len(problems), axis, t0.shape[1],
                     i0.shape[0], i0.shape[1])
     return outs
 

@@ -100,8 +100,8 @@ def _scharr_cuda(img, normalize: bool, out_c=None, tiled: bool = True):
         out_c, offs, tiled = 2 * c, (2 * c, -1, 0, c), False
     out = torch.empty((*lead, h, w, out_c), dtype=img.dtype,
                       device=img.device)
-    _kernels.launch("scharr_rays", _kernels.ptr(img), _kernels.ptr(out),
-                    B, h, w, c, *offs, int(normalize), int(tiled))
+    _kernels.launch("scharr_rays", img, out, B, h, w, c, *offs,
+                    int(normalize), int(tiled))
     return out
 
 

@@ -153,8 +153,7 @@ def _iter_proj_cuda(img, pts3d_norm, p_init, max_iter, lambda_init,
         raise ValueError("iter_proj: image must be at least 3x3")
     p = torch.empty((b, n, 2), dtype=f32, device=p_init.device)
     conv = torch.empty((b, n), dtype=torch.bool, device=p_init.device)
-    _kernels.launch("iter_proj", _kernels.ptr(img), _kernels.ptr(pts3d_norm),
-                    _kernels.ptr(p_init), _kernels.ptr(p), _kernels.ptr(conv),
+    _kernels.launch("iter_proj", img, pts3d_norm, p_init, p, conv,
                     b, h, w, n, c, int(first), int(max_iter),
                     float(lambda_init), float(cost_thresh))
     return p, conv
@@ -314,8 +313,7 @@ def _refine_cuda(kernel, D11, D21, p1, radius, dilation_max, grid_width):
         raise ValueError(f"{kernel}: descriptors must be {unit}-byte "
                          "aligned and p1 8-byte aligned")
     out = torch.empty((b, n, 2), dtype=torch.int32, device=p1.device)
-    _kernels.launch(kernel, _kernels.ptr(D11), _kernels.ptr(D21),
-                    _kernels.ptr(p1), _kernels.ptr(out), b, h, w, n, f,
+    _kernels.launch(kernel, D11, D21, p1, out, b, h, w, n, f,
                     int(radius), int(dilation_max),
                     int(D11.dtype == torch.int8), gw)
     return out

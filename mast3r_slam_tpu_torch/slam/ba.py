@@ -55,6 +55,7 @@ _BLOCKS_PER_SM = 3        # the kernel's blocks over all edges, per SM
 class BAResult(NamedTuple):
     T_WC: torch.Tensor   # (K, 8) updated poses
     iters: int           # GN iterations executed
+    deltas: tuple = ()   # each iteration's step norm, as the host read it
 
 
 class EdgePre(NamedTuple):
@@ -118,12 +119,19 @@ def _assembly_plan(ii, jj, n_kf: int, K_cap: int, pin: int) -> AssemblyPlan:
     """The assembly's plan, once per solve (it does not depend on the
     poses): made on the host from one read of the edge lists, as a few
     numpy calls, and uploaded in one copy; the solve reads its step norm
-    every iteration anyway. The plain version adds the four block types in
-    four ``index_put_`` calls, each in edge order, so the contributions to
-    one destination block add in the order of c (a stable sort keeps it).
-    Blocks of pinned (< pin) and inactive (>= n_kf) poses go to the
-    sentinel and are dropped (run -1)."""
+    every iteration anyway."""
     ij = torch.stack([ii.to(torch.int64), jj.to(torch.int64)]).cpu().numpy()
+    return _assembly_plan_host(ij, n_kf, K_cap, pin, ii.device)
+
+
+def _assembly_plan_host(ij, n_kf: int, K_cap: int, pin: int,
+                        device) -> AssemblyPlan:
+    """``_assembly_plan`` from the edge lists already on the host, ij (2, E)
+    int64, uploaded to ``device``. The plain version adds the four block
+    types in four ``index_put_`` calls, each in edge order, so the
+    contributions to one destination block add in the order of c (a stable
+    sort keeps it). Blocks of pinned (< pin) and inactive (>= n_kf) poses
+    go to the sentinel and are dropped (run -1)."""
     si, sj = np.where((ij >= pin) & (ij < n_kf), ij, K_cap)
     E = si.shape[0]
     n = 4 * E
@@ -149,7 +157,7 @@ def _assembly_plan(ii, jj, n_kf: int, K_cap: int, pin: int) -> AssemblyPlan:
     block_run = np.full(none, -1, np.int32)
     block_run[skey[starts]] = np.arange(n_runs)
     buf = torch.from_numpy(np.concatenate([packed.ravel(), block_run])).to(
-        ii.device)
+        device)
     a = buf[:6 * n].view(6, n)
     return AssemblyPlan(a[0], a[1], a[2], a[3], a[4], buf[6 * n:], a[5])
 
@@ -350,7 +358,7 @@ def _launch(mode, T, ii, jj, pre: EdgePre, wq, edge_mask, cfg: BAConfig,
         Hout = torch.empty((E, 7, 7), dtype=f32, device=dev)
         gout = torch.empty((E, 7), dtype=f32, device=dev)
         Hd = gd = Hout                         # not written
-        plan_ptrs = [None] * 7
+        plan_args = [None] * 7
     else:
         ii = ii.to(i32).contiguous()
         jj = jj.to(i32).contiguous()
@@ -364,7 +372,7 @@ def _launch(mode, T, ii, jj, pre: EdgePre, wq, edge_mask, cfg: BAConfig,
         gout = torch.empty((E, 14), dtype=f32, device=dev)
         Hd = torch.empty((7 * K_cap, 7 * K_cap), dtype=f32, device=dev)
         gd = torch.empty((7 * K_cap,), dtype=f32, device=dev)
-        plan_ptrs = [_kernels.ptr(a) for a in plan]
+        plan_args = list(plan)
     if E == 0:
         if not raw:
             Hd.zero_()
@@ -377,13 +385,11 @@ def _launch(mode, T, ii, jj, pre: EdgePre, wq, edge_mask, cfg: BAConfig,
     sig = _sigmas(mode, cfg) + [0.0]
     c = calib if calib is not None else CalibArgs(1.0, 1.0, 0.0, 0.0, 1, 1)
     border = cfg.pixel_border
-    p = _kernels.ptr
     _kernels.launch(
-        "ba_edge_terms", p(T), p(ii), p(jj), p(pre.XCi), p(pre.XCj),
-        p(pre.safe_idx), p(wq), p(edge_mask), p(part), p(count), *plan_ptrs,
-        p(Hout), p(gout), p(Hd), p(gd), E, Pp, bpe, int(raw),
-        MODES.index(mode), int(c.w), int(K_cap), sig[0], sig[1], sig[2],
-        sig[3], _HUBER_K, c.fx, c.fy, c.cx, c.cy, float(border),
+        "ba_edge_terms", T, ii, jj, pre.XCi, pre.XCj, pre.safe_idx, wq,
+        edge_mask, part, count, *plan_args, Hout, gout, Hd, gd, E, Pp, bpe,
+        int(raw), MODES.index(mode), int(c.w), int(K_cap), sig[0], sig[1],
+        sig[2], sig[3], _HUBER_K, c.fx, c.fy, c.cx, c.cy, float(border),
         float(c.w - 1 - border), float(c.h - 1 - border),
         float(cfg.depth_eps))
     return (Hout, gout) if raw else (Hout, gout, Hd, gd)
@@ -601,19 +607,33 @@ def _gauss_newton(mode, T_WCs, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
         wq = _edge_weights(pre, valid_match, Q, cfg, cfg.point_stride)
         plan = _assembly_plan(ii, jj, n_kf, K_cap, cfg.pin)
     T = T_WCs.contiguous()
-    it = 0
-    while it < cfg.max_iters:
+    deltas = []
+    while len(deltas) < cfg.max_iters:
         _, _, Hd, gd = _edge_system(mode, T, Xs, Cs, ii, jj, idx_ii2jj,
                                     valid_match, Q, edge_mask, n_kf, K_cap,
                                     cfg.pin, cfg, pre, calib, wq, plan)
-        dx, free = _solve(Hd, gd, n_kf, K_cap, cfg.pin, cfg.solver)
-        T = torch.where(free[:, None], sim3.retr(T, dx), T)
-        delta_norm = torch.linalg.vector_norm(
-            torch.where(free[:, None], dx, torch.zeros_like(dx)))
-        it += 1
-        if bool(delta_norm < cfg.delta_norm):   # the iteration's host read
+        T, done = _step(T, Hd, gd, n_kf, K_cap, cfg, deltas)
+        if done:
             break
-    return BAResult(T, it)
+    return BAResult(T, len(deltas), tuple(deltas))
+
+
+def _step(T, Hd, gd, n_kf: int, K_cap: int, cfg: BAConfig, deltas: list):
+    """Solve, retract the free poses, and the stop rule (``ba.py:509-526``):
+    appends the step norm, read to the host (the iteration's one read), to
+    ``deltas``; True when it is below ``cfg.delta_norm`` (compared in fp32,
+    as the JAX package compares it)."""
+    dx, free = _solve(Hd, gd, n_kf, K_cap, cfg.pin, cfg.solver)
+    return _retract(T, dx, free, cfg, deltas)
+
+
+def _retract(T, dx, free, cfg: BAConfig, deltas: list):
+    """The free poses moved by dx, and the stop rule of ``_step``."""
+    T = torch.where(free[:, None], sim3.retr(T, dx), T)
+    delta = float(torch.linalg.vector_norm(
+        torch.where(free[:, None], dx, torch.zeros_like(dx))))
+    deltas.append(delta)
+    return T, delta < float(np.float32(cfg.delta_norm))
 
 
 @torch.no_grad()

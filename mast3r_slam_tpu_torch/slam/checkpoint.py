@@ -128,6 +128,9 @@ def load_state(path, system):
     system.backend_queue = [int(x) for x in data["backend_queue"]]
     system._retrieval_prefetch = {}
     system._consec_match = {}
+    if system._backend_mirror is not None:
+        # the backend's copy of the restored store (checkpoint.py:138-140)
+        system._backend_mirror.remirror()
     if system.retrieval is not None and "retrieval_kf_counter" in data:
         st = {k[len("ivf_"):]: data[k] for k in data.files
               if k.startswith("ivf_")}

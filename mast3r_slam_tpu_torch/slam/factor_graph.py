@@ -17,11 +17,14 @@ row, so no write needs the host to know how many rows were kept. The
 device keeps its own edge count (``n_edges_dev``) for the same reason:
 ``add_factors(defer=True)`` followed by a solve needs no host read.
 
-``ba_backend`` ``"edge_sharded"`` and ``"schur"`` shard the solve over a
-device mesh in the JAX package and fall back to the dense solve without
-one (``factor_graph.py:604``, ``:658``). The port has no mesh yet
-(ROADMAP.md queue 1 item 7), so every backend solves dense, as the JAX
-package does on one device.
+``ba_backend`` ``"edge_sharded"`` and ``"schur"`` shard the solve over
+the ``mesh`` of devices (``parallel/dist_ba.py``, ``parallel/schur.py``;
+``factor_graph.py:600-700``) when it has more than one; without one they
+solve dense, as the JAX package does. A sharded solve flushes the deferred
+edge gates first (the partition needs exact counts), and Schur falls back
+to ``edge_sharded`` when the separator dominates. The solved poses go
+through the store's ``update_T_WCs``, which a ``BackendMirror`` also
+pushes to the frontend's store.
 """
 
 from __future__ import annotations
@@ -202,8 +205,9 @@ class FactorGraph:
     def __init__(self, params, model_cfg, keyframes: KeyframeStore,
                  cfg: FactorGraphConfig, ba_cfg: BAConfig,
                  mcfg: MatchingConfig, K=None, downsample: int = 1,
-                 model_module=mast3r):
+                 model_module=mast3r, mesh=None):
         self.device = keyframes.X.device
+        self.mesh = mesh
         self.downsample = downsample
         self.model_mod = model_module
         self.params = params
@@ -237,6 +241,7 @@ class FactorGraph:
         self.n_edges_ub = 0          # host upper bound on the device count
         self._pending: list = []     # deferred gate readbacks, FIFO
         self.last_solve_iters = 0    # GN iterations of the newest solve
+        self.last_solve_backend = None   # the backend that solved it
         z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=self.device)
         # one extra row: the sentinel that swallows dropped writes
         self._bufs = (z((E + 1,), torch.int32), z((E + 1,), torch.int32),
@@ -324,9 +329,11 @@ class FactorGraph:
         deferred gates of earlier ``add_factors`` calls reconcile in
         order."""
         self.ensure_capacity(self.n_edges_ub + 2)
+        # the tracker's match arrives from the frontend's device
         self.n_edges_dev = _add_tracked_edge_body(
-            self._bufs, int(i), int(j), idx_j_per_i, valid.to(torch.bool),
-            Q.to(torch.float32), self.n_edges_dev)
+            self._bufs, int(i), int(j), idx_j_per_i.to(self.device),
+            valid.to(self.device, torch.bool),
+            Q.to(self.device, torch.float32), self.n_edges_dev)
         rec = ("fixed", self.capacity)
         if self._pending:
             self._pending.append(rec)
@@ -421,9 +428,6 @@ class FactorGraph:
         Eb = min(max(self.n_edges, self.n_edges_ub), self.capacity)
         return Eb, len(self.frames)
 
-    def _adopt_poses(self, T, Kb):
-        self.frames.T_WC[:Kb] = T      # in-place leading-row write
-
     def _solve_args(self):
         Eb, Kb = self._buckets()
         # with deferred add_factors in flight the device's edge count is
@@ -443,26 +447,63 @@ class FactorGraph:
                 or len(self.frames) <= self.ba_cfg.pin)
 
     def solve_GN_rays(self):
-        if self._nothing_to_solve():
-            return
-        Kb, args = self._solve_args()
-        res = ba.gauss_newton_rays(
-            self.frames.T_WC[:Kb], self.frames.X[:Kb],
-            self.frames.average_confs(Kb), *args, self.ba_cfg)
-        self.last_solve_iters = res.iters
-        self._adopt_poses(res.T_WC, Kb)
+        self._solve_GN("rays")
 
     def solve_GN_calib(self):
+        self._solve_GN("calib")
+
+    def _solve_GN(self, residual):
+        """Global GN over every keyframe with the configured backend
+        (``factor_graph.py:600``, ``:654``)."""
         if self._nothing_to_solve():
             return
-        img_size = (self.frames.h, self.frames.w)
+        backend = (self.cfg.ba_backend
+                   if self.mesh is not None and self.mesh.size > 1
+                   else "dense")
+        if backend != "dense":
+            self.flush()     # the partition needs exact counts
+            if self.n_edges == 0:
+                return
         Kb, args = self._solve_args()
-        Xs = constrain_all(self.frames.X[:Kb], self.K, img_size)
-        res = ba.gauss_newton_calib(
-            self.frames.T_WC[:Kb], Xs, self.frames.average_confs(Kb),
-            self.K, *args, img_size, self.ba_cfg)
+        T0, Xs, Cs = (self.frames.T_WC[:Kb], self.frames.X[:Kb],
+                      self.frames.average_confs(Kb))
+        img_size = (self.frames.h, self.frames.w)
+        if residual == "calib":
+            Xs = constrain_all(Xs, self.K, img_size)
+        if backend == "schur":
+            from ..parallel import schur
+
+            Eb = args[0].shape[0]
+            ij = torch.stack([args[0], args[1]]).cpu().numpy()
+            part, order, keep = schur.schur_partition(
+                ij[0], ij[1], np.arange(Eb) < self.n_edges, K_cap=Kb,
+                n_shards=self.mesh.size)
+            if schur.separator_dominated(part, len(self.frames)):
+                backend = "edge_sharded"
+        if backend == "schur":
+            res = schur.gauss_newton_schur(
+                T0, Xs, Cs, self.K, part.owner, part.int_slot,
+                part.sep_slot, *schur.reorder_edges(order, keep, *args[:6]),
+                args[6], part.I_cap, part.S_cap, self.mesh, self.ba_cfg,
+                residual=residual, img_size=img_size)
+        elif backend == "edge_sharded":
+            from ..parallel import dist_ba, mesh as mesh_mod
+
+            nd = self.mesh.size
+            pad = lambda a, fill=0: mesh_mod.pad_to_multiple(a, nd, 0, fill)
+            ii, jj, idx, vm, Q, mask, n_kf = args
+            res = dist_ba.gauss_newton_dist(
+                T0, Xs, Cs, self.K, pad(ii), pad(jj), pad(idx),
+                pad(vm, False), pad(Q), pad(mask), n_kf, self.mesh,
+                self.ba_cfg, residual=residual, img_size=img_size)
+        elif residual == "calib":
+            res = ba.gauss_newton_calib(T0, Xs, Cs, self.K, *args, img_size,
+                                        self.ba_cfg)
+        else:
+            res = ba.gauss_newton_rays(T0, Xs, Cs, *args, self.ba_cfg)
         self.last_solve_iters = res.iters
-        self._adopt_poses(res.T_WC, Kb)
+        self.last_solve_backend = backend
+        self.frames.update_T_WCs(res.T_WC)
 
 
 def constrain_all(Xs, K, img_size):

@@ -35,6 +35,11 @@ def median(x):
     return v[n // 2] if n % 2 else 0.5 * (v[n // 2 - 1] + v[n // 2])
 
 
+def _avg_confs(C, N):
+    """Average confidences C / N per row, N clamped to 1."""
+    return C / torch.clamp(N, min=1).to(C.dtype)[:, None]
+
+
 def _score(C, score_fn):
     return median(C) if score_fn == "median" else torch.mean(C)
 
@@ -202,9 +207,14 @@ class KeyframeStore:
             return None
         return self.get_frame(self.n_size - 1)
 
+    def update_T_WCs(self, T_WCs):
+        """Adopt solved poses for the leading ``T_WCs.shape[0]`` rows (the
+        factor graph's write back; ``parallel/backend_device.BackendMirror``
+        also pushes them to the frontend's store)."""
+        self.T_WC[:T_WCs.shape[0]] = T_WCs
+
     def average_confs(self, rows: Optional[int] = None):
         """Average confidences C / N of the first ``rows`` slots (default:
         all), (rows, P); inactive rows -> 0."""
         rows = self.capacity if rows is None else rows
-        N = torch.clamp(self.N[:rows], min=1).to(self.C.dtype)
-        return self.C[:rows] / N[:, None]
+        return _avg_confs(self.C[:rows], self.N[:rows])

@@ -347,7 +347,7 @@ class RetrievalDatabase:
         for h, t in zip(host, (feats, words)):
             h.copy_(t, non_blocking=True)
         event = torch.cuda.Event()
-        event.record()
+        event.record(torch.cuda.current_stream(feats.device))
         return host[0], host[1], event
 
     def update(self, backbone_feat, add_after_query: bool, k: int,

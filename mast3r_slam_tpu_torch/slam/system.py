@@ -34,9 +34,14 @@ by ``state_lock`` (both issue their work on the same CUDA stream). It can
 checkpoint the state every N frames (``slam/checkpoint.py``), start from a
 resumed frame and feed a live viewer (``viz_server.LiveViewer``).
 
-A backend on a second device (``runtime.backend_device`` naming one)
-raises ``NotImplementedError`` (ROADMAP.md queue 1 item 7); on one device
-the setting resolves to None and the run goes on, as in the JAX package.
+With ``runtime.backend_device`` naming a second local device
+(``parallel/backend_device.py``) the factor graph runs there on a
+``BackendMirror`` of the keyframe store, synced at the top of every backend
+step that has work and after a relocalization's tentative keyframe
+(``system.py:656-672``, ``:1010``, ``:1123``); on one device the setting
+resolves to None, as in the JAX package. ``SLAMSystem(mesh=)`` shards the
+global bundle adjustment over a device list when ``parallel.ba_backend``
+asks for it (``parallel/dist_ba.py``, ``parallel/schur.py``).
 """
 
 from __future__ import annotations
@@ -55,13 +60,11 @@ from ..io.image import resize_img
 from ..lie import sim3
 from ..models import mast3r
 from ..ops import matching
-from ..parallel.backend_device import pick_backend_device
+from ..parallel import backend_device as bdev
 from . import tracker as tracker_mod
 from .factor_graph import FactorGraph
 from .frame import Frame, KeyframeStore, Mode, _score, fuse_pointmap
 from .retrieval import RetrievalDatabase
-
-_TODO = "is not ported yet; see ROADMAP.md queue 1"
 
 
 def _track_match(model_mod, params, cfg, mcfg, feat_f, pos_f, feat_k, pos_k,
@@ -497,15 +500,16 @@ class SLAMSystem:
     def __init__(self, params, model_cfg, config: dict, img_shape,
                  retrieval_params=None, K=None, keyframe_capacity=None,
                  edge_capacity=None, model_module=mast3r, device="cuda",
-                 metrics=None):
+                 metrics=None, mesh=None, local_devices=None):
+        """``mesh`` (``parallel/mesh.make_mesh``): the devices a sharded
+        ``parallel.ba_backend`` solves over. ``local_devices``: the list
+        that ``runtime.backend_device`` indexes (default: the visible
+        GPUs on ``cuda``, the one CPU on ``cpu``); it may repeat a
+        device."""
         self.device = resolve_device(device)
         rt = config.get("runtime", {})
-        spec = rt.get("backend_device", "none")
-        backend_dev = pick_backend_device(spec, self.device)
-        if backend_dev is not None:
-            raise NotImplementedError(
-                f"runtime.backend_device={spec!r} names {backend_dev}: a "
-                f"second device for the backend {_TODO} item 7")
+        backend_dev = bdev.pick_backend_device(
+            rt.get("backend_device", "none"), self.device, local_devices)
         # frames per tracking dispatch (the windowed frontend of run())
         self.window = int(rt.get("tracking_window", 1))
         h, w = img_shape
@@ -543,11 +547,25 @@ class SLAMSystem:
                                                    "median"),
             use_calib=self.use_calib, K=K, model_mod=model_module)
         self.tracker.downsample = ds
+        # the backend on its own device: the factor graph gets that device's
+        # copy of the model and a mirror of the store (system.py:656-672)
+        fg_cfg = config_mod.make_factor_graph_config(config, e_cap)
+        self._backend_mirror = None
+        fg_params, fg_store, fg_K = params, self.keyframes, K
+        if backend_dev is not None:
+            if fg_cfg.ba_backend != "dense":
+                raise ValueError(
+                    "backend_device combines with the dense BA backend only "
+                    "(the sharded backends already span the mesh)")
+            fg_params = bdev.params_to(params, backend_dev)
+            self._backend_mirror = bdev.BackendMirror(self.keyframes,
+                                                      backend_dev)
+            fg_store = self._backend_mirror
+            fg_K = None if K is None else K.to(backend_dev)
         self.factor_graph = FactorGraph(
-            params, model_cfg, self.keyframes,
-            config_mod.make_factor_graph_config(config, e_cap),
-            config_mod.make_ba_config(config), self.tracker.mcfg, K=K,
-            downsample=ds, model_module=model_module)
+            fg_params, model_cfg, fg_store, fg_cfg,
+            config_mod.make_ba_config(config), self.tracker.mcfg, K=fg_K,
+            downsample=ds, model_module=model_module, mesh=mesh)
         self.retrieval = (
             RetrievalDatabase(retrieval_params,
                               config_mod.make_retrieval_config(config))
@@ -805,6 +823,10 @@ class SLAMSystem:
         before stepping)."""
         if flush_deferred:
             self.factor_graph.flush()
+        if (self._backend_mirror is not None
+                and (self.reloc_pending or self.backend_queue)):
+            # only when there is backend work (system.py:1010)
+            self._backend_mirror.sync()
         if self.reloc_pending:
             self.reloc_pending = False
             if self._relocalize(self.current_frame):
@@ -904,6 +926,8 @@ class SLAMSystem:
         if not kf_idx:
             return False
         self.keyframes.append(frame)
+        if self._backend_mirror is not None:
+            self._backend_mirror.sync()     # the tentative keyframe's rows
         n_kf = len(self.keyframes)
         print(f"RELOCALIZING against kf {n_kf - 1} and {kf_idx}")
         ok = self.factor_graph.add_factors(
@@ -914,7 +938,12 @@ class SLAMSystem:
                                   k=int(rcfg["k"]),
                                   min_thresh=float(rcfg["min_thresh"]))
             # seed the pose from the best retrieved keyframe
-            self.keyframes.T_WC[n_kf - 1] = self.keyframes.T_WC[kf_idx[0]]
+            if self._backend_mirror is not None:
+                self._backend_mirror.seed_pose(
+                    n_kf - 1, self.keyframes.T_WC[kf_idx[0]])
+            else:
+                self.keyframes.T_WC[n_kf - 1] = self.keyframes.T_WC[
+                    kf_idx[0]]
             self.stats["keyframes"] += 1
             self._solve()
             print("Success! Relocalized")

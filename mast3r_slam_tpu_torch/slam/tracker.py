@@ -186,12 +186,10 @@ def _launch(T, Xf, tgt_t, si_t, huber_k, calib, max_iters, rel_error,
     iters = torch.empty((), dtype=torch.int32, device=dev)
     failed = torch.empty((), dtype=torch.bool, device=dev)
     c = calib if calib is not None else _NO_CALIB
-    p = _kernels.ptr
     _kernels.launch(
-        "gn_step", p(T), p(Xf), p(tgt_t), p(si_t), p(part), p(out),
-        p(iters), p(failed), n, int(calib is not None), int(max_iters),
-        max_blocks, float(huber_k), float(rel_error), float(delta_norm),
-        c.fx, c.fy, c.cx, c.cy,
+        "gn_step", T, Xf, tgt_t, si_t, part, out, iters, failed, n,
+        int(calib is not None), int(max_iters), max_blocks, float(huber_k),
+        float(rel_error), float(delta_norm), c.fx, c.fy, c.cx, c.cy,
         float(c.border), float(c.w - 1 - c.border),
         float(c.h - 1 - c.border), float(c.z_eps))
     return out, iters, failed

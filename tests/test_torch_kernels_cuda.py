@@ -506,6 +506,59 @@ def test_edge_system_many_keyframes(cuda, K_cap, E):
     assert not gd[:7].any() and not gd[7 * n_kf:].any()
 
 
+@pytest.mark.parametrize("residual", ["rays", "calib"])
+def test_dist_ba_two_shards_matches_dense_kernel_path(cuda, residual):
+    """``parallel/dist_ba.gauss_newton_dist`` over two shards of cuda:0
+    (each shard's system from its own ``ba_edge_terms`` launch, summed in
+    shard order) against the dense solve on the kernel path: poses within
+    1e-4, as many iterations, one launch a shard an iteration."""
+    from mast3r_slam_tpu_torch import geometry
+    from mast3r_slam_tpu_torch.lie import sim3
+    from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.parallel import dist_ba, mesh
+    from mast3r_slam_tpu_torch.slam import ba
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+    h, w, n_kf = 24, 32, 6
+    P = h * w
+    pts = torch.randn(P, 3, generator=g) * torch.tensor([1.0, 1.0, 0.5])
+    pts = pts + torch.tensor([0.0, 0.0, 4.0])
+    T_true = [sim3.identity()]
+    for _ in range(1, n_kf):
+        xi = 0.05 * torch.randn(7, generator=g)
+        T_true.append(sim3.mul(T_true[-1], sim3.exp(xi)))
+    T_true = torch.stack(T_true)
+    Xs = sim3.act(sim3.inv(T_true)[:, None], pts[None])
+    noise = 0.03 * torch.randn(n_kf, 7, generator=g)
+    noise[0] = 0.0
+    T = sim3.retr(T_true, noise)
+    pairs = [(k, k + 1) for k in range(n_kf - 1)] + [(0, n_kf - 1)]
+    ii = torch.tensor([a for p in pairs for a in p], dtype=torch.int32)
+    jj = torch.tensor([a for p in pairs for a in p[::-1]], dtype=torch.int32)
+    E = ii.shape[0]
+    edges = [ii, jj, torch.arange(P, dtype=torch.int32).repeat(E, 1),
+             torch.ones((E, P), dtype=torch.bool), torch.full((E, P), 4.0),
+             torch.ones(E)]
+    K = torch.tensor([[30.0, 0, w / 2], [0, 30.0, h / 2], [0, 0, 1.0]])
+    if residual == "calib":
+        Xs = geometry.constrain_points_to_ray((h, w), Xs, K)
+    T, Xs, K, *edges = (a.to(cuda) for a in (T, Xs, K, *edges))
+    Cs = torch.full((n_kf, P), 5.0, device=cuda)
+    cfg = ba.BAConfig(point_stride=4, max_iters=6)
+    size = (h, w) if residual == "calib" else None
+    dense = (ba.gauss_newton_calib(T, Xs, Cs, K, *edges, n_kf, size, cfg)
+             if residual == "calib"
+             else ba.gauss_newton_rays(T, Xs, Cs, *edges, n_kf, cfg))
+    n0 = _kernels.LAUNCHES["ba_edge_terms"]
+    res = dist_ba.gauss_newton_dist(
+        T, Xs, Cs, K, *edges, n_kf, mesh.make_mesh([cuda, cuda]), cfg,
+        residual=residual, img_size=size)
+    assert _kernels.LAUNCHES["ba_edge_terms"] == n0 + 2 * res.iters
+    assert res.iters == dense.iters
+    assert float((res.T_WC - dense.T_WC).abs().max()) <= 1e-4
+    assert float((res.T_WC - T).abs().max()) > 1e-3
+
+
 @pytest.mark.parametrize("stride", [1, 4])
 @pytest.mark.parametrize("mode", ["rays", "calib", "points"])
 def test_ba_edge_terms_matches_plain(cuda, mode, stride):

@@ -455,11 +455,13 @@ def test_cli_renders_viewer_and_one_device_ba_backend(tmp_path, monkeypatch,
     (["--host-id", "0"], None),
 ])
 def test_cli_unported_flags_raise(flags, item):
-    """Only the multi-host flags (item 7) raise ``NotImplementedError``
-    naming their ROADMAP.md item (``item`` None here). The flags of items
-    4 and 6 are ported, and item 7's on one device or one host run as the
-    JAX CLI runs them: they pass the check and the run fails where the JAX
-    CLI fails, on the missing dataset (no frame to read: ``IndexError``)."""
+    """Only the multi-host flags raise ``NotImplementedError`` naming their
+    ROADMAP.md item, queue 1 item 4 (``item`` None here). The other flags
+    are ported (``item``: the queue item that ported them, in the queue's
+    numbering of that time) and run as the JAX CLI runs them on one
+    device or one host: they pass the check and the run fails where the
+    JAX CLI fails, on the missing dataset (no frame to read:
+    ``IndexError``)."""
     viz = [] if flags == [] or flags[0] == "--serve-viz" else ["--no-viz"]
     argv = ["--dataset", "nowhere", "--device", "cpu"] + viz + flags
     if item is not None:
@@ -467,7 +469,7 @@ def test_cli_unported_flags_raise(flags, item):
             tcli.main(argv)
         return
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 7"):
+                       match="ROADMAP.md queue 1 item 4"):
         tcli.main(argv)
 
 
