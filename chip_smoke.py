@@ -142,6 +142,30 @@ Phases (any failure exits non-zero and prints no result line):
    ``parallel.ba_backend: edge_sharded`` over 2 x cuda:0: the dense loop
    run's gates and counts, keyframe poses within 1e-4 of it).
 
+9. Data-parallel tracking, the sharded decode and multi-host runs:
+   **dp_tracking** (two tpu_fast streams, first frames ``DP_FIRST``, one
+   W = 8 window each through ``track_window_dp`` over (cuda:0, cuda:0):
+   every output and store row bit-equal to the same window run alone, no
+   host sync while both are enqueued; wall ms of both beside two lone
+   windows), **sharded decode** (3 of the loop run's edges through
+   ``inference_symmetric_dp`` over (cuda:0, cuda:0) against the one-device
+   decode, within ``DECODE_TOL``), **multi-host BA** (two child processes
+   of this script, ``--phase9-child ba``, that share cuda:0 and meet over
+   gloo: the loop graph edge-sharded and by the Schur rule, the chain by
+   Schur, each over the 2 ranks; the ranks' poses bit-identical and within
+   ``SHARD_TOL`` of dense; the ms of a solve and of one all-reduce),
+   **multi-host loop** (``--phase9-child loop``: the loop run in both
+   processes with ``parallel.ba_backend: edge_sharded`` over a mesh of the
+   two ranks: the dense loop run's counts, poses bit-identical between the
+   ranks and within ``SHARD_TOL`` of the dense run's) and
+   **multi-host CLI** (``--phase9-child cli``: ``cli.main`` with
+   ``--coordinator 127.0.0.1:<port> --num-hosts 2 --host-id r --ba-backend
+   edge_sharded`` and ``SLAM_DIST_BACKEND=gloo`` on the cli run's frames:
+   both exit 0 and write byte-identical TUM files with the one-process
+   run's keyframes). Each child runs under ``CHILD_TIMEOUT``, prints its
+   launch counts in one ``PHASE9_CHILD`` JSON line, and fails the smoke if
+   it fails.
+
 The loop run's final factor graph is also put through ``ba_edge_terms``,
 its plain version and the plain version in float64, and one more tracked
 frame of the tpu_fast run counts its host syncs (PyTorch's sync debug
@@ -173,6 +197,7 @@ N_FAST, KF_FAST = 17, 4
 N_BASE, KF_BASE = 5, 2
 N_CALIB, KF_CALIB = 5, 2
 N_LOOP, KF_LOOP = 33, 4
+N_TRAJ = max(N_FAST + 2, N_BASE, N_LOOP)   # two more: syncs, profile
 KF_TELEPORT = 2
 WINDOW = 8                          # configs/tpu_fast.yaml's tracking_window
 # keyframe poses (all 8 numbers, max abs) of the window run against the
@@ -2656,6 +2681,19 @@ def run_solves(label, solves, ref, run_launches, reps=3):
     return out
 
 
+def moved_poses(g):
+    """The loop graph's poses moved off its converged ones (seeded)."""
+    import torch
+
+    from mast3r_slam_tpu_torch.lie import sim3
+
+    T0, pin = g["T"], g["cfg"].pin
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    xi = 0.01 * torch.randn((T0.shape[0], 7), generator=gen, device="cuda")
+    xi[:pin] = 0.0
+    return sim3.retr(T0, xi).contiguous()
+
+
 def sharded_graph_phase(g, run_launches):
     """**sharded BA on the loop graph**: the loop run's final graph solved
     from poses moved off its converged ones, dense, edge-sharded over 2 and
@@ -2665,19 +2703,15 @@ def sharded_graph_phase(g, run_launches):
     solve."""
     import torch
 
-    from mast3r_slam_tpu_torch.lie import sim3
     from mast3r_slam_tpu_torch.parallel import dist_ba
     from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
     from mast3r_slam_tpu_torch.slam import ba
 
-    T0, Xs, Cs, edges = g["T"], g["Xs"], g["Cs"], g["edges"]
+    Xs, Cs, edges = g["Xs"], g["Cs"], g["edges"]
     n_kf, cfg = g["n_kf"], g["cfg"]
     cuda0 = torch.device("cuda", 0)
     mesh = lambda n: mesh_mod.make_mesh([cuda0] * n)
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    xi = 0.01 * torch.randn((T0.shape[0], 7), generator=gen, device="cuda")
-    xi[:cfg.pin] = 0.0
-    T = sim3.retr(T0, xi).contiguous()
+    T = moved_poses(g)
     dense = ba.gauss_newton_rays(T, Xs, Cs, *edges, n_kf, cfg)
     solves = {
         "dense": lambda: ba.gauss_newton_rays(T, Xs, Cs, *edges, n_kf, cfg),
@@ -2701,22 +2735,15 @@ def sharded_graph_phase(g, run_launches):
     return out
 
 
-def schur_chain_phase(model_cfg, cfg, run_launches):
-    """**Schur where it eliminates**: a synthetic chain of ``CHAIN_KF``
-    keyframes at the model's resolution (every keyframe sees the same
-    random world points, matched by pixel index, as ``tests/test_schur.py``
-    builds its world) with the loop edges ``CHAIN_LOOPS``, poses noised;
-    rays and calibrated, solved dense, edge-sharded and by Schur over 2
-    and 4 shards of cuda:0. The partition must not be separator-dominated
-    and every solve must give the dense poses within ``SHARD_TOL``."""
+def chain_graph(model_cfg):
+    """The synthetic chain of ``CHAIN_KF`` keyframes at the model's
+    resolution, from a seeded generator on cuda:0 (every keyframe sees the
+    same random world points, matched by pixel index, as
+    ``tests/test_schur.py`` builds its world), with the loop edges
+    ``CHAIN_LOOPS`` and noised poses: (T, Xs, Cs, edges, K)."""
     import torch
 
-    from mast3r_slam_tpu_torch import geometry
     from mast3r_slam_tpu_torch.lie import sim3
-    from mast3r_slam_tpu_torch.parallel import dist_ba
-    from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
-    from mast3r_slam_tpu_torch.parallel import schur
-    from mast3r_slam_tpu_torch.slam import ba
 
     h, w = model_cfg.img_size
     P, n_kf, dev = h * w, CHAIN_KF, "cuda"
@@ -2747,6 +2774,26 @@ def schur_chain_phase(model_cfg, cfg, run_launches):
     f = 0.8 * w
     K = torch.tensor([[f, 0.0, w / 2.0], [0.0, f, h / 2.0], [0.0, 0.0, 1.0]],
                      device=dev)
+    return T, Xs, Cs, edges, K
+
+
+def schur_chain_phase(model_cfg, cfg, run_launches):
+    """**Schur where it eliminates**: ``chain_graph``, rays and calibrated,
+    solved dense, edge-sharded and by Schur over 2 and 4 shards of cuda:0.
+    The partition must not be separator-dominated and every solve must give
+    the dense poses within ``SHARD_TOL``."""
+    import torch
+
+    from mast3r_slam_tpu_torch import geometry
+    from mast3r_slam_tpu_torch.parallel import dist_ba
+    from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+    from mast3r_slam_tpu_torch.parallel import schur
+    from mast3r_slam_tpu_torch.slam import ba
+
+    h, w = model_cfg.img_size
+    P, n_kf = h * w, CHAIN_KF
+    T, Xs, Cs, edges, K = chain_graph(model_cfg)
+    ii, jj, E = edges[0], edges[1], edges[0].shape[0]
     cuda0 = torch.device("cuda", 0)
     mesh = lambda n: mesh_mod.make_mesh([cuda0] * n)
     ij = [a.cpu().numpy() for a in (ii, jj)]
@@ -2831,6 +2878,538 @@ def sharded_loop_phase(params, model_cfg, traj, loop_ref, rparams,
         f"{[(round(t, 3), it, kk, e) for t, it, kk, e in backend]}, "
         f"launches {launches}")
 
+# -- phase 9: data-parallel tracking, the sharded decode, multi-host runs ------
+
+DP_FIRST = (0, 16)      # the first frames of phase 9's two streams
+DECODE_TOL = 2e-3       # tests/test_parallel.py:63-66
+CHILD_TIMEOUT = 300     # seconds for each child process of phase 9
+CHILD_TAG = "PHASE9_CHILD "
+
+
+def window_seq(params, model_cfg, first):
+    """A tpu_fast system at ``kf_every=KF_FAST`` after its INIT frame
+    ``first``, and the ``SeqInputs`` of its next ``WINDOW`` frames on
+    cuda:0."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_tpu_torch.config import tpu_fast_config
+    from mast3r_slam_tpu_torch.models import oracle_timing
+    from mast3r_slam_tpu_torch.parallel import dp_tracking
+    from mast3r_slam_tpu_torch.slam.system import SLAMSystem
+
+    h, w = model_cfg.img_size
+    cfg = tpu_fast_config()
+    cfg["tracking"] = dict(cfg["tracking"], kf_every=KF_FAST)
+    system = SLAMSystem(params, model_cfg, cfg, (h, w), keyframe_capacity=16,
+                        edge_capacity=EDGE_CAPACITY,
+                        model_module=oracle_timing, device="cuda")
+    image = lambda i: oracle_timing.make_frame_image(i, h, w)
+    system.process_frame(system.make_frame(first, image(first)))
+    ids = list(range(first + 1, first + 1 + WINDOW))
+    imgs = torch.from_numpy(np.stack([image(i) for i in ids])).cuda()
+    seq = dp_tracking.SeqInputs(
+        imgs, ids, system.tracker.idx_f2k, system.current_frame.T_WC,
+        torch.eye(3, device="cuda"), len(system.keyframes) - 1,
+        system.keyframes)
+    return system, seq
+
+
+def _window_args(system):
+    tr = system.tracker
+    return dict(ds=system.downsample, fuse_mode=tr.filtering_mode,
+                score_fn=tr.filtering_score, use_calib=False,
+                capture_matches=system._reuse_consec)
+
+
+def lone_window(params, model_cfg, system, seq):
+    """``seq``'s window alone, as ``SLAMSystem.dispatch_window`` runs it."""
+    from mast3r_slam_tpu_torch.models import oracle_timing
+    from mast3r_slam_tpu_torch.slam.system import _track_window_body
+
+    tr, kfs, a = system.tracker, seq.kfs, _window_args(system)
+    return _track_window_body(
+        oracle_timing, params, model_cfg, tr.mcfg, tr.tcfg, seq.imgs,
+        seq.frame_ids, seq.idx_init, seq.prev_T_WC, seq.K, seq.last_idx,
+        kfs, a["ds"], a["fuse_mode"], a["score_fn"], False, (kfs.h, kfs.w),
+        None, a["capture_matches"])
+
+
+def wall_ms(fn, reps=3):
+    """Median host wall ms of ``fn()`` from an idle device to an idle
+    device."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def dp_tracking_phase(params, model_cfg, run_launches):
+    """**dp_tracking**: two streams (first frames ``DP_FIRST``) through
+    ``track_window_dp`` over (cuda:0, cuda:0), the tpu_fast settings, W =
+    ``WINDOW``: each stream's stats, poses, warm start and store rows
+    bit-equal to the same window run alone; no host sync while both
+    windows are enqueued; the wall ms of the two-stream window beside two
+    lone windows."""
+    import torch
+
+    from mast3r_slam_tpu_torch.models import oracle_timing
+    from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.parallel import dp_tracking
+    from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+
+    m = mesh_mod.make_mesh([torch.device("cuda", 0)] * 2)
+    by_device = dp_tracking.replicate_params(params, m)
+    lone = [window_seq(params, model_cfg, f) for f in DP_FIRST]
+    ref = [lone_window(params, model_cfg, s, q) for s, q in lone]
+    pairs = [window_seq(params, model_cfg, f) for f in DP_FIRST]
+    systems, seqs = [p[0] for p in pairs], [p[1] for p in pairs]
+    tr = systems[0].tracker
+    dp = lambda: dp_tracking.track_window_dp(
+        by_device, model_cfg, tr.mcfg, tr.tcfg, seqs, m,
+        model_mod=oracle_timing, **_window_args(systems[0]))
+    _kernels.reset_launch_counts()
+    box = {}
+    syncs = host_syncs_of(lambda: box.setdefault("outs", dp()))
+    stats = [o.hoststats.cpu() for o in box["outs"]]
+    torch.cuda.synchronize()
+    launches = run_launches["dp_tracking"] = dict(_kernels.LAUNCHES)
+    unequal = []
+    fields = ("hoststats", "T_WCf", "idx_last", "prev_T_WC")
+    bufs = ("X", "C", "N", "N_updates", "score", "T_WC", "feat", "pos",
+            "dataset_idx")
+    for s, (out, r, seq, (_, q)) in enumerate(zip(box["outs"], ref, seqs,
+                                                  lone)):
+        unequal += [f"{s}.{f}" for f in fields
+                    if not torch.equal(getattr(out, f), getattr(r, f))]
+        unequal += [f"{s}.kfs.{b}" for b in bufs
+                    if not torch.equal(getattr(seq.kfs, b),
+                                       getattr(q.kfs, b))]
+    promoted = [int(st[:, 5].sum()) for st in stats]
+    missing = sorted(k for k in FRONTEND if launches[k] <= 0)
+    if unequal or syncs or missing or min(promoted) < 1 or any(
+            float(st[:, 7].min()) < 1 for st in stats):
+        raise AssertionError(
+            f"dp_tracking: not bit-equal to the lone windows in {unequal}, "
+            f"host syncs while enqueueing {syncs}, never launched {missing}, "
+            f"keyframes promoted {promoted}, stats {stats}")
+    read = lambda outs: [o.hoststats.cpu() for o in outs]
+    out = {"streams": len(seqs), "window": WINDOW,
+           "first_frames": list(DP_FIRST), "keyframes_promoted": promoted,
+           "bit_equal_to_lone_windows": True,
+           "host_syncs_while_enqueueing": len(syncs),
+           "two_stream_window_ms": wall_ms(lambda: read(dp())),
+           "two_lone_windows_ms": wall_ms(lambda: read(
+               [lone_window(params, model_cfg, s, q) for s, q in lone])),
+           "launches": {k: v for k, v in launches.items() if v}}
+    log("dp_tracking: " + json.dumps(out))
+    return out
+
+
+def sharded_decode_phase(net, model_cfg, batch, run_launches):
+    """**sharded decode**: the loop run's edge batch (``batch``: feat_i,
+    pos_i, feat_j, pos_j of 3 of its edges) decoded by the ViT-L network
+    with ``inference_symmetric_dp`` over (cuda:0, cuda:0) (padded to 4),
+    against the one-device ``inference_symmetric``: every output within
+    ``DECODE_TOL``; ms of both."""
+    import torch
+
+    from mast3r_slam_tpu_torch.models import mast3r
+    from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.parallel import dp_tracking
+    from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+
+    m = mesh_mod.make_mesh([torch.device("cuda", 0)] * 2)
+    by_device = dp_tracking.replicate_params(net, m)
+    dp = lambda: dp_tracking.inference_symmetric_dp(by_device, m, *batch,
+                                                    model_cfg)
+    _kernels.reset_launch_counts()
+    got = dp()
+    torch.cuda.synchronize()
+    launches = run_launches["sharded_decode"] = dict(_kernels.LAUNCHES)
+    one = lambda: mast3r.inference_symmetric(net, *batch, model_cfg)
+    ref = one()
+    diff = {k: float((got[k].float() - ref[k].float()).abs().max())
+            for k in ref}
+    bad = [k for k in ref if got[k].shape != ref[k].shape
+           or not torch.isfinite(got[k].float()).all()
+           or not diff[k] <= DECODE_TOL]
+    if bad or set(got) != set(ref) or launches["rope_qk"] <= 0:
+        raise AssertionError(f"sharded decode: outputs {bad} differ (max abs "
+                             f"{diff}, gate {DECODE_TOL}), launches "
+                             f"{launches}")
+    out = {"edges": int(batch[0].shape[0]), "shards": m.size,
+           "max_abs_diff": max(diff.values()), "by_output": diff,
+           "ms": time_ms(dp, reps=5, warmup=1),
+           "one_device_ms": time_ms(one, reps=5, warmup=1),
+           "launches": {k: v for k, v in launches.items() if v}}
+    log("sharded decode: " + json.dumps(out))
+    return out
+
+
+def loop_edge_batch(system, n=3):
+    """feat_i, pos_i, feat_j, pos_j of ``n`` edges of the run's final graph,
+    loop closures first, as the backend decodes a batch."""
+    import torch
+
+    fg, kfs = system.factor_graph, system.keyframes
+    e = fg.n_edges
+    pairs = list(zip(fg.ii[:e].tolist(), fg.jj[:e].tolist()))
+    pairs = sorted(pairs, key=lambda p: -abs(p[0] - p[1]))[:n]
+    ii = torch.tensor([p[0] for p in pairs], device=kfs.feat.device)
+    jj = torch.tensor([p[1] for p in pairs], device=kfs.feat.device)
+    return (kfs.feat[ii].clone(), kfs.pos[ii].clone(), kfs.feat[jj].clone(),
+            kfs.pos[jj].clone())
+
+
+def run_children(argvs, envs, cwd):
+    """Start ``python3 chip_smoke.py --phase9-child <argv>`` once per argv,
+    all at once, each with its env added; wait for each under
+    ``CHILD_TIMEOUT``. A nonzero exit or a timeout of any child fails (the
+    others are killed). Returns each child's ``CHILD_TAG`` JSON and its
+    output."""
+    import os
+
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase9-child", *argv],
+        env=dict(os.environ, **env), cwd=cwd, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for argv, env in zip(argvs,
+                                                                   envs)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=CHILD_TIMEOUT)
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    failed = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        raise AssertionError("phase 9 children failed: " + "\n".join(
+            f"child {i} (rc {procs[i].returncode}): {outs[i][-4000:]}"
+            for i in failed))
+    found = []
+    for out in outs:
+        tagged = [ln for ln in out.splitlines() if ln.startswith(CHILD_TAG)]
+        if len(tagged) != 1:
+            raise AssertionError(f"phase 9 child printed no result: "
+                                 f"{out[-4000:]}")
+        found.append(json.loads(tagged[0][len(CHILD_TAG):]))
+    return found, outs
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _ranks(port):
+    return [{"SLAM_COORDINATOR": f"127.0.0.1:{port}",
+             "SLAM_NUM_PROCESSES": "2", "SLAM_PROCESS_ID": str(r),
+             "SLAM_DIST_BACKEND": "gloo"} for r in range(2)]
+
+
+def multi_host_ba_phase(g, run_launches):
+    """**multi-host BA**: two processes that share cuda:0 meet over gloo
+    (``SLAM_*``, ``SLAM_DIST_BACKEND=gloo``) and solve the loop graph from
+    moved poses, edge-sharded over the 2 ranks and by the Schur rule (which
+    falls back there), and the chain of ``chain_graph`` by Schur over the 2
+    ranks (which eliminates). The ranks' poses must be bit-identical and
+    within ``SHARD_TOL`` of the dense solve."""
+    import pathlib
+    import tempfile
+
+    import torch
+
+    from mast3r_slam_tpu_torch.slam import ba
+
+    T = moved_poses(g)
+    dense = ba.gauss_newton_rays(T, g["Xs"], g["Cs"], *g["edges"], g["n_kf"],
+                                 g["cfg"])
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        torch.save({"T": T.cpu(), "Xs": g["Xs"].cpu(), "Cs": g["Cs"].cpu(),
+                    "edges": [a.cpu() for a in g["edges"]],
+                    "n_kf": g["n_kf"], "cfg": g["cfg"]._asdict(),
+                    "dense": dense.T_WC.cpu()}, tmp / "graph.pt")
+        t0 = time.perf_counter()
+        found, _ = run_children(
+            [["ba", str(tmp / "graph.pt"), str(tmp / f"rank{r}.pt")]
+             for r in range(2)], _ranks(_free_port()), str(tmp))
+        wall = time.perf_counter() - t0
+        results = [torch.load(tmp / f"rank{r}.pt") for r in range(2)]
+    unequal = [name for name in results[0]
+               if not torch.equal(results[0][name], results[1][name])]
+    diffs = found[0]["max_pose_diff"]
+    if unequal or any(not d <= SHARD_TOL for d in diffs.values()) or any(
+            f["fell_back"]["schur_chain"] for f in found):
+        raise AssertionError(f"multi-host BA: ranks differ in {unequal}, "
+                             f"poses from dense {diffs} (gate {SHARD_TOL}), "
+                             f"{found}")
+    for f in found:
+        run_launches[f"multi_host_ba_rank{f['rank']}"] = f["launches"]
+    out = {"ranks": 2, "backend": "gloo", "wall_s": wall,
+           "ranks_bit_identical": True, "max_pose_diff": diffs,
+           "iters": found[0]["iters"], "fell_back": found[0]["fell_back"],
+           "ms_by_rank": [f["ms"] for f in found],
+           "all_reduce_floats": found[0]["all_reduce_floats"],
+           "all_reduce_ms_by_rank": [f["all_reduce_ms"] for f in found],
+           "child_s": [f["seconds"] for f in found]}
+    log("multi-host BA: " + json.dumps(out))
+    return out
+
+
+def multi_host_cli_phase(run_launches):
+    """**multi-host CLI**: ``cli.main`` (the ``python -m
+    mast3r_slam_tpu_torch`` entry) as two processes sharing cuda:0,
+    ``--coordinator 127.0.0.1:<port> --num-hosts 2 --host-id r --ba-backend
+    edge_sharded`` with ``SLAM_DIST_BACKEND=gloo``, on the cli run's
+    synthetic frames and config, each writing its own ``--save-as``: both
+    exit 0, their TUM files are byte-identical and hold the one-process
+    run's keyframe count and poses (within ``SHARD_TOL``)."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import pathlib
+    import tempfile
+
+    import numpy as np
+
+    from mast3r_slam_tpu_torch import cli
+
+    repo = pathlib.Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        "make_synth_dataset", repo / "scripts" / "make_synth_dataset.py")
+    synth = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synth)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        seq = synth.make(tmp / "synth_seq", n_frames=16)
+        base = ["--dataset", str(seq), "--config",
+                str(repo / "configs" / "eval_no_calib.yaml"), "--no-viz",
+                "--max-frames", "8", "--ba-backend", "edge_sharded"]
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                one = cli.main(base + ["--save-as", "one"])
+        finally:
+            os.chdir(cwd)
+        port = _free_port()
+        t0 = time.perf_counter()
+        found, outs = run_children(
+            [["cli"] + base + ["--save-as", f"rank{r}", "--coordinator",
+                               f"127.0.0.1:{port}", "--num-hosts", "2",
+                               "--host-id", str(r)] for r in range(2)],
+            [{"SLAM_DIST_BACKEND": "gloo"}] * 2, str(tmp))
+        wall = time.perf_counter() - t0
+        tum = [(tmp / "logs" / d / "synth_seq.txt").read_bytes()
+               for d in ("rank0", "rank1", "one")]
+    lines = [ln for o in outs for ln in o.splitlines()
+             if ln.startswith("torch.distributed:")
+             or ln.startswith("global BA:")]
+    T = [np.atleast_2d(np.loadtxt(io.StringIO(t.decode()))) for t in tum]
+    d = (float(np.abs(T[0] - T[2]).max()) if T[0].shape == T[2].shape
+         else None)
+    k = [f["stats"]["keyframes"] for f in found]
+    if (tum[0] != tum[1] or k[0] != k[1] or k[0] != one["keyframes"]
+            or len(T[0]) != k[0] or d is None or not d <= SHARD_TOL
+            or sum("over gloo" in ln for ln in lines) != 2):
+        raise AssertionError(
+            f"multi-host CLI: TUM files equal {tum[0] == tum[1]}, keyframes "
+            f"{k} vs one process {one['keyframes']}, poses from the "
+            f"one-process run {d}, lines {lines}")
+    for r, f in enumerate(found):
+        run_launches[f"multi_host_cli_rank{r}"] = f["launches"]
+    out = {"ranks": 2, "wall_s": wall, "tum_identical": True,
+           "keyframes": k[0], "max_pose_diff_one_process": d,
+           "stats": found[0]["stats"], "printed": lines,
+           "child_s": [f["seconds"] for f in found]}
+    log("multi-host CLI: " + json.dumps(out))
+    return out
+
+
+def multi_host_loop_phase(loop_ref, run_launches):
+    """**multi-host loop**: the loop run (``run_slam``, tpu_fast as its YAML
+    states it, retrieval, 33 frames) in two processes that share cuda:0
+    over gloo, with ``parallel.ba_backend: edge_sharded`` over a mesh of
+    both ranks: each rank gives the dense loop run's stats and edge count,
+    and the ranks' keyframe poses are bit-identical and within
+    ``SHARD_TOL`` of the dense loop run's."""
+    import pathlib
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        found, _ = run_children([["loop", str(tmp / f"rank{r}.pt")]
+                                 for r in range(2)], _ranks(_free_port()),
+                                str(tmp))
+        wall = time.perf_counter() - t0
+        Ts = [torch.load(tmp / f"rank{r}.pt") for r in range(2)]
+    ref = torch.from_numpy(loop_ref["T"])
+    d = (float((Ts[0] - ref).abs().max()) if Ts[0].shape == ref.shape
+         else None)
+    missing = [sorted(k for k in LOOP_KERNELS if f["launches"][k] <= 0)
+               for f in found]
+    if (not torch.equal(Ts[0], Ts[1]) or d is None or not d <= SHARD_TOL
+            or any(f["stats"] != loop_ref["stats"]
+                   or f["edges"] != loop_ref["edges"]
+                   or f["backend"] != "edge_sharded" for f in found)
+            or any(missing)):
+        raise AssertionError(
+            f"multi-host loop: ranks equal {torch.equal(Ts[0], Ts[1])}, "
+            f"poses from the dense loop run {d} (gate {SHARD_TOL}), never "
+            f"launched {missing}, {found} vs {loop_ref['stats']}, edges "
+            f"{loop_ref['edges']}")
+    for f in found:
+        run_launches[f"multi_host_loop_rank{f['rank']}"] = f["launches"]
+    out = {"ranks": 2, "wall_s": wall, "ranks_bit_identical": True,
+           "max_pose_diff_dense_loop": d, "stats": found[0]["stats"],
+           "edges": found[0]["edges"],
+           "backend_ms_by_rank": [f["backend_ms"] for f in found],
+           "frontend_median_ms_by_rank": [f["frontend_median_ms"]
+                                          for f in found],
+           "child_s": [f["seconds"] for f in found]}
+    log("multi-host loop: " + json.dumps(out))
+    return out
+
+
+def phase9_child(kind, *args):
+    """A child process of phase 9: ``ba <graph.pt> <out.pt>``, ``loop
+    <out.pt>`` or ``cli <argv...>``. Prints one ``CHILD_TAG`` JSON line;
+    returns 0."""
+    import torch
+
+    from mast3r_slam_tpu_torch.ops import _kernels
+
+    t0 = time.perf_counter()
+    if kind == "cli":
+        from mast3r_slam_tpu_torch import cli
+
+        _kernels.reset_launch_counts()
+        result = {"stats": cli.main(list(args))}
+        torch.cuda.synchronize()
+        result["launches"] = dict(_kernels.LAUNCHES)
+    elif kind == "loop":
+        result = _child_loop(*args)
+    else:
+        result = _child_ba(*args)
+    result["seconds"] = time.perf_counter() - t0
+    print(CHILD_TAG + json.dumps(result), flush=True)
+    return 0
+
+
+def _child_loop(out_path):
+    import torch
+    import torch.distributed as dist
+
+    from mast3r_slam_tpu_torch.config import tpu_fast_config
+    from mast3r_slam_tpu_torch.models import mast3r, oracle, oracle_timing
+    from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+    from mast3r_slam_tpu_torch.slam import retrieval
+
+    if not mesh_mod.init_distributed(device="cuda"):
+        raise RuntimeError("phase 9 child: no process group")
+    # main()'s network, oracle and retrieval head, from the same seeds
+    model_cfg = mast3r.MASt3RConfig(head_dtype="bfloat16")
+    net = mast3r.init_params(
+        model_cfg, torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    orc = oracle.make_params(make_traj(N_TRAJ).cuda(),
+                             desc_dim=model_cfg.desc_dim, seed=0,
+                             device="cuda")
+    rparams = retrieval.init_retrieval_params(
+        torch.Generator(device="cuda").manual_seed(1),
+        backbone_dim=model_cfg.enc_embed_dim, proj_dim=1024,
+        codebook_size=CODEBOOK, device="cuda")
+    m = mesh_mod.make_mesh()
+    _kernels.reset_launch_counts()
+    system, times, backend = run_slam(
+        tpu_fast_config(), oracle_timing.make_params(net, orc), model_cfg,
+        N_LOOP, KF_LOOP, retrieval_params=rparams,
+        edge_capacity=EDGE_CAPACITY_LOOP,
+        parallel={"ba_backend": "edge_sharded"}, mesh=m)
+    torch.cuda.synchronize()
+    k = len(system.keyframes)
+    torch.save(system.keyframes.T_WC[:k].cpu(), out_path)
+    fg = system.factor_graph
+    out = {"rank": dist.get_rank(), "mesh_size": m.size,
+           "stats": system.stats, "edges": fg.n_edges,
+           "backend": fg.last_solve_backend,
+           "launches": dict(_kernels.LAUNCHES),
+           "frontend_median_ms": statistics.median(times[1:]),
+           "backend_ms": [round(b[0], 3) for b in backend]}
+    dist.destroy_process_group()
+    return out
+
+
+def _child_ba(graph_path, out_path):
+    import torch
+    import torch.distributed as dist
+
+    from mast3r_slam_tpu_torch.config import BAConfig
+    from mast3r_slam_tpu_torch.models import mast3r
+    from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.parallel import dist_ba
+    from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+    from mast3r_slam_tpu_torch.slam import ba
+
+    if not mesh_mod.init_distributed(device="cuda"):
+        raise RuntimeError("phase 9 child: no process group")
+    g = torch.load(graph_path)
+    T, Xs, Cs = (g[k].cuda() for k in ("T", "Xs", "Cs"))
+    edges = [a.cuda() for a in g["edges"]]
+    n_kf, cfg, dense = g["n_kf"], BAConfig(**g["cfg"]), g["dense"].cuda()
+    m = mesh_mod.make_mesh()
+    Tc, Xc, Cc, ec, _ = chain_graph(mast3r.MASt3RConfig())
+    chain_dense = ba.gauss_newton_rays(Tc, Xc, Cc, *ec, CHAIN_KF, cfg).T_WC
+    solves = {
+        "edge_sharded": lambda: dist_ba.gauss_newton_rays_dist(
+            T, Xs, Cs, *_padded(edges, m.size), n_kf, m, cfg),
+        "schur": lambda: _schur_or_fallback(T, Xs, Cs, None, edges, n_kf, m,
+                                            cfg, "rays", None),
+        "schur_chain": lambda: _schur_or_fallback(
+            Tc, Xc, Cc, None, ec, CHAIN_KF, m, cfg, "rays", None)}
+    refs = {"edge_sharded": dense, "schur": dense, "schur_chain": chain_dense}
+    _kernels.reset_launch_counts()
+    got = {name: fn() for name, fn in solves.items()}
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    res = {k: (v if hasattr(v, "T_WC") else v[0]) for k, v in got.items()}
+    # both ranks make the same calls in the same order, so every
+    # collective below pairs up
+    ms = {name: time_ms(fn, reps=3, warmup=0) for name, fn in solves.items()}
+    flat = torch.zeros(7 * T.shape[0] * (7 * T.shape[0] + 1), device="cuda")
+    ar_ms = time_ms(lambda: dist.all_reduce(flat), reps=20, warmup=3)
+    torch.save({k: r.T_WC.cpu() for k, r in res.items()}, out_path)
+    out = {"rank": dist.get_rank(), "world_size": dist.get_world_size(),
+           "mesh_size": m.size,
+           "max_pose_diff": {k: float((r.T_WC - refs[k]).abs().max())
+                             for k, r in res.items()},
+           "iters": {k: r.iters for k, r in res.items()},
+           "fell_back": {k: bool(v[2]) if not hasattr(v, "T_WC") else False
+                         for k, v in got.items()},
+           "ms": ms, "all_reduce_ms": ar_ms, "all_reduce_floats": flat.numel(),
+           "launches": launches}
+    dist.destroy_process_group()
+    return out
+
 
 def main():
     import torch
@@ -2877,8 +3456,7 @@ def main():
     log(f"ViT-L MASt3R init: {time.perf_counter() - t0:.2f} s, "
         f"{sum(p.numel() for p in net.parameters()) / 1e6:.1f} M params")
 
-    n_traj = max(N_FAST + 2, N_BASE, N_LOOP)   # two more: syncs, profile
-    traj = make_traj(n_traj).cuda()
+    traj = make_traj(N_TRAJ).cuda()
     orc = oracle.make_params(traj, desc_dim=model_cfg.desc_dim, seed=0,
                              device="cuda")
     params = oracle_timing.make_params(net, orc)
@@ -2972,7 +3550,8 @@ def main():
                 "edges": sys_l.factor_graph.n_edges,
                 "T": sys_l.keyframes.T_WC[:len(sys_l.keyframes)].cpu()
                 .numpy()}
-    loop_graph = loop_graph_of(sys_l)       # for phase 8
+    loop_graph = loop_graph_of(sys_l)       # for phases 8 and 9
+    decode_batch = loop_edge_batch(sys_l)   # for phase 9
     log(f"loop peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB (codebook "
         f"{CODEBOOK * 1024 * 4 / 2**20:.0f} MiB, edge buffers at capacity "
@@ -3098,6 +3677,17 @@ def main():
     log(f"phase 8 (the backend across devices): "
         f"{time.perf_counter() - t8:.2f} s")
 
+    # phase 9: data-parallel tracking, the sharded decode and multi-host
+    # runs (two processes that share cuda:0 over gloo)
+    t9 = time.perf_counter()
+    dp_tracking_phase(params, model_cfg, run_launches)
+    sharded_decode_phase(net, model_cfg, decode_batch, run_launches)
+    multi_host_ba_phase(loop_graph, run_launches)
+    multi_host_loop_phase(loop_ref, run_launches)
+    multi_host_cli_phase(run_launches)
+    log(f"phase 9 (data-parallel tracking, sharded decode, multi-host): "
+        f"{time.perf_counter() - t9:.2f} s")
+
     for r in records:
         r["launches_by_run"] = {label: ln[r["name"]]
                                 for label, ln in run_launches.items()}
@@ -3113,4 +3703,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase9-child"]:
+        sys.exit(phase9_child(*sys.argv[2:]))
     sys.exit(main())

@@ -6,7 +6,8 @@
         [--retrieval-checkpoint retrieval.pth --codebook codebook.pkl] \
         [--save-state state.npz [--save-state-every N]] \
         [--resume state.npz] [--estimate-calib] [--max-frames N] \
-        [--serve-viz PORT [--serve-viz-host ADDR]] [--device cuda|cpu]
+        [--serve-viz PORT [--serve-viz-host ADDR]] [--device cuda|cpu] \
+        [--coordinator HOST:PORT --num-hosts N --host-id R]
 
 Counterpart of ``mast3r_slam_tpu/cli.py``; it takes the same flags, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch versions of
@@ -28,9 +29,20 @@ first and needs only numpy).
 
 ``--ba-backend edge_sharded|schur`` shards the global bundle adjustment
 over every visible GPU when there are several (``parallel/mesh.py``), and
-solves dense on one, as the JAX CLI does. Multi-host runs
-(``--coordinator``, ``--host-id``, ``--num-hosts`` above 1) raise
-``NotImplementedError`` naming ROADMAP.md queue 1 item 4.
+solves dense on one, as the JAX CLI does.
+
+A multi-host run starts one process per host, each with the same dataset
+and flags plus ``--coordinator HOST:PORT --num-hosts N --host-id R`` (or
+``SLAM_COORDINATOR``, ``SLAM_NUM_PROCESSES``, ``SLAM_PROCESS_ID``). The
+processes meet in ``torch.distributed`` (``mesh.init_distributed``; its
+backend is ``SLAM_DIST_BACKEND``, else NCCL on CUDA and gloo on the CPU),
+each runs the whole program on its first local GPU, and a sharded
+``--ba-backend`` spans every rank's GPUs, with the partial systems
+all-reduced, so every rank solves to the same poses and writes the same
+trajectory. A partial set of the flags is an error (exit 2), as in the JAX
+CLI. A sharded backend across processes needs ``single_thread: True``:
+with the backend in a host thread each rank would solve whenever its
+thread gets to it, and the ranks' all-reduces would pair different graphs.
 """
 
 from __future__ import annotations
@@ -42,9 +54,6 @@ import sys
 import time
 
 import torch
-
-_MULTI_HOST = "is not ported yet; see ROADMAP.md queue 1 item 4"
-
 
 def _parser():
     p = argparse.ArgumentParser(prog="python -m mast3r_slam_tpu_torch")
@@ -67,9 +76,15 @@ def _parser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--ba-backend", default="",
                    choices=["", "dense", "edge_sharded", "schur"])
-    p.add_argument("--coordinator", default="")
-    p.add_argument("--num-hosts", type=int, default=None)
-    p.add_argument("--host-id", type=int, default=None)
+    p.add_argument("--coordinator", default="",
+                   help="multi-host: rank 0's rendezvous address host:port "
+                        "(or SLAM_COORDINATOR)")
+    p.add_argument("--num-hosts", type=int, default=None,
+                   help="multi-host: the process count "
+                        "(or SLAM_NUM_PROCESSES)")
+    p.add_argument("--host-id", type=int, default=None,
+                   help="multi-host: this process's rank "
+                        "(or SLAM_PROCESS_ID)")
     p.add_argument("--metrics", default="",
                    help="write per-frame metrics as JSONL here")
     p.add_argument("--save-state", default="")
@@ -82,32 +97,43 @@ def _parser():
     return p
 
 
-def _refuse_unported(args):
-    """Raise ``NotImplementedError`` for a multi-host run. ``--num-hosts 1``
-    (or ``SLAM_NUM_PROCESSES=1``) is a single-process run, as the JAX
-    package's ``init_distributed`` treats it."""
+def _join_hosts(parser, args) -> bool:
+    """The JAX CLI's multi-host rules (``cli.py:80-98``), then
+    ``init_distributed``. A partial flag set is a usage error: without
+    ``--num-hosts`` every process would run as an independent one-host
+    SLAM. Returns True in a process group."""
+    from .parallel import mesh as mesh_mod
+
     n_hosts = args.num_hosts
-    if n_hosts is None:
-        n_hosts = int(os.environ.get("SLAM_NUM_PROCESSES", "1"))
-    for flag, given in (("--coordinator", args.coordinator),
-                        ("--host-id", args.host_id is not None),
-                        ("--num-hosts above 1", n_hosts > 1)):
-        if given:
-            raise NotImplementedError(
-                f"{flag} (a multi-host run) {_MULTI_HOST}")
+    if n_hosts is None and "SLAM_NUM_PROCESSES" in os.environ:
+        n_hosts = int(os.environ["SLAM_NUM_PROCESSES"])
+    if (args.coordinator or args.host_id is not None) and (
+            n_hosts is None or n_hosts <= 1):
+        parser.error("--coordinator/--host-id require --num-hosts >= 2 "
+                     "(or SLAM_NUM_PROCESSES)")
+    if (n_hosts or 1) > 1 and not (args.coordinator
+                                   or os.environ.get("SLAM_COORDINATOR")):
+        parser.error("--num-hosts > 1 requires --coordinator host:port "
+                     "(or SLAM_COORDINATOR)")
+    return mesh_mod.init_distributed(args.coordinator or None,
+                                     args.num_hosts, args.host_id,
+                                     device=args.device)
 
 
-def _ba_mesh(cfg, n_devices: int):
+def _ba_mesh(cfg, n_devices: int, local_devices=None):
     """The JAX CLI's device rule for a sharded ``parallel.ba_backend``
-    (``cli.py:199-206``): a mesh over the ``n_devices`` visible GPUs when
-    there are several, else None and the dense solver."""
+    (``cli.py:199-206``): a mesh over the ``n_devices`` devices of every
+    process when there are several, else None and the dense solver.
+    ``local_devices``: this process's devices (default the first
+    ``n_devices`` GPUs)."""
     from .parallel import mesh as mesh_mod
 
     backend = cfg.get("parallel", {}).get("ba_backend", "dense")
     if backend == "dense":
         return None
     if n_devices > 1:
-        mesh = mesh_mod.make_mesh(n_devices)
+        mesh = mesh_mod.make_mesh(n_devices if local_devices is None
+                                  else local_devices)
         print(f"global BA: {backend} over {mesh.size} devices")
         return mesh
     print(f"global BA: {backend} requested but only one device visible; "
@@ -130,8 +156,9 @@ def _renders(save_dir, seq_name, system):
 
 
 def main(argv=None):
-    args = _parser().parse_args(argv)
-    _refuse_unported(args)
+    parser = _parser()
+    args = parser.parse_args(argv)
+    hosts = _join_hosts(parser, args)
 
     from . import config as config_mod
     from ._device import resolve_device
@@ -143,6 +170,17 @@ def main(argv=None):
     from .slam.system import SLAMSystem
 
     device = resolve_device(args.device)
+    local = ([torch.device("cuda", i)
+              for i in range(torch.cuda.device_count())]
+             if device.type == "cuda" else [device])
+    n_devices = len(local)
+    if hosts:
+        import torch.distributed as dist
+
+        n_devices *= dist.get_world_size()
+        print(f"torch.distributed: process {dist.get_rank()}/"
+              f"{dist.get_world_size()} over {dist.get_backend()}, "
+              f"{n_devices} devices")
     cfg = config_mod.load_config(args.config)
     if args.ba_backend:
         cfg["parallel"] = dict(cfg.get("parallel", {}),
@@ -224,8 +262,7 @@ def main(argv=None):
             print(f"estimated focal {f:.2f} px is implausible; staying in "
                   "the uncalibrated (ray-residual) pipeline")
 
-    mesh = _ba_mesh(cfg, torch.cuda.device_count()
-                    if device.type == "cuda" else 1)
+    mesh = _ba_mesh(cfg, n_devices, local)
     metrics = None
     if args.metrics:
         from .utils.metrics import Metrics
@@ -290,6 +327,10 @@ def main(argv=None):
         if not args.no_viz:
             _renders(save_dir, seq_name, system)
         print(f"saved results under {save_dir}")
+    if hosts:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return stats
 
 

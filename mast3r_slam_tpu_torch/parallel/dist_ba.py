@@ -7,16 +7,22 @@ Once per solve each shard gathers its edges' matched points
 its weights and assembly plan. Per Gauss-Newton iteration each shard builds
 the dense (7K)^2 system of its own edges (``ba.edge_system``: one launch of
 the ``ba_edge_terms`` kernel on CUDA; ``edge_system_plain`` on the CPU),
-the partial systems are summed on the first device in shard order (the
-JAX package's ``psum``, in a fixed order), ``ba._solve`` runs there, and the
-new poses are replicated to every shard for the next iteration. The stop
-rule and its one host read per iteration are the dense loop's.
+the partial systems are summed on the first device in shard order and,
+across processes, all-reduced (``mesh.reduce_partials``: the JAX package's
+``psum``, in a fixed order), ``ba._solve`` runs there, and the new poses
+are replicated to every shard for the next iteration. Every rank then
+holds the same system and runs the same solve, so the ranks' poses are
+bit-identical and their stop rule, the dense loop's with its one host read
+per iteration, stops them at the same iteration.
 
 The keyframe-sharded variant (``shard_keyframe_store``,
 ``prep_edges_kf_sharded``, ``gauss_newton_rays_dist_pre``) keeps each
 keyframe's maps on one device only: before the loop, each edge's endpoint
 points are gathered on the device that holds that keyframe and moved to
-the edge's shard; the loop then reads no keyframe map.
+the edge's shard; the loop then reads no keyframe map. Across processes
+that move would cross ranks, which is not ported: ``shard_keyframe_store``
+and ``prep_edges_kf_sharded`` raise ``NotImplementedError`` for a mesh that
+spans processes (ROADMAP.md queue 1 item 7).
 
 The edge lists are read to the host once per solve, for every shard's
 assembly plan (and the keyframe-sharded gather's selections).
@@ -31,7 +37,8 @@ import torch
 
 from .._device import exact_fp32
 from ..slam import ba
-from .mesh import Mesh, replicate, shard_edges
+from .mesh import (Mesh, one_process_only, reduce_partials, replicate,
+                   shard_edges)
 
 __all__ = ["gauss_newton_dist", "gauss_newton_rays_dist",
            "gauss_newton_calib_dist", "gauss_newton_rays_dist_pre",
@@ -58,48 +65,46 @@ def host_edges(ii, jj) -> np.ndarray:
 
 def _shards(mesh: Mesh, ij, ii, jj, valid_match, Q, edge_mask, pres, n_kf,
             K_cap, cfg: ba.BAConfig):
-    """Each device's edges with their weights and plan (``pres``: each
-    shard's ``EdgePre``)."""
+    """This process's shards: each local device's edges with their weights
+    and plan (``pres``: each local shard's ``EdgePre``)."""
     chunks = shard_edges(mesh, ii, jj, valid_match, Q, edge_mask)
     E_loc = ii.shape[0] // mesh.size
     out = []
-    for s, (dev, ii_s, jj_s, vm_s, Q_s, m_s) in enumerate(
-            zip(mesh.devices, *chunks)):
+    for l, (dev, pre, ii_s, jj_s, vm_s, Q_s, m_s) in enumerate(
+            zip(mesh.devices, pres, *chunks)):
         wq = plan = None
         if dev.type == "cuda":
-            wq = ba._edge_weights(pres[s], vm_s, Q_s, cfg,
-                                  cfg.point_stride)
+            s = mesh.first_shard + l
+            wq = ba._edge_weights(pre, vm_s, Q_s, cfg, cfg.point_stride)
             plan = ba._assembly_plan_host(
                 ij[:, s * E_loc:(s + 1) * E_loc], n_kf, K_cap, cfg.pin,
                 dev)
-        out.append(_Shard(dev, ii_s, jj_s, vm_s, Q_s, m_s, pres[s], wq,
-                          plan))
+        out.append(_Shard(dev, ii_s, jj_s, vm_s, Q_s, m_s, pre, wq, plan))
     return out
 
 
 def _system(mode, shards, T, n_kf: int, K_cap: int, cfg: ba.BAConfig,
-            calib):
-    """The whole (7K)^2 system: each shard's partial system at poses T (on
-    the first device), summed there in shard order."""
-    d0 = shards[0].device
-    Hd = gd = None
+            calib, mesh: Mesh):
+    """The whole (7K)^2 system: each local shard's partial system at poses
+    T, summed on the first local device in shard order and, across the
+    processes of ``mesh``, all-reduced (``reduce_partials``)."""
+    parts = []
     for sh in shards:
         _, _, Hd_s, gd_s = ba._edge_system(
             mode, T.to(sh.device), None, None, sh.ii, sh.jj, None,
             sh.valid_match, sh.Q, sh.edge_mask, n_kf, K_cap, cfg.pin,
             cfg, sh.pre, calib, sh.wq, sh.plan)
-        Hd_s, gd_s = Hd_s.to(d0), gd_s.to(d0)
-        Hd, gd = (Hd_s, gd_s) if Hd is None else (Hd + Hd_s, gd + gd_s)
-    return Hd, gd
+        parts.append((Hd_s, gd_s))
+    return reduce_partials(mesh, parts)
 
 
-def _gn_loop(mode, shards, T_WCs, n_kf: int, cfg: ba.BAConfig,
-             calib) -> ba.BAResult:
+def _gn_loop(mode, shards, T_WCs, n_kf: int, cfg: ba.BAConfig, calib,
+             mesh: Mesh) -> ba.BAResult:
     K_cap = T_WCs.shape[0]
     T = T_WCs.to(shards[0].device).contiguous()
     deltas = []
     while len(deltas) < cfg.max_iters:
-        Hd, gd = _system(mode, shards, T, n_kf, K_cap, cfg, calib)
+        Hd, gd = _system(mode, shards, T, n_kf, K_cap, cfg, calib, mesh)
         T, done = ba._step(T, Hd, gd, n_kf, K_cap, cfg, deltas)
         if done:
             break
@@ -121,7 +126,8 @@ def gauss_newton_dist(T_WCs, Xs, Cs, K_mat, ii, jj, idx_ii2jj, valid_match,
     ``slam.ba`` solvers, with edge arrays whose length divides by
     ``mesh.size`` (padded with masked edges). ``residual``: "rays",
     "calib" (needs K_mat and img_size) or "points". The poses come back on
-    ``mesh.devices[0]``."""
+    ``mesh.devices[0]``. Across processes every rank passes the same
+    arguments and gets the same poses."""
     if residual not in ba.MODES:
         raise ValueError(f"unknown residual {residual!r}")
     exact_fp32()
@@ -132,15 +138,15 @@ def gauss_newton_dist(T_WCs, Xs, Cs, K_mat, ii, jj, idx_ii2jj, valid_match,
     shards = replicated_shards(mesh, host_edges(ii, jj), Xs, Cs, ii, jj,
                                idx_ii2jj, valid_match, Q, edge_mask, n_kf,
                                T_WCs.shape[0], cfg)
-    return _gn_loop(residual, shards, T_WCs, n_kf, cfg, calib)
+    return _gn_loop(residual, shards, T_WCs, n_kf, cfg, calib, mesh)
 
 
 def replicated_shards(mesh: Mesh, ij, Xs, Cs, ii, jj, idx_ii2jj,
                       valid_match, Q, edge_mask, n_kf: int, K_cap: int,
                       cfg: ba.BAConfig):
-    """Each device's edges and their loop-invariant data, the keyframe maps
-    replicated: each shard gathers its own edges' points (``ij``: the edge
-    lists on the host)."""
+    """This process's shards and their loop-invariant data, the keyframe
+    maps replicated: each shard gathers its own edges' points (``ij``: the
+    edge lists on the host)."""
     chunks = shard_edges(mesh, ii, jj, idx_ii2jj, valid_match)
     pres = []
     for dev, X_s, C_s, ii_s, jj_s, idx_s, vm_s in zip(
@@ -173,11 +179,13 @@ def gauss_newton_calib_dist(T_WCs, Xs, Cs, K_mat, ii, jj, idx_ii2jj,
 # -- keyframe-sharded maps ----------------------------------------------------
 
 
+
 def shard_keyframe_store(mesh: Mesh, Xs, Cs):
     """Keyframe maps (K, P, 3) and confidences (K, P) in ``mesh.size``
     contiguous blocks, block ``b`` on ``mesh.devices[b]`` (``:32``); K must
     divide by ``mesh.size`` (pad with ``mesh.pad_to_multiple``). Returns
-    the lists of blocks."""
+    the lists of blocks. One process only."""
+    one_process_only(mesh, "shard_keyframe_store", 7)
     return shard_edges(mesh, Xs, Cs)
 
 
@@ -187,7 +195,9 @@ def prep_edges_kf_sharded(mesh: Mesh, Xs_sh, Cs_sh, ii, jj, idx,
     the endpoint points of each edge are gathered on the device that holds
     that keyframe (keyframe i's at the match indices through
     ``ba._gather_points``, the ``gather_rows`` kernel on CUDA; keyframe j's
-    at every ``stride``-th pixel) and moved to the edge's shard."""
+    at every ``stride``-th pixel) and moved to the edge's shard. One process
+    only."""
+    one_process_only(mesh, "prep_edges_kf_sharded", 7)
     _check_edges(mesh, ii)
     B = Xs_sh[0].shape[0]
     XC = [torch.cat([X, C[..., None]], dim=-1) for X, C in zip(Xs_sh, Cs_sh)]
@@ -232,4 +242,4 @@ def gauss_newton_rays_dist_pre(T_WCs, pre, ii, jj, valid_match, Q, edge_mask,
     n_kf = int(n_kf)
     shards = _shards(mesh, host_edges(ii, jj), ii, jj, valid_match, Q,
                      edge_mask, pre, n_kf, T_WCs.shape[0], cfg)
-    return _gn_loop("rays", shards, T_WCs, n_kf, cfg, None)
+    return _gn_loop("rays", shards, T_WCs, n_kf, cfg, None, mesh)

@@ -1,27 +1,41 @@
-"""The device list that the sharded backend runs over.
+"""The device mesh that the sharded backend and data-parallel tracking run
+over, in one process or across processes.
 
-Counterpart of ``mast3r_slam_tpu/parallel/mesh.py`` (:46-82) for one host
-and one process. The JAX package shards arrays over a ``jax.sharding.Mesh``
-and lets XLA insert the collectives; here a ``Mesh`` is a tuple of devices,
-a shard is a tensor on its device, and a collective is a sum in shard order
-on the first device (``parallel/dist_ba.py``, ``parallel/schur.py``).
+Counterpart of ``mast3r_slam_tpu/parallel/mesh.py``. The JAX package shards
+arrays over a ``jax.sharding.Mesh`` and lets XLA insert the collectives;
+here a ``Mesh`` is this process's tuple of devices plus the process layout,
+a shard is a tensor on its device, and a collective is ``reduce_partials``:
+the partials of this process's shards combined in shard order on its first
+device, then one ``torch.distributed.all_reduce`` across processes.
 
-The list may repeat a device: ``make_mesh([torch.device("cpu")] * 4)``
-runs four shards on the CPU, ``make_mesh(["cuda:0"] * 2)`` two on one GPU.
-That stands in for the JAX tests' forced host device count. On one device
-a shard of ``shard_edges`` or ``replicate`` is the same tensor or a view of
-it (``Tensor.to`` copies only across devices): the callers only read them.
+In one process the device list may repeat a device:
+``make_mesh([torch.device("cpu")] * 4)`` runs four shards on the CPU,
+``make_mesh(["cuda:0"] * 2)`` two on one GPU. That stands in for the JAX
+tests' forced host device count. On one device a shard of ``shard_edges``
+or ``replicate`` is the same tensor or a view of it (``Tensor.to`` copies
+only across devices): the callers only read them.
+
+Across processes (``init_distributed``, then ``make_mesh``): every rank
+holds the same number of local devices, the mesh has ``world_size *
+len(devices)`` shards, and shard ``s`` lives on rank ``s // len(devices)``,
+on its local device ``s % len(devices)``. The process group's backend is
+``SLAM_DIST_BACKEND`` when set, else NCCL for a run on CUDA and gloo on the
+CPU. NCCL refuses two ranks on one GPU; two ranks on a machine with one
+GPU set ``SLAM_DIST_BACKEND=gloo``, whose all-reduce of CUDA tensors goes
+through the host.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Union
+import os
+from typing import Any, NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Mesh", "make_mesh", "normalize_device", "pad_to_multiple",
-           "replicate", "shard_edges"]
+__all__ = ["Mesh", "dist_backend", "init_distributed", "make_mesh",
+           "make_mesh_2d", "normalize_device", "one_process_only",
+           "pad_to_multiple", "reduce_partials", "replicate", "shard_edges"]
 
 
 def normalize_device(device) -> torch.device:
@@ -34,31 +48,117 @@ def normalize_device(device) -> torch.device:
     return dev
 
 
+def dist_backend(device=None) -> str:
+    """The process group's backend: ``SLAM_DIST_BACKEND`` when set, else
+    "nccl" for a run on CUDA (``device`` None: when a GPU is visible) and
+    "gloo" on the CPU."""
+    chosen = os.environ.get("SLAM_DIST_BACKEND")
+    if chosen:
+        return chosen
+    on_cuda = (torch.cuda.is_available() if device is None
+               else torch.device(device).type == "cuda")
+    return "nccl" if on_cuda else "gloo"
+
+
+def init_distributed(coordinator: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None, device=None) -> bool:
+    """Join the process group of a multi-host run (``mesh.py:18``).
+
+    Reads ``SLAM_COORDINATOR`` (host:port of rank 0's rendezvous),
+    ``SLAM_NUM_PROCESSES`` and ``SLAM_PROCESS_ID`` for the arguments left
+    out. One process: no process group, returns False, so callers may call
+    it unconditionally. Otherwise ``torch.distributed.init_process_group``
+    over ``tcp://<coordinator>`` with the backend of ``dist_backend(device)``
+    and returns True; a failed rendezvous raises."""
+    if num_processes is None:
+        num_processes = int(os.environ.get("SLAM_NUM_PROCESSES", "1"))
+    if num_processes <= 1:
+        return False
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        dist_backend(device),
+        init_method=f"tcp://{coordinator or os.environ['SLAM_COORDINATOR']}",
+        world_size=num_processes,
+        rank=(process_id if process_id is not None
+              else int(os.environ["SLAM_PROCESS_ID"])))
+    return True
+
+
+def _process_group():
+    """(rank, world size, group) of the initialized process group, or
+    (0, 1, None)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size(), dist.group.WORLD
+    return 0, 1, None
+
+
 class Mesh(NamedTuple):
-    """A 1-D device mesh: shard ``s`` lives on ``devices[s]``."""
+    """A device mesh: this process's ``devices`` and the process layout.
+
+    Shard ``s`` of the ``size = world_size * len(devices)`` shards lives on
+    rank ``s // len(devices)``, on local device ``devices[s %
+    len(devices)]``; in one process (``world_size`` 1, ``group`` None) on
+    ``devices[s]``. ``axis``: the axis name, or the pair of names of
+    ``make_mesh_2d``."""
 
     devices: tuple
-    axis: str = "edge"
+    axis: Any = "edge"
+    rank: int = 0
+    world_size: int = 1
+    group: Any = None
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        return self.world_size * len(self.devices)
+
+    @property
+    def first_shard(self) -> int:
+        """The global index of this process's first shard."""
+        return self.rank * len(self.devices)
+
+    @property
+    def shape(self) -> tuple:
+        """(processes, local devices): the layout of ``make_mesh_2d``."""
+        return (self.world_size, len(self.devices))
 
 
 def make_mesh(devices: Union[int, Sequence, None] = None,
-              axis: str = "edge") -> Mesh:
-    """A mesh over ``devices``: a list (which may repeat a device), or the
-    first ``devices`` visible GPUs for an int, or every visible GPU for
-    None (``mesh.py:46``)."""
+              axis="edge") -> Mesh:
+    """A mesh over ``devices`` (``mesh.py:46``).
+
+    In one process: a list (which may repeat a device), or the first
+    ``devices`` visible GPUs for an int, or every visible GPU for None.
+    After ``init_distributed`` the mesh spans every rank: a list is this
+    rank's local devices, None every visible GPU, and an int must be the
+    global count (ranks x visible GPUs), as JAX's
+    ``make_mesh(jax.device_count())``."""
+    rank, world, group = _process_group()
+    n_gpu = torch.cuda.device_count()
     if devices is None:
-        devices = torch.cuda.device_count()
+        devices = n_gpu * world
     if isinstance(devices, int):
-        devs = tuple(torch.device("cuda", i) for i in range(devices))
+        if world > 1 and devices != world * n_gpu:
+            raise ValueError(f"make_mesh({devices}) across {world} processes: "
+                             f"a mesh across processes spans all {world} x "
+                             f"{n_gpu} GPUs")
+        devs = tuple(torch.device("cuda", i) for i in range(devices // world))
     else:
         devs = tuple(normalize_device(d) for d in devices)
     if not devs:
         raise ValueError("make_mesh: no device")
-    return Mesh(devs, axis)
+    return Mesh(devs, axis, rank, world, group)
+
+
+def make_mesh_2d(axes=("host", "edge"), devices=None) -> Mesh:
+    """The (processes, local devices) mesh (``mesh.py:53``): shard ``s``
+    on process ``s // n_local``, local device ``s % n_local``, so the
+    fast ``edge`` axis stays within a host. ``devices``: this process's
+    devices (default every visible GPU)."""
+    return make_mesh(None if devices is None else list(devices), axis=axes)
 
 
 def pad_to_multiple(t: torch.Tensor, multiple: int, axis: int = 0,
@@ -80,19 +180,78 @@ def pad_to_multiple(t: torch.Tensor, multiple: int, axis: int = 0,
 
 def shard_edges(mesh: Mesh, *tensors):
     """Each tensor's leading dimension split into ``mesh.size`` equal
-    chunks, chunk ``s`` on ``mesh.devices[s]``: one list of chunks per
-    tensor (``mesh.py:60``). The leading dimension must divide evenly (pad
-    with ``pad_to_multiple``)."""
+    chunks; this process's chunks, chunk ``first_shard + l`` on
+    ``mesh.devices[l]``: one list of chunks per tensor (``mesh.py:60``).
+    The leading dimension must divide evenly (pad with
+    ``pad_to_multiple``)."""
     out = []
+    lo = mesh.first_shard
     for t in tensors:
         if t.shape[0] % mesh.size:
             raise ValueError(f"shard_edges: {t.shape[0]} rows do not split "
                              f"over {mesh.size} devices")
-        out.append([c.to(d) for c, d in zip(t.chunk(mesh.size), mesh.devices)])
+        mine = t.chunk(mesh.size)[lo:lo + len(mesh.devices)]
+        out.append([c.to(d) for c, d in zip(mine, mesh.devices)])
     return tuple(out)
 
 
 def replicate(mesh: Mesh, *tensors):
-    """Each tensor on every device of the mesh: one list of ``mesh.size``
-    tensors per tensor (``mesh.py:66``)."""
+    """Each tensor on every local device of the mesh: one list of
+    ``len(mesh.devices)`` tensors per tensor (``mesh.py:66``)."""
     return tuple([t.to(d) for d in mesh.devices] for t in tensors)
+
+
+def reduce_partials(mesh: Mesh, partials, op: str = "sum"):
+    """Combine each shard's partial results over the whole mesh.
+
+    ``partials``: one tuple of tensors per local shard, in shard order.
+    Returns one tuple, on the first local device: this process's partials
+    summed (``op="sum"``) or min-reduced (``op="min"``; bool tensors
+    allowed) in shard order there, then, across processes, ``all_reduce``d,
+    one call a dtype (the tensors of one dtype go as one flat buffer). Every
+    rank gets the same bits: ranks add or compare the same per-rank
+    values."""
+    if op not in ("sum", "min"):
+        raise ValueError(f"reduce_partials: unknown op {op!r}")
+    d0 = mesh.devices[0]
+    acc = None
+    for part in partials:
+        part = [p.to(d0) for p in part]
+        if acc is None:
+            acc = part
+        elif op == "sum":
+            acc = [a + p for a, p in zip(acc, part)]
+        else:
+            acc = [torch.minimum(a, p) for a, p in zip(acc, part)]
+    if mesh.world_size > 1:
+        acc = _all_reduce(acc, op, mesh.group)
+    return tuple(acc)
+
+
+def one_process_only(mesh: Mesh, what: str, item: int):
+    """Raise ``NotImplementedError`` naming ROADMAP.md queue 1 ``item`` for
+    a mesh that spans processes."""
+    if mesh.world_size > 1:
+        raise NotImplementedError(
+            f"{what} over a mesh across processes is not ported yet; see "
+            f"ROADMAP.md queue 1 item {item}")
+
+
+def _all_reduce(tensors, op: str, group):
+    import torch.distributed as dist
+
+    red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MIN
+    out = list(tensors)
+    by_dtype = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for dtype, idx in by_dtype.items():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        if dtype == torch.bool:
+            flat = flat.to(torch.int32)
+        dist.all_reduce(flat, op=red, group=group)
+        flat = flat.to(dtype)
+        for i, piece in zip(idx, flat.split([tensors[i].numel()
+                                             for i in idx])):
+            out[i] = piece.reshape(tensors[i].shape)
+    return out

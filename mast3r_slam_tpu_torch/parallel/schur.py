@@ -22,8 +22,12 @@ each shard builds its edges' blocks H (E, 14, 14), g (E, 14) with the
 ``ba_edge_terms`` kernel on CUDA (``ba.edge_system``, which also assembles
 the (7K)^2 system, unused here) or ``edge_system_plain`` on the CPU, and
 scatters them into its (I_cap + S_cap) local slots in edge order, as
-``ba._assemble`` does. The reduced systems are summed on the first device
-in shard order, which solves the separator system; the poses move there.
+``ba._assemble`` does. Three reductions cross the shards, each through
+``mesh.reduce_partials`` (in shard order on the first local device, then an
+all-reduce across processes): the reduced systems (summed), the
+back-substituted interior steps (summed: each shard's interior rows are its
+own) and the shards' success flags (min). Every rank then solves the same
+separator system and retracts the same poses.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import torch
 from .._device import exact_fp32
 from ..slam import ba
 from .dist_ba import _check_edges, host_edges, replicated_shards
-from .mesh import Mesh
+from .mesh import Mesh, reduce_partials
 
 __all__ = ["SchurPartition", "schur_partition", "separator_dominated",
            "reorder_edges", "gauss_newton_schur", "gauss_newton_rays_schur",
@@ -282,7 +286,8 @@ def gauss_newton_schur(T_WCs, Xs, Cs, K_mat, owner, int_slot, sep_slot, ii,
     ordered by ``schur_partition`` (device p's chunk holds its block's
     edges); ``owner``, ``int_slot``, ``sep_slot`` from its partition.
     ``residual``: "rays", "calib" (needs K_mat and img_size) or "points".
-    The poses come back on ``mesh.devices[0]``."""
+    The poses come back on ``mesh.devices[0]``; across processes every rank
+    passes the same arguments and gets the same poses."""
     if residual not in ba.MODES:
         raise ValueError(f"unknown residual {residual!r}")
     exact_fp32()
@@ -306,7 +311,8 @@ def gauss_newton_schur(T_WCs, Xs, Cs, K_mat, owner, int_slot, sep_slot, ii,
                                valid_match, Q, edge_mask, n_kf, K_cap, cfg)
     E_loc = ii.shape[0] // mesh.size
     blocks = [_blocks(ij[:, p * E_loc:(p + 1) * E_loc], part, p, kf_act,
-                      sh.device) for p, sh in enumerate(shards)]
+                      sh.device)
+              for p, sh in enumerate(shards, start=mesh.first_shard)]
     d0 = shards[0].device
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(d0)
     free_S = up(np.repeat(used_S, D))
@@ -317,7 +323,7 @@ def gauss_newton_schur(T_WCs, Xs, Cs, K_mat, owner, int_slot, sep_slot, ii,
     T = T_WCs.to(d0).contiguous()
     deltas = []
     while len(deltas) < cfg.max_iters:
-        local, S_red, g_red = [], None, None
+        local, reduced = [], []
         for sh, b in zip(shards, blocks):
             H, g, _, _ = ba._edge_system(
                 residual, T.to(sh.device), None, None, sh.ii, sh.jj,
@@ -332,28 +338,30 @@ def gauss_newton_schur(T_WCs, Xs, Cs, K_mat, owner, int_slot, sep_slot, ii,
             S_p = H_SS - B.T @ torch.cholesky_solve(B, L_II)
             g_p = gd[nI:] - B.T @ _solve_vec(L_II, g_I * dI)
             local.append((L_II, info, dI, g_I, H_IS))
-            S_p, g_p = S_p.to(d0), g_p.to(d0)
-            S_red = S_p if S_red is None else S_red + S_p
-            g_red = g_p if g_red is None else g_red + g_p
+            reduced.append((S_p, g_p))
+        S_red, g_red = reduce_partials(mesh, reduced)
         # the separator system, on the first device
         Hs_S, g_red, dS = _equilibrate(S_red, g_red, free_S)
         L_SS, info_S = torch.linalg.cholesky_ex(Hs_S)
         x_S = dS * _solve_vec(L_SS, g_red * dS)
-        ok = (info_S == 0) & torch.all(torch.isfinite(x_S))
-        dx = torch.where(sep_act[:, None], x_S.reshape(S_cap, D)[sep_idx],
-                         torch.zeros((), dtype=x_S.dtype, device=d0))
-        # back-substitution on each shard; interiors are disjoint by shard
+        ok_S = (info_S == 0) & torch.all(torch.isfinite(x_S))
+        dx_S = torch.where(sep_act[:, None], x_S.reshape(S_cap, D)[sep_idx],
+                           torch.zeros((), dtype=x_S.dtype, device=d0))
+        # back-substitution on each shard; interiors are disjoint by shard,
+        # so each row of the sums below has one nonzero term
+        steps, oks = [], []
         for sh, b, (L_II, info, dI, g_I, H_IS) in zip(shards, blocks, local):
             x_I = dI * _solve_vec(L_II, dI * (g_I - H_IS @ x_S.to(
                 sh.device)))
-            dx_p = torch.where(b.mine[:, None],
-                               x_I.reshape(-1, D)[b.int_slot],
-                               torch.zeros((), dtype=x_I.dtype,
-                                           device=sh.device))
-            ok_p = (info == 0) & torch.all(torch.isfinite(x_I))
-            dx = dx + dx_p.to(d0)
-            ok = ok & ok_p.to(d0)
-        dx = torch.where(ok, -dx, torch.zeros_like(dx))
+            steps.append((torch.where(b.mine[:, None],
+                                      x_I.reshape(-1, D)[b.int_slot],
+                                      torch.zeros((), dtype=x_I.dtype,
+                                                  device=sh.device)),))
+            oks.append(((info == 0) & torch.all(torch.isfinite(x_I)),))
+        (dx_I,) = reduce_partials(mesh, steps)
+        (ok,) = reduce_partials(mesh, oks, op="min")
+        dx = dx_S + dx_I
+        dx = torch.where(ok & ok_S, -dx, torch.zeros_like(dx))
         T, done = ba._retract(T, dx, free, cfg, deltas)
         if done:
             break

@@ -41,7 +41,9 @@ step that has work and after a relocalization's tentative keyframe
 (``system.py:656-672``, ``:1010``, ``:1123``); on one device the setting
 resolves to None, as in the JAX package. ``SLAMSystem(mesh=)`` shards the
 global bundle adjustment over a device list when ``parallel.ba_backend``
-asks for it (``parallel/dist_ba.py``, ``parallel/schur.py``).
+asks for it (``parallel/dist_ba.py``, ``parallel/schur.py``); a mesh that
+spans processes needs ``single_thread``, so that every rank solves the same
+graph at the same step.
 """
 
 from __future__ import annotations
@@ -550,6 +552,14 @@ class SLAMSystem:
         # the backend on its own device: the factor graph gets that device's
         # copy of the model and a mirror of the store (system.py:656-672)
         fg_cfg = config_mod.make_factor_graph_config(config, e_cap)
+        if (mesh is not None and mesh.world_size > 1
+                and fg_cfg.ba_backend != "dense" and not self.single_thread):
+            # each rank's backend thread would solve whenever it gets to
+            # it, so the ranks' all-reduces would pair different graphs
+            raise ValueError(
+                "a sharded ba_backend across processes needs single_thread: "
+                "True (the threaded backend solves at times that differ "
+                "between the ranks)")
         self._backend_mirror = None
         fg_params, fg_store, fg_K = params, self.keyframes, K
         if backend_dev is not None:

@@ -225,7 +225,8 @@ def test_padded_edges_add_nothing_at_pin_zero():
         shards = dist_ba.replicated_shards(
             m, dist_ba.host_edges(padded[0], padded[1]), Xs, Cs, *padded,
             n_kf, n_kf, cfg)
-        Hd, gd = dist_ba._system("rays", shards, T, n_kf, n_kf, cfg, None)
+        Hd, gd = dist_ba._system("rays", shards, T, n_kf, n_kf, cfg, None,
+                                 m)
         _, _, Hd_ref, gd_ref = tba.edge_system_plain(
             "rays", T, Xs, Cs, *edges, n_kf, n_kf, pin, cfg)
         for got, ref in ((Hd, Hd_ref), (gd, gd_ref)):

@@ -454,23 +454,31 @@ def test_cli_renders_viewer_and_one_device_ba_backend(tmp_path, monkeypatch,
     (["--num-hosts", "2"], None),
     (["--host-id", "0"], None),
 ])
-def test_cli_unported_flags_raise(flags, item):
-    """Only the multi-host flags raise ``NotImplementedError`` naming their
-    ROADMAP.md item, queue 1 item 4 (``item`` None here). The other flags
-    are ported (``item``: the queue item that ported them, in the queue's
-    numbering of that time) and run as the JAX CLI runs them on one
-    device or one host: they pass the check and the run fails where the
-    JAX CLI fails, on the missing dataset (no frame to read:
-    ``IndexError``)."""
+def test_cli_unported_flags_raise(flags, item, capsys):
+    """Every flag is ported (``item``: the queue item that ported it, in
+    the queue's numbering of that time). Those with an item run as the JAX
+    CLI runs them on one device or one host: they pass the checks and the
+    run fails where the JAX CLI fails, on the missing dataset (no frame to
+    read: ``IndexError``). The multi-host flags (``item`` None) given
+    alone are a partial multi-host flag set: both CLIs stop with a usage
+    error (exit 2) and the same message before any rendezvous."""
     viz = [] if flags == [] or flags[0] == "--serve-viz" else ["--no-viz"]
     argv = ["--dataset", "nowhere", "--device", "cpu"] + viz + flags
     if item is not None:
         with pytest.raises(IndexError):
             tcli.main(argv)
         return
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 4"):
-        tcli.main(argv)
+    from mast3r_slam_tpu import cli as jcli
+
+    errors = []
+    for main, args in ((tcli.main, argv), (jcli.main, argv[4:])):
+        with pytest.raises(SystemExit) as exit_info:
+            main(["--dataset", "nowhere"] + args)
+        assert exit_info.value.code == 2
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1]
+                      .split("error: ", 1)[1])
+    assert errors[0] == errors[1]
+    assert "--num-hosts" in errors[0]
 
 
 def test_cli_checkpoint_state_resume_and_focal_match_jax(tmp_path,
