@@ -166,6 +166,25 @@ Phases (any failure exits non-zero and prints no result line):
    launch counts in one ``PHASE9_CHILD`` JSON line, and fails the smoke if
    it fails.
 
+10. Training: ``rope_qk_bwd`` (the backward of ``rope_qk``) bit-equal to
+   autograd through ``rope_qk_plain`` with fp32 and bf16 gradients, timed
+   beside the forward, at the full-width step's shapes and at the
+   rehearsal student's (whose head dims, 32 and 24, take both kernels'
+   scalar branch; ``rope_qk`` is held and timed there too); the full-width
+   step's gradient through the kernels against the same step through
+   ``rope_qk_plain`` (``GRAD_TOL``, every gradient nonzero); ``TRAIN_STEPS``
+   trainer steps (``distill.loss_fn``, ``backward``,
+   ``distill.optimizer_step``) of ViT-L MASt3R at its published widths,
+   fp32, 384x512, 2 pairs of rendered oracle frames: every gradient finite,
+   every parameter the loss reaches changed, ``ATTN_CALLS`` launches of
+   ``rope_qk`` and of ``rope_qk_bwd`` a step, ms a step split into forward,
+   backward and optimizer, peak memory, and the same steps' losses at
+   ``PROBE_LR``; then the rehearsal
+   (``distill.main``) shortened to ``REHEARSAL_STEPS`` steps and
+   ``REHEARSAL_FRAMES`` frames, whose CLI child (``REHEARSAL_TIMEOUT``)
+   must exit 0 with one pose per frame and launch ``REHEARSAL_KERNELS``
+   (its ``kernel launches`` line), the loss falling; ATE and RPE printed.
+
 The loop run's final factor graph is also put through ``ba_edge_terms``,
 its plain version and the plain version in float64, and one more tracked
 frame of the tpu_fast run counts its host syncs (PyTorch's sync debug
@@ -179,7 +198,9 @@ then a line
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -283,22 +304,6 @@ def device_ms(fn, reps=20, trials=3, host=None):
     return statistics.median(times)
 
 
-def make_traj(n, step_scale=1.0):
-    """Smooth orbit keeping the oracle scene in view (bench.py::_make_traj
-    at phase 0)."""
-    import numpy as np
-    import torch
-
-    from mast3r_slam_tpu_torch.lie import sim3
-
-    Ts = [sim3.identity()]
-    for i in range(1, n):
-        xi = torch.tensor([0.03, 0.01 * np.sin(i / 5.0), 0.008, 0.0, 0.012,
-                           0.002, 0.0], dtype=torch.float32) * step_scale
-        Ts.append(sim3.mul(Ts[-1], sim3.exp(xi)))
-    return torch.stack(Ts)
-
-
 def teleport_traj(n_good, n_bad, n_back=0):
     """Smooth motion, then a jump of 60 units to a disjoint scene region,
     where tracking must fail (``tests/test_failure_paths.py::
@@ -362,6 +367,32 @@ def refine_occupancy():
 # -- phase 2: kernels ----------------------------------------------------------
 
 
+def kernel_record(records, name, variant, err, kernel, plain, lib,
+                  bound_bytes, bound_ops, ops_type, replaces, source,
+                  plain_reps=20, tolerance="exact", **extra):
+    """Times ``kernel``, ``plain`` and ``lib`` (or None) with device_ms and
+    appends the kernel's record to ``records``; call_ms is one kernel call
+    alone, host launch cost included. bound_bytes: each input read once,
+    each output written once; bound_ops: the operations on inputs of type
+    ops_type."""
+    t_bytes = bound_bytes / MEM_BW * 1e3
+    t_ops = bound_ops / PEAK_OPS[ops_type] * 1e3
+    host_k, host_p = [], []
+    ms = device_ms(kernel, host=host_k)
+    r = {"name": name, "variant": variant, "route": "cuda",
+         "source": source, "replaces": replaces, "launches": 0,
+         "max_abs_err": err, "tolerance": tolerance, "ms": ms,
+         "kernel_ms": ms,
+         "call_ms": time_ms(kernel),
+         "plain_ms": device_ms(plain, reps=plain_reps, host=host_p),
+         "host_enqueue_ms": host_k[0], "plain_host_enqueue_ms": host_p[0],
+         "bound_ms": max(t_bytes, t_ops),
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "library_ms": None if lib is None else device_ms(lib), **extra}
+    records.append(r)
+    log("kernel", json.dumps(r))
+
+
 def check_kernels(model_cfg, orc):
     """Each kernel vs its plain version at the main path's shapes; returns
     the kernel records (launches filled in later)."""
@@ -382,29 +413,7 @@ def check_kernels(model_cfg, orc):
     X21 = X[1:2].contiguous()
     records = []
 
-    def rec(name, variant, err, kernel, plain, lib, bound_bytes, bound_ops,
-            ops_type, replaces, source, plain_reps=20, tolerance="exact",
-            **extra):
-        """Times ``kernel``, ``plain`` and ``lib`` (or None) with device_ms;
-        call_ms is one kernel call alone, host launch cost included.
-        bound_bytes: each input read once, each output written once;
-        bound_ops: the operations on inputs of type ops_type."""
-        t_bytes = bound_bytes / MEM_BW * 1e3
-        t_ops = bound_ops / PEAK_OPS[ops_type] * 1e3
-        host_k, host_p = [], []
-        ms = device_ms(kernel, host=host_k)
-        r = {"name": name, "variant": variant, "route": "cuda",
-             "source": source, "replaces": replaces, "launches": 0,
-             "max_abs_err": err, "tolerance": tolerance, "ms": ms,
-             "kernel_ms": ms,
-             "call_ms": time_ms(kernel),
-             "plain_ms": device_ms(plain, reps=plain_reps, host=host_p),
-             "host_enqueue_ms": host_k[0], "plain_host_enqueue_ms": host_p[0],
-             "bound_ms": max(t_bytes, t_ops),
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "library_ms": None if lib is None else device_ms(lib), **extra}
-        records.append(r)
-        log("kernel", json.dumps(r))
+    rec = functools.partial(kernel_record, records)
 
     # 1. Scharr, fused with the ray normalization (the matcher's input): the
     # tiled kernel in both records, and the first design (one thread a
@@ -3331,7 +3340,7 @@ def _child_loop(out_path):
     net = mast3r.init_params(
         model_cfg, torch.Generator(device="cuda").manual_seed(0),
         device="cuda")
-    orc = oracle.make_params(make_traj(N_TRAJ).cuda(),
+    orc = oracle.make_params(oracle.make_traj(N_TRAJ).cuda(),
                              desc_dim=model_cfg.desc_dim, seed=0,
                              device="cuda")
     rparams = retrieval.init_retrieval_params(
@@ -3411,6 +3420,330 @@ def _child_ba(graph_path, out_path):
     return out
 
 
+# -- phase 10: training -------------------------------------------------------
+
+TRAIN_STEPS = 3          # trainer steps of ViT-L MASt3R at full width
+TRAIN_FRAMES = 8         # rendered oracle frames those steps draw pairs from
+# one attention call per encoder block, two per decoder block and stream:
+# rope_qk and rope_qk_bwd launch this often per ViT-L step
+ATTN_CALLS = 24 + 2 * 12 * 2
+# the shortened rehearsal: the trainer's default model (4x128 encoder, 4x96
+# decoders) at 384x512, its 1,200 steps and 48 frames cut to these
+REHEARSAL_STEPS, REHEARSAL_FRAMES = 400, 16
+# the full-width step's gradient through the kernels against the same step
+# through rope_qk_plain: both kernels are bit-equal to their plain versions,
+# so what differs is the order of the atomic sums in the backward of
+# attention, bilinear upsampling and transposed convolutions (rounding,
+# carried back through 24 encoder and 12 decoder blocks); 1e-4 of a tensor's
+# largest entry is the CPU tests' margin between the port's gradient and
+# JAX's
+GRAD_TOL = 1e-4
+PROBE_LR = 1e-5          # the full-width steps again at this learning rate
+REHEARSAL_TIMEOUT = 300  # seconds the rehearsal's CLI child may take
+# what the CLI with configs/base.yaml launches when it tracks and solves
+REHEARSAL_KERNELS = {"scharr_rays", "iter_proj", "refine_matches", "gn_step",
+                     "rope_qk", "gather_rows", "ba_edge_terms", "take_along"}
+
+
+def check_rope_bwd(records, model_cfg):
+    """``rope_qk_bwd`` against autograd through ``rope_qk_plain`` at the
+    shapes of both trainer runs, gradients in fp32 and bf16, q and k strided
+    views of a qkv projection: bit-equal, and so is the gradient that
+    ``rope_qk``'s autograd Function scatters into qkv. The full-width step
+    (ViT-L, d = 64: encoder on both views of 2 pairs, decoder on the 2 pairs
+    of one stream, and 4) and the rehearsal's student (d = 32 and 24, which
+    take the kernels' scalar branch: encoder 4, decoder 2); at the student's
+    shapes ``rope_qk`` itself is held bit-equal too (fp32 and bf16 out) and
+    gets its own records. Each backward is timed beside the forward at the
+    same shape; the bound is the forward's bytes."""
+    import torch
+
+    from mast3r_slam_tpu_torch import distill
+    from mast3r_slam_tpu_torch.models import rope
+
+    student = distill.model_config(distill._parser().parse_args([]))
+    g = torch.Generator(device="cuda").manual_seed(10)
+    fwd_of = ("mast3r_slam_tpu/models/rope.py:33 (rope_2d on q and k, "
+              "models/vit.py:57-59 and :68-70, XLA)")
+    bwd_of = ("mast3r_slam_tpu/models/rope.py:33 (the gradient of rope_2d "
+              "on q and k, models/vit.py:57-59 and :68-70, that "
+              "jax.value_and_grad derives in scripts/distill_oracle.py:141, "
+              "XLA)")
+    for model, cfg, shapes in (
+            ("ViT-L", model_cfg,
+             (("encoder", cfg_dims(model_cfg, "enc"), (4,)),
+              ("decoder", cfg_dims(model_cfg, "dec"), (2, 4)))),
+            ("student", student,
+             (("encoder", cfg_dims(student, "enc"), (4,)),
+              ("decoder", cfg_dims(student, "dec"), (2,))))):
+        h, w = cfg.img_size
+        n_tok = cfg.num_patches
+        ys = torch.arange(h // 16, device="cuda").repeat_interleave(w // 16)
+        xs = torch.arange(w // 16, device="cuda").repeat(h // 16)
+        pos = torch.stack([ys, xs], dim=-1)
+        for part, (heads, d), batches in shapes:
+            for b in batches:
+                qkv = torch.randn(b, n_tok, 3, heads, d, generator=g,
+                                  device="cuda")
+                tabs = rope.rope_tables(pos.expand(b, n_tok, 2), d,
+                                        cfg.rope_base, torch.float32)
+                el = b * heads * n_tok * d
+                shape = f"{model} {part} ({b},{heads},{n_tok},{d})"
+                qd, kd = (qkv[:, :, i].transpose(1, 2) for i in (0, 1))
+                if model == "student":
+                    err = max(float((x.float() - y.float()).abs().max())
+                              for dt in (torch.float32, torch.bfloat16)
+                              for x, y in zip(
+                                  rope.rope_qk(qd, kd, tabs, tabs, dt),
+                                  rope.rope_qk_plain(qd, kd, tabs, tabs, dt)))
+                    if err != 0.0:
+                        raise AssertionError(f"rope_qk {shape}: differs "
+                                             f"from the plain version by "
+                                             f"{err}")
+                    kernel_record(
+                        records, "rope_qk", f"{shape} q,k fp32 -> fp32 "
+                        "(strided views of the qkv projection)", err,
+                        lambda: rope.rope_qk(qd, kd, tabs, tabs,
+                                             torch.float32),
+                        lambda: rope.rope_qk_plain(qd, kd, tabs, tabs,
+                                                   torch.float32),
+                        None, 2 * el * 8 + 2 * b * n_tok * d * 4, 2 * el * 3,
+                        "fp32", fwd_of,
+                        "mast3r_slam_tpu_torch/csrc/rope_qk.cu",
+                        tolerance="bit-equal, fp32 and bf16 outputs")
+                for dt in (torch.float32, torch.bfloat16):
+                    leaf = qkv.clone().requires_grad_()
+                    q, k = (leaf[:, :, i].transpose(1, 2) for i in (0, 1))
+                    out = rope.rope_qk_plain(q, k, tabs, tabs, dt)
+                    gq, gk = (torch.randn(o.shape, generator=g,
+                                          device="cuda").to(dt) for o in out)
+                    ref_q, ref_k, ref_qkv = torch.autograd.grad(
+                        out, (q, k, leaf), (gq, gk))
+                    dq, dk = rope.rope_qk_bwd(gq, gk, tabs, tabs)
+                    leaf2 = qkv.clone().requires_grad_()
+                    q2, k2 = (leaf2[:, :, i].transpose(1, 2) for i in (0, 1))
+                    torch.autograd.backward(
+                        rope.rope_qk(q2, k2, tabs, tabs, dt), (gq, gk))
+                    err = max(float((a - r).abs().max()) for a, r in (
+                        (dq, ref_q), (dk, ref_k), (leaf2.grad, ref_qkv)))
+                    if err != 0.0:
+                        raise AssertionError(f"rope_qk_bwd {shape} {dt}: "
+                                             f"differs from autograd "
+                                             f"through the plain version "
+                                             f"by {err}")
+                    esize = 4 if dt == torch.float32 else 2
+                    kernel_record(
+                        records, "rope_qk_bwd",
+                        f"{shape} dq,dk from {str(dt)[6:]} gradients -> fp32",
+                        err, lambda: rope.rope_qk_bwd(gq, gk, tabs, tabs),
+                        lambda: rope.rope_qk_bwd_plain(gq, gk, tabs, tabs),
+                        None, 2 * el * (esize + 4) + 2 * b * n_tok * d * 4,
+                        2 * el * 3, "fp32", bwd_of,
+                        "mast3r_slam_tpu_torch/csrc/rope_qk_bwd.cu",
+                        tolerance="bit-equal to autograd through "
+                        "rope_qk_plain (dq, dk and the qkv gradient of "
+                        "rope_qk's Function)",
+                        forward_ms=device_ms(lambda: rope.rope_qk(
+                            qd, kd, tabs, tabs, dt)))
+
+
+def cfg_dims(cfg, part):
+    """(heads, head dim) of a MASt3RConfig's encoder ("enc") or decoder
+    ("dec") attention."""
+    heads = getattr(cfg, f"{part}_num_heads")
+    return heads, getattr(cfg, f"{part}_embed_dim") // heads
+
+
+def full_width_grads(model, distill, cfg, oparams, data, i, j):
+    """One forward and backward of the trainer's loss on pairs (i, j):
+    (loss, {name: gradient} of the parameters the loss reaches)."""
+    model.zero_grad(set_to_none=True)
+    targets = distill.pair_targets(oparams, data[2], data[3], i, j, cfg)
+    loss, _ = distill.loss_fn(model, cfg, data[0], targets, i, j)
+    loss.backward()
+    grads = {k: p.grad for k, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def train_full_width(run_launches):
+    """Trainer steps of ViT-L MASt3R at its published widths, 384x512, fp32
+    transformer and head (as the trainer sets them), the trainer's batch of
+    2 pairs drawn from rendered oracle frames.
+
+    First the gradient of the first step's pairs at the initial weights,
+    twice: through ``rope_qk``'s autograd Function (the two kernels) and
+    with ``rope_qk_plain`` in its place (autograd); the losses must agree
+    within ``GRAD_TOL`` relative, every reached parameter's gradient must be
+    nonzero and agree within ``GRAD_TOL`` of that tensor's largest entry.
+    Then ``TRAIN_STEPS`` counted steps: every gradient finite, every
+    parameter the loss reaches changed, ``ATTN_CALLS`` launches of
+    ``rope_qk`` and of ``rope_qk_bwd`` a step; ms a step split into forward
+    (oracle targets and loss), backward and optimizer (CUDA events), peak
+    memory. Last, as a reading and not a gate, the same steps from the same
+    weights at ``PROBE_LR``."""
+    import torch
+
+    from mast3r_slam_tpu_torch import distill
+    from mast3r_slam_tpu_torch.models import mast3r, oracle, rope, vit
+    from mast3r_slam_tpu_torch.ops import _kernels
+
+    cfg = mast3r.MASt3RConfig(dtype="float32", head_dtype="float32")
+    args = distill._parser().parse_args(["--frames", str(TRAIN_FRAMES),
+                                         "--steps", str(TRAIN_STEPS)])
+    oparams = oracle.make_params(oracle.make_traj(args.frames),
+                                 desc_dim=cfg.desc_dim,
+                                 desc_freq=args.desc_freq, device="cuda")
+    init = lambda: mast3r.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(args.seed),
+        device="cuda", trainable=True)
+    model = init()
+    n_params = sum(p.numel() for p in model.parameters())
+    data = distill.train_data(args, cfg, oparams)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    pairs = [distill.sample_pairs(gen, args.frames, args.batch)
+             for _ in range(args.steps)]
+
+    loss_k, grads_k = full_width_grads(model, distill, cfg, oparams, data,
+                                       *pairs[0])
+    try:
+        vit.rope_qk = rope.rope_qk_plain
+        loss_p, grads_p = full_width_grads(model, distill, cfg, oparams,
+                                           data, *pairs[0])
+    finally:
+        vit.rope_qk = rope.rope_qk
+    zero = sorted(k for k, gr in grads_k.items() if not bool(gr.any()))
+    rel = {k: float((gr - grads_p[k]).abs().max() / grads_p[k].abs().max())
+           for k, gr in grads_k.items() if k not in zero}
+    worst = max(rel, key=rel.get)
+    if (zero or set(grads_k) != set(grads_p)
+            or abs(loss_k - loss_p) > GRAD_TOL * abs(loss_p)
+            or rel[worst] > GRAD_TOL):
+        raise AssertionError(f"full-width gradient: loss {loss_k} with the "
+                             f"kernels, {loss_p} with rope_qk_plain; zero "
+                             f"gradients {zero[:10]}; largest difference "
+                             f"{rel[worst]} of the tensor's largest entry "
+                             f"({worst}); tolerance {GRAD_TOL}")
+    log(f"train full width, first step's gradient through the kernels vs "
+        f"rope_qk_plain: loss {loss_k} / {loss_p}, {len(rel)} gradients, "
+        f"all nonzero, largest difference {rel[worst]} of the tensor's "
+        f"largest entry ({worst}), median "
+        f"{statistics.median(rel.values())}; tolerance {GRAD_TOL}")
+    del grads_k, grads_p
+
+    opt = distill.make_optimizer(model, args.lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launch_counts()
+    steps, bwd_counts, losses = [], [], []
+    reached = None
+    for t, (i, j) in enumerate(pairs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        w0 = time.perf_counter()
+        ev[0].record()
+        targets = distill.pair_targets(oparams, data[2], data[3], i, j, cfg)
+        loss, _ = distill.loss_fn(model, cfg, data[0], targets, i, j)
+        ev[1].record()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[2].record()
+        bwd_counts.append(_kernels.LAUNCHES["rope_qk_bwd"])
+        named = [(k, p.grad) for k, p in model.named_parameters()
+                 if p.grad is not None]
+        finite = torch.stack([torch.isfinite(gr).all() for _, gr in named])
+        ev[3].record()
+        distill.optimizer_step(opt, t, args.lr, args.steps)
+        ev[4].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - w0
+        loss = float(loss.detach())
+        if not bool(finite.all()) or not math.isfinite(loss):
+            bad = [k for (k, _), ok in zip(named, finite.tolist()) if not ok]
+            raise AssertionError(f"full-width step {t}: loss {loss}, "
+                                 f"non-finite gradients {bad[:10]}")
+        reached = reached or {k for k, _ in named}
+        losses.append(loss)
+        steps.append({"forward": ev[0].elapsed_time(ev[1]),
+                      "backward": ev[1].elapsed_time(ev[2]),
+                      "optimizer": ev[3].elapsed_time(ev[4]),
+                      "step_device": ev[0].elapsed_time(ev[4]),
+                      "step_wall": wall * 1e3})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = run_launches["train_full_width"] = dict(_kernels.LAUNCHES)
+    per_step = [b - a for a, b in zip([0] + bwd_counts, bwd_counts)]
+    if (per_step != [ATTN_CALLS] * args.steps
+            or launches["rope_qk"] != ATTN_CALLS * args.steps):
+        raise AssertionError(f"full-width steps: rope_qk_bwd launches a step "
+                             f"{per_step}, rope_qk {launches['rope_qk']}; "
+                             f"expected {ATTN_CALLS} a step")
+    trained = dict(model.named_parameters())
+    del opt, named, loss, targets
+    model = init()
+    unchanged = [k for k, p in model.named_parameters()
+                 if torch.equal(p, trained[k])]
+    if set(unchanged) & reached:
+        raise AssertionError(f"full-width steps left parameters unchanged: "
+                             f"{sorted(set(unchanged) & reached)[:10]}")
+    log(f"train full width: ViT-L MASt3R {n_params / 1e6:.1f} M params "
+        f"(fp32), 384x512, batch {args.batch} pairs, {args.steps} steps, "
+        f"losses {losses}, per step (ms): {json.dumps(steps)}; peak device "
+        f"memory {peak:.3f} GiB; rope_qk_bwd launches a step {per_step}; "
+        f"{len(reached)} of {len(trained)} parameters reached by the loss, "
+        f"all changed; not reached: {sorted(set(trained) - reached)} "
+        f"(unchanged: {sorted(unchanged)})")
+    del trained
+    args.lr = PROBE_LR
+    opt = distill.make_optimizer(model, args.lr)
+    probe = [float(distill.train_step(model, opt, t, args, cfg, data, i, j)[0])
+             for t, (i, j) in enumerate(pairs)]
+    log(f"train full width at lr {PROBE_LR} (a reading, not gated), the "
+        f"same pairs from the same weights: losses {probe}")
+    del model, opt, data
+    torch.cuda.empty_cache()
+
+
+def rehearsal_phase(run_launches):
+    """``distill.main`` at the trainer's default model and 384x512, steps
+    and frames cut to ``REHEARSAL_STEPS`` / ``REHEARSAL_FRAMES``: the CLI
+    child (``REHEARSAL_TIMEOUT``) exits 0 with one pose per frame and
+    launches ``REHEARSAL_KERNELS``; the mean loss of the last 10 steps below
+    that of the first 10. ATE and RPE are printed, not gated."""
+    import pathlib
+    import tempfile
+
+    from mast3r_slam_tpu_torch import distill
+    from mast3r_slam_tpu_torch.ops import _kernels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            m = distill.main(["--steps", str(REHEARSAL_STEPS), "--frames",
+                              str(REHEARSAL_FRAMES), "--out",
+                              str(pathlib.Path(tmp) / "rehearsal")],
+                             slam_timeout=REHEARSAL_TIMEOUT)
+        except SystemExit as e:
+            raise AssertionError(f"rehearsal: {e}") from None
+        wall = time.perf_counter() - t0
+    run_launches["rehearsal_train"] = dict(_kernels.LAUNCHES)
+    child = m.get("launches")
+    if child is None:
+        raise AssertionError("rehearsal: the CLI printed no kernel launches")
+    run_launches["rehearsal_cli"] = child
+    missing = sorted(k for k in REHEARSAL_KERNELS if child.get(k, 0) <= 0)
+    if (missing or m["poses"] != REHEARSAL_FRAMES
+            or not m["loss_last10"] < m["loss_first10"]):
+        raise AssertionError(f"rehearsal: poses {m['poses']} of "
+                             f"{REHEARSAL_FRAMES} frames, loss first 10 "
+                             f"{m['loss_first10']} last 10 "
+                             f"{m['loss_last10']}, the CLI never launched "
+                             f"{missing}: {m}")
+    log(f"rehearsal (cut: {REHEARSAL_STEPS} of 1200 steps, "
+        f"{REHEARSAL_FRAMES} of 48 frames; 4x128 / 4x96 model at 384x512): "
+        f"{wall:.2f} s, " + json.dumps(m))
+
+
 def main():
     import torch
 
@@ -3456,7 +3789,9 @@ def main():
     log(f"ViT-L MASt3R init: {time.perf_counter() - t0:.2f} s, "
         f"{sum(p.numel() for p in net.parameters()) / 1e6:.1f} M params")
 
-    traj = make_traj(N_TRAJ).cuda()
+    # the smooth orbit that keeps the oracle scene in view (the rehearsal's
+    # path; bench.py::_make_traj at phase 0)
+    traj = oracle.make_traj(N_TRAJ).cuda()
     orc = oracle.make_params(traj, desc_dim=model_cfg.desc_dim, seed=0,
                              device="cuda")
     params = oracle_timing.make_params(net, orc)
@@ -3520,7 +3855,8 @@ def main():
     # the base presets: radius 3, dilation 5, 10 LM iterations; edges by
     # symmetric decode + match, bundle adjustment on every point
     # every kernel but the loop run's and the separable search's
-    every = set(_kernels.SOURCES) - {"coarse_correlate", "refine_separable"}
+    every = set(_kernels.SOURCES) - {"coarse_correlate", "refine_separable",
+                                     "rope_qk_bwd"}
     sys_b, _, launches_b = drive("base", base_config(), N_BASE, KF_BASE,
                                  every)
     split_b = stage_split(params, model_cfg, sys_b.tracker.mcfg,
@@ -3687,6 +4023,14 @@ def main():
     multi_host_cli_phase(run_launches)
     log(f"phase 9 (data-parallel tracking, sharded decode, multi-host): "
         f"{time.perf_counter() - t9:.2f} s")
+
+    # phase 10: training (the backward kernel, full-width trainer steps,
+    # the shortened rehearsal through the CLI)
+    t10 = time.perf_counter()
+    check_rope_bwd(records, model_cfg)
+    train_full_width(run_launches)
+    rehearsal_phase(run_launches)
+    log(f"phase 10 (training): {time.perf_counter() - t10:.2f} s")
 
     for r in records:
         r["launches_by_run"] = {label: ln[r["name"]]

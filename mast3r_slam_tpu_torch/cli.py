@@ -48,6 +48,7 @@ thread gets to it, and the ranks' all-reduces would pair different graphs.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import pathlib
 import sys
@@ -308,6 +309,10 @@ def main(argv=None):
                                                          len(dataset))
     print(f"done: {n} frames in {elapsed:.1f}s = {n / elapsed:.2f} FPS")
     print(f"stats: {stats}")
+    if device.type == "cuda":
+        from .ops import _kernels
+
+        print(f"kernel launches: {json.dumps(_kernels.LAUNCHES)}")
 
     if args.save_state:
         checkpoint.save_state(args.save_state, system)

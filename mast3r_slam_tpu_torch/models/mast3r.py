@@ -10,7 +10,11 @@ parameter pytree, and NHWC outputs.
 Weights of the transformer live in the compute dtype (``cfg.dtype``) and
 those of the head in ``cfg.head_dtype`` (the last head conv stays fp32);
 biases and norms stay fp32. The JAX package casts per call to the same
-effect.
+effect. A trainable model (``init_params(..., trainable=True)``) keeps
+every weight in fp32, as JAX's ``init_params`` does, and the layers cast
+per call; ``encode_body`` and ``decode_pair_body`` are the grad-enabled
+forward passes that ``encode`` and ``decode_pair`` run under
+``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -141,9 +145,10 @@ def build(cfg: MASt3RConfig, device="cuda") -> MASt3R:
 
 
 def init_params(cfg: MASt3RConfig, generator: torch.Generator = None,
-                device="cuda") -> MASt3R:
+                device="cuda", trainable: bool = False) -> MASt3R:
     """Randomly initialized model; ``generator`` must live on ``device``
-    (default: seed 0)."""
+    (default: seed 0). ``trainable``: fp32 weights that require gradients
+    (for training); else weights in their compute dtypes, frozen."""
     dev = resolve_device(device)
     g = generator
     if g is None:
@@ -153,6 +158,8 @@ def init_params(cfg: MASt3RConfig, generator: torch.Generator = None,
     with torch.device(dev):
         model = MASt3R(cfg)
     _init_module(model, cfg, g)
+    if trainable:
+        return model.requires_grad_(True)
     return model.eval().requires_grad_(False).store_compute_dtypes()
 
 
@@ -163,13 +170,19 @@ def normalize_frames(img):
     return img
 
 
-@torch.no_grad()
-def encode(model: MASt3R, img, cfg: MASt3RConfig):
-    """(b, h, w, 3) uint8 or ImgNorm float -> (feat (b, n, ed), pos (b, n, 2))."""
+def encode_body(model: MASt3R, img, cfg: MASt3RConfig):
+    """(b, h, w, 3) uint8 or ImgNorm float -> (feat (b, n, ed), pos (b, n, 2)),
+    differentiable in the weights."""
     exact_fp32()
     feat, pos, _ = vit.encode(model, normalize_frames(img), cfg,
                               cfg.compute_dtype)
     return feat, pos
+
+
+@torch.no_grad()
+def encode(model: MASt3R, img, cfg: MASt3RConfig):
+    """``encode_body`` for inference: no gradients."""
+    return encode_body(model, img, cfg)
 
 
 def _grid(cfg):
@@ -177,10 +190,11 @@ def _grid(cfg):
             cfg.img_size[1] // cfg.patch_size)
 
 
-@torch.no_grad()
-def decode_pair(model: MASt3R, feat1, pos1, feat2, pos2, cfg: MASt3RConfig):
-    """Two-view decode + heads, batched over the leading dim. Returns
-    (res1, res2) dicts of NHWC pts3d/conf/desc/desc_conf."""
+def decode_pair_body(model: MASt3R, feat1, pos1, feat2, pos2,
+                     cfg: MASt3RConfig):
+    """Two-view decode + heads, batched over the leading dim, differentiable
+    in the weights and features. Returns (res1, res2) dicts of NHWC
+    pts3d/conf/desc/desc_conf."""
     exact_fp32()
     grid = _grid(cfg)
     L = cfg.dec_depth
@@ -193,6 +207,12 @@ def decode_pair(model: MASt3R, feat1, pos1, feat2, pos2, cfg: MASt3RConfig):
     res2 = dpt.head_forward(model.downstream_head2, out2, grid,
                             cfg.patch_size, cfg.desc_dim, hooks, hdt)
     return res1, res2
+
+
+@torch.no_grad()
+def decode_pair(model: MASt3R, feat1, pos1, feat2, pos2, cfg: MASt3RConfig):
+    """``decode_pair_body`` for inference: no gradients."""
+    return decode_pair_body(model, feat1, pos1, feat2, pos2, cfg)
 
 
 def downsample_maps(*maps, ds: int = 1):

@@ -9,7 +9,8 @@ features (token 0, last channel).
 
 ``make_params`` draws its random arrays with numpy from ``seed`` (the JAX
 package draws them with ``jax.random``, so the two differ for one seed;
-``convert.oracle_params_from_jax`` carries JAX-made params across).
+``convert.oracle_params_from_jax`` carries JAX-made params across). So does
+``texture_params``, the texture projections of ``render_rgb``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,18 @@ from .._device import exact_fp32, resolve_device
 from ..lie import sim3
 from .mast3r import (MASt3RConfig, downsample_maps, normalize_frames,
                      symmetric_from_decode)
+
+
+def make_traj(n_frames, step_scale=1.0):
+    """A smooth camera orbit that keeps the default scene in view (the
+    rehearsal's path, ``scripts/distill_oracle.py::make_traj``): (n_frames,
+    8) Sim(3) poses, fp32 CPU."""
+    Ts = [sim3.identity()]
+    for i in range(1, n_frames):
+        xi = torch.tensor([0.03, 0.01 * np.sin(i / 5.0), 0.008, 0.0, 0.012,
+                           0.002, 0.0], dtype=torch.float32) * step_scale
+        Ts.append(sim3.mul(Ts[-1], sim3.exp(xi)))
+    return torch.stack(Ts)
 
 
 def make_params(traj_WC, desc_dim: int = 8, sphere_center=(0.0, 0.0, 4.0),
@@ -109,6 +122,36 @@ def _descriptors(params, Xw):
     d = torch.sin(Xw @ params["desc_proj"])
     n = torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True))
     return d / torch.clamp(n, min=1e-9)
+
+
+def texture_params(seed: int = 42):
+    """The three 3x3 texture projections of ``render_rgb``, drawn with
+    numpy from ``seed`` at JAX's scales 3, 11 and 29 (JAX draws them from
+    ``PRNGKey(42)``, ``oracle.py:150-153``)."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((3, 3)) * s for s in (3.0, 11.0, 29.0))
+
+
+@torch.no_grad()
+def render_rgb(params, frame_id, cfg: MASt3RConfig, texture=None):
+    """View-consistent textured rendering of the oracle scene: (h, w, 3)
+    float32 in [0, 1] (JAX ``oracle.py:135``). A pixel's colour is a
+    multi-frequency function of the world point it sees, shaded by its
+    distance, so every view of a surface point has the same colour before
+    shading. ``texture``: the projections (p1, p2, p3), each 3x3; default
+    ``texture_params()``."""
+    exact_fp32()
+    h, w = cfg.img_size
+    T = params["traj"][int(frame_id)]
+    Xw = _raycast_world(params, T, cfg)
+    p1, p2, p3 = (torch.as_tensor(np.array(p, np.float32), device=Xw.device)
+                  for p in (texture or texture_params()))
+    c = (0.5 + 0.25 * torch.sin(Xw @ p1) + 0.15 * torch.sin(Xw @ p2)
+         + 0.10 * torch.sin(Xw @ p3))
+    d = Xw - sim3.parts(T)[0][None]
+    z = torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True))
+    c = c * (1.15 - 0.05 * z)
+    return torch.clamp(c, 0.0, 1.0).reshape(h, w, 3)
 
 
 def encode(params, img, cfg: MASt3RConfig):

@@ -46,6 +46,8 @@ SOURCES = {
                       [_P] * 21 + [_I] * 7 + [_F] * 13 + [_P]),
     "coarse_correlate": ("coarse_correlate_launch", [_P] * 3 + [_I] * 6 + [_P]),
     "rope_qk": ("rope_qk_launch", [_P] * 8 + [_L] * 8 + [_I] * 7 + [_P]),
+    "rope_qk_bwd": ("rope_qk_bwd_launch",
+                    [_P] * 8 + [_L] * 2 + [_I] * 7 + [_P]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

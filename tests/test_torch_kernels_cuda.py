@@ -13,7 +13,8 @@ two calls on the same inputs give the same bits. The fused tracker solve
 fails, its pose within 1e-5 and its cost within 1e-5 relative (the device
 retraction uses CUDA's sinf/expm1f); the fused BA system (``edge_system``)
 is held to 1e-5 of the largest entry of each output. ``rope_qk`` rounds every
-product and sum as the plain version does: bit-equal. ``refine_matches``
+product and sum as the plain version does: bit-equal; so does its backward
+``rope_qk_bwd``, against autograd through the plain version. ``refine_matches``
 adds exact products in the plain version's order (bf16) or exact integers
 (int8): equal at every point, on both of its paths, and so must the
 separable search (``refine_separable``). ``coarse_correlate``
@@ -619,6 +620,67 @@ def test_rope_qk_matches_plain(cuda, out_dtype, b, heads, nq, nk, d):
     assert torch.equal(qo, qp) and torch.equal(ko, kp)
     with pytest.raises(ValueError):
         rope.rope_qk(q.to(torch.bfloat16), k, tq, tk)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,heads,nq,nk,d,shared", [
+    (4, 16, 768, 768, 64, False), (4, 12, 768, 768, 64, False),
+    (2, 12, 768, 768, 64, True), (2, 3, 24, 40, 16, False),
+    (3, 2, 9, 5, 8, True)])
+def test_rope_qk_bwd_matches_autograd(cuda, out_dtype, b, heads, nq, nk, d,
+                                      shared):
+    """``rope_qk``'s backward kernel (``rope_qk_bwd``, through the autograd
+    Function) against autograd through ``rope_qk_plain``: the full-width
+    trainer's encoder and decoder shapes, q and k strided views of a qkv
+    projection when nq == nk (the gradient scattered back into qkv),
+    split-heads views with distinct tables otherwise; ``shared``: one table
+    (batch 1) for the whole batch; d = 8 takes the scalar path. Bit-equal,
+    one launch a backward, none under ``torch.no_grad``."""
+    from mast3r_slam_tpu_torch.models import rope
+    from mast3r_slam_tpu_torch.ops import _kernels
+
+    g = torch.Generator(device="cpu").manual_seed(nq + d + heads)
+    base = ([torch.randn(b, nq, 3, heads, d, generator=g)] if nq == nk else
+            [torch.randn(b, n, heads * d, generator=g) for n in (nq, nk)])
+    base = [t.to(cuda) for t in base]
+
+    def inputs():
+        leaves = [t.clone().requires_grad_() for t in base]
+        if nq == nk:
+            q, k = (leaves[0][:, :, i].transpose(1, 2) for i in (0, 1))
+        else:
+            q, k = (x.reshape(b, n, heads, d).transpose(1, 2)
+                    for x, n in zip(leaves, (nq, nk)))
+        return leaves, q, k
+
+    def tables(n, seed):
+        bt = 1 if shared else b
+        pos = torch.stack([torch.arange(n) // 7, (torch.arange(n) + seed) % 7],
+                          -1)[None].expand(bt, n, 2).to(cuda)
+        return rope.rope_tables(pos, d, 100.0, torch.float32)
+
+    tq, tk = tables(nq, 0), tables(nk, 3)
+    leaves, q, k = inputs()
+    out = rope.rope_qk(q, k, tq, tk, out_dtype)
+    gq, gk = (torch.randn(o.shape, generator=g).to(cuda, out_dtype)
+              for o in out)
+    n0 = _kernels.LAUNCHES["rope_qk_bwd"]
+    got = torch.autograd.grad(out, leaves, (gq, gk))
+    assert _kernels.LAUNCHES["rope_qk_bwd"] == n0 + 1
+    leaves_p, qp, kp = inputs()
+    want = torch.autograd.grad(rope.rope_qk_plain(qp, kp, tq, tk, out_dtype),
+                               leaves_p, (gq, gk))
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    dq, dk = rope.rope_qk_bwd(gq, gk, tq, tk)
+    pq, pk = rope.rope_qk_bwd_plain(gq, gk, tq, tk)
+    assert dq.dtype == torch.float32 and dq.is_contiguous()
+    assert torch.equal(dq, pq) and torch.equal(dk, pk)
+    n1 = _kernels.LAUNCHES["rope_qk_bwd"]
+    with torch.no_grad():
+        rope.rope_qk(q, k, tq, tk, out_dtype)
+    assert _kernels.LAUNCHES["rope_qk_bwd"] == n1
+    with pytest.raises(ValueError):
+        rope.rope_qk_bwd(gq.half(), gk.half(), tq, tk)
 
 
 @pytest.mark.parametrize("kind,dtype", [
