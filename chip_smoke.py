@@ -39,6 +39,11 @@ Phases (any failure exits non-zero and prints no result line):
    on the oracle's starts at batch 1 and 2, also on smooth and random
    starts (``by_starts_ms``), and both searches report registers a thread
    and resident blocks an SM (from their ptxas lines).
+   ``match(payload=)`` at base's settings on the full grid, with the
+   tracker's at-match channels (C and Q of view 1) as payload: idx and
+   valid equal to the call without a payload, the picked-up rows bit-equal
+   to the plain gather of ``[X11, payload]`` at the match, one
+   ``gather_rows`` launch in the call (timed as its own record).
    ``gn_step`` (the tracker's whole solve in one launch) is held to
    ``tracker.gn_solve_plain`` at N = 196,608 in both residual modes: a
    solve that converges, one with no valid match (fails in 1 iteration)
@@ -162,9 +167,20 @@ Phases (any failure exits non-zero and prints no result line):
    ``--coordinator 127.0.0.1:<port> --num-hosts 2 --host-id r --ba-backend
    edge_sharded`` and ``SLAM_DIST_BACKEND=gloo`` on the cli run's frames:
    both exit 0 and write byte-identical TUM files with the one-process
-   run's keyframes). Each child runs under ``CHILD_TIMEOUT``, prints its
-   launch counts in one ``PHASE9_CHILD`` JSON line, and fails the smoke if
-   it fails.
+   run's keyframes), then three more pairs of children on cuda:0 over
+   gloo: **multi-host kf BA** (``--phase9-child kf_ba``: the loop graph,
+   K = 9 padded to 10, keyframe-sharded across the ranks, each rank's
+   ``EdgePre`` bit-equal to the one-process prep of its shard, the ranks'
+   poses bit-identical and within ``SHARD_TOL`` of dense; the exchange's
+   bytes and ms, the solve's ms and iterations), **multi-host dp serving**
+   (``--phase9-child dp_serve``: ``track_window_dp`` with one tpu_fast
+   stream a rank, W = ``WINDOW``, bit-equal to a lone window of the same
+   stream; the window's ms on each rank) and **multi-host sharded decode**
+   (``--phase9-child dp_decode``: the loop run's 3-edge batch padded to 4,
+   every rank's gathered outputs bit-equal to the one-process call over
+   (cuda:0, cuda:0); the all-gather's bytes and ms). Each child runs under
+   ``CHILD_TIMEOUT``, prints its launch counts in one ``PHASE9_CHILD`` JSON
+   line, and fails the smoke if it fails.
 
 10. Training: ``rope_qk_bwd`` (the backward of ``rope_qk``) bit-equal to
    autograd through ``rope_qk_plain`` with fp32 and bf16 gradients, timed
@@ -411,6 +427,8 @@ def check_kernels(model_cfg, orc):
     X, C, D, Q = oracle.inference_asymmetric(orc, f1, p1, f0, p0, model_cfg)
     X11 = X[0:1].contiguous()
     X21 = X[1:2].contiguous()
+    # the tracker's at-match channels of view 1 (C, Q) as match's payload
+    pay = torch.stack([C[0], Q[0]], -1)[None].contiguous()
     records = []
 
     rec = functools.partial(kernel_record, records)
@@ -639,10 +657,61 @@ def check_kernels(model_cfg, orc):
                 log(f"refine_matches and refine_separable {kind} starts "
                     f"{dname} r={r} d={d}: equal to the plain versions at "
                     f"all {n} points")
+    check_match_payload(rec, X, D, pay, h, w)
     check_backend_kernels(rec, X, D, n)
     check_loop_kernels(rec, model_cfg, D)
     torch.cuda.synchronize()
     return records
+
+
+def check_match_payload(rec, X, D, pay, h, w):
+    """``match(payload=)`` at base's settings (r = 3, d = 5, full grid) with
+    the tracker's at-match channels (C and Q of view 1) as payload: idx and
+    valid equal to the call without a payload, ``[X11, payload]`` at the
+    match bit-equal to the plain gather of the same rows, one
+    ``gather_rows`` launch in the call; that gather timed as a record."""
+    import torch
+
+    from mast3r_slam_tpu_torch.ops import _kernels, gather, matching
+
+    n = h * w
+    X11, X21 = X[0:1].contiguous(), X[1:2].contiguous()
+    kw = dict(max_iter=10, radius=3, dilation_max=5)
+    before = dict(_kernels.LAUNCHES)
+    idx, valid, pay_m = matching.match(X11, X21, D[0:1], D[1:2],
+                                       payload=pay, **kw)
+    torch.cuda.synchronize()
+    launches = {k: v - before.get(k, 0) for k, v in _kernels.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    idx0, valid0 = matching.match(X11, X21, D[0:1], D[1:2], **kw)
+    table = torch.cat([X11, pay], -1).reshape(n, -1).contiguous()
+    rows = idx.reshape(-1).to(torch.int32)
+    want = gather.gather_rows_plain(table, rows).reshape(pay_m.shape)
+    same = torch.equal(pay_m.view(torch.int32), want.view(torch.int32))
+    if not (torch.equal(idx, idx0) and torch.equal(valid, valid0) and same
+            and launches.get("gather_rows") == 1):
+        raise AssertionError(
+            f"match(payload=): idx equal {torch.equal(idx, idx0)}, valid "
+            f"equal {torch.equal(valid, valid0)}, payload bit-equal {same}, "
+            f"launches {launches}")
+    log(f"match(payload=) base r=3 d=5 (1,{n}) with [C, Q]: idx and valid "
+        f"equal to the call without a payload, the payload at the match "
+        f"bit-equal to the plain gather, launches {launches}")
+    rows64 = rows.long()
+    c = table.shape[1]
+    rec("gather_rows", f"match(payload=) pickup ({n},{c}) x{n}", 0.0,
+        lambda: gather.gather_rows(table, rows),
+        lambda: gather.gather_rows_plain(table, rows),
+        lambda: torch.index_select(table, 0, rows64),
+        2 * n * c * 4 + n * 4, 0, "fp32",
+        "mast3r_slam_tpu/ops/matching.py:330 (match(payload=): the pickup "
+        "of window_gather.py:275 refine_and_gather_full_unfold, XLA); the "
+        "row gather of scripts/probe_pallas_gather.py:38 and :52",
+        "mast3r_slam_tpu_torch/csrc/gather_rows.cu",
+        match_ms=time_ms(lambda: matching.match(
+            X11, X21, D[0:1], D[1:2], payload=pay, **kw), reps=5, warmup=1),
+        match_without_payload_ms=time_ms(lambda: matching.match(
+            X11, X21, D[0:1], D[1:2], **kw), reps=5, warmup=1))
 
 
 def check_loop_kernels(rec, model_cfg, D):
@@ -2959,6 +3028,29 @@ def wall_ms(fn, reps=3):
     return statistics.median(times)
 
 
+def ranks_wall_ms(fn, together, reps=3):
+    """``wall_ms`` of ``fn()`` on this rank of a process group, under a
+    defined condition: ``together``, every rep starts on all ranks at one
+    barrier (the ranks run ``fn`` at once); else the ranks take turns, each
+    timing its reps while the others wait at a barrier."""
+    import torch
+    import torch.distributed as dist
+
+    if not together:
+        ms = None
+        for r in range(dist.get_world_size()):
+            if r == dist.get_rank():
+                ms = wall_ms(fn, reps)
+            dist.barrier()
+        return ms
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        dist.barrier()
+        times.append(wall_ms(fn, reps=1))
+    return statistics.median(times)
+
+
 def dp_tracking_phase(params, model_cfg, run_launches):
     """**dp_tracking**: two streams (first frames ``DP_FIRST``) through
     ``track_window_dp`` over (cuda:0, cuda:0), the tpu_fast settings, W =
@@ -3298,10 +3390,145 @@ def multi_host_loop_phase(loop_ref, run_launches):
     return out
 
 
+def _bit_equal(a, b):
+    """Equal shapes, dtypes and bits (NaN payloads and signed zeros
+    included)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.view(view[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def multi_host_kf_ba_phase(g, run_launches):
+    """**multi-host keyframe-sharded BA**: the loop graph (K = 9 padded to
+    10, 42 edges, solved from moved poses) keyframe-sharded across two
+    processes that share cuda:0 over gloo (``--phase9-child kf_ba``): each
+    rank's ``EdgePre`` bit-equal to the one-process prep of the same shard,
+    the ranks' poses bit-identical and within ``SHARD_TOL`` of the dense
+    solve; the bytes each rank sends and receives in the exchange, its ms,
+    the solve's ms and iterations."""
+    import pathlib
+    import tempfile
+
+    import torch
+
+    from mast3r_slam_tpu_torch.slam import ba
+
+    T = moved_poses(g)
+    dense = ba.gauss_newton_rays(T, g["Xs"], g["Cs"], *g["edges"], g["n_kf"],
+                                 g["cfg"])
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        torch.save({"T": T.cpu(), "Xs": g["Xs"].cpu(), "Cs": g["Cs"].cpu(),
+                    "edges": [a.cpu() for a in g["edges"]],
+                    "n_kf": g["n_kf"], "cfg": g["cfg"]._asdict(),
+                    "dense": dense.T_WC.cpu()}, tmp / "graph.pt")
+        t0 = time.perf_counter()
+        found, _ = run_children(
+            [["kf_ba", str(tmp / "graph.pt"), str(tmp / f"rank{r}.pt")]
+             for r in range(2)], _ranks(_free_port()), str(tmp))
+        wall = time.perf_counter() - t0
+        Ts = [torch.load(tmp / f"rank{r}.pt") for r in range(2)]
+    missing = [sorted(k for k in BA_KERNELS if f["launches"][k] <= 0)
+               for f in found]
+    if (not _bit_equal(Ts[0], Ts[1]) or any(missing)
+            or not all(f["edge_pre_bit_equal"] for f in found)
+            or not all(f["max_pose_diff"] <= SHARD_TOL for f in found)
+            or found[0]["iters"] != found[1]["iters"]):
+        raise AssertionError(f"multi-host kf BA: ranks equal "
+                             f"{_bit_equal(Ts[0], Ts[1])}, never launched "
+                             f"{missing}, {found}")
+    for f in found:
+        run_launches[f"kf_ba_rank{f['rank']}"] = f["launches"]
+    keys = ("sent_bytes", "received_bytes", "exchange_ms", "prep_ms",
+            "solve_ms", "iters", "max_pose_diff", "seconds")
+    out = {"ranks": 2, "backend": "gloo", "keyframes": g["n_kf"],
+           "keyframes_padded": found[0]["keyframes_padded"],
+           "edges": found[0]["edges"], "wall_s": wall,
+           "edge_pre_bit_equal": True, "ranks_bit_identical": True,
+           **{f"{k}_by_rank": [f[k] for f in found] for k in keys}}
+    log("multi-host kf BA: " + json.dumps(out))
+    return out
+
+
+def dp_serve_phase(run_launches):
+    """**multi-host dp serving**: ``track_window_dp`` across two processes
+    that share cuda:0 over gloo (``--phase9-child dp_serve``), one tpu_fast
+    stream a rank (ViT-L, W = ``WINDOW``, ``models.oracle_timing``; rank
+    r's oracle from seed r, its first frame ``DP_FIRST[r]``): each rank's
+    window, outputs and store rows, bit-equal to a lone
+    ``_track_window_body`` of the same stream in the same child; the ms of
+    each rank's window with both ranks tracking at once (each rep started
+    at a barrier), and of its lone window with the other rank waiting."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        found, _ = run_children([["dp_serve"]] * 2, _ranks(_free_port()),
+                                tmp)
+        wall = time.perf_counter() - t0
+    missing = [sorted(k for k in FRONTEND if f["launches"][k] <= 0)
+               for f in found]
+    if any(f["unequal"] or f["keyframes_promoted"] < 1 or not f["all_active"]
+           for f in found) or any(missing):
+        raise AssertionError(f"multi-host dp serving: never launched "
+                             f"{missing}, {found}")
+    for f in found:
+        run_launches[f"dp_serve_rank{f['rank']}"] = f["launches"]
+    out = {"ranks": 2, "backend": "gloo", "window": WINDOW, "wall_s": wall,
+           "bit_equal_to_lone_windows": True,
+           "frame_ids_by_rank": [f["ids"] for f in found],
+           "keyframes_promoted_by_rank": [f["keyframes_promoted"]
+                                          for f in found],
+           "window_ms_by_rank": [f["window_ms"] for f in found],
+           "lone_window_ms_by_rank": [f["lone_window_ms"] for f in found],
+           "child_s": [f["seconds"] for f in found]}
+    log("multi-host dp serving: " + json.dumps(out))
+    return out
+
+
+def dp_decode_phase(batch, run_launches):
+    """**multi-host sharded decode**: the loop run's 3-edge batch (padded
+    to 4) through ``inference_symmetric_dp`` across two processes that
+    share cuda:0 over gloo (``--phase9-child dp_decode``): every rank's
+    gathered outputs bit-equal to the one-process call over
+    (cuda:0, cuda:0); the bytes and ms of the all-gather."""
+    import pathlib
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        torch.save([t.cpu() for t in batch], tmp / "batch.pt")
+        t0 = time.perf_counter()
+        found, _ = run_children(
+            [["dp_decode", str(tmp / "batch.pt")]] * 2, _ranks(_free_port()),
+            str(tmp))
+        wall = time.perf_counter() - t0
+    if any(f["unequal"] or f["launches"]["rope_qk"] <= 0 for f in found):
+        raise AssertionError(f"multi-host sharded decode: {found}")
+    for f in found:
+        run_launches[f"dp_decode_rank{f['rank']}"] = f["launches"]
+    keys = ("gather_sent_bytes", "gather_received_bytes", "gather_ms",
+            "decode_ms", "seconds")
+    out = {"ranks": 2, "backend": "gloo", "edges": found[0]["edges"],
+           "padded_to": found[0]["padded_to"], "wall_s": wall,
+           "bit_equal_to_one_process": True,
+           **{f"{k}_by_rank": [f[k] for f in found] for k in keys}}
+    log("multi-host sharded decode: " + json.dumps(out))
+    return out
+
+
 def phase9_child(kind, *args):
     """A child process of phase 9: ``ba <graph.pt> <out.pt>``, ``loop
-    <out.pt>`` or ``cli <argv...>``. Prints one ``CHILD_TAG`` JSON line;
-    returns 0."""
+    <out.pt>``, ``cli <argv...>``, ``kf_ba <graph.pt> <out.pt>``,
+    ``dp_serve`` or ``dp_decode <batch.pt>``. Prints one ``CHILD_TAG`` JSON
+    line; returns 0."""
     import torch
 
     from mast3r_slam_tpu_torch.ops import _kernels
@@ -3314,10 +3541,10 @@ def phase9_child(kind, *args):
         result = {"stats": cli.main(list(args))}
         torch.cuda.synchronize()
         result["launches"] = dict(_kernels.LAUNCHES)
-    elif kind == "loop":
-        result = _child_loop(*args)
+    elif kind in _CHILDREN:
+        result = _CHILDREN[kind](*args)
     else:
-        result = _child_ba(*args)
+        raise ValueError(f"unknown phase 9 child {kind!r}")
     result["seconds"] = time.perf_counter() - t0
     print(CHILD_TAG + json.dumps(result), flush=True)
     return 0
@@ -3328,7 +3555,7 @@ def _child_loop(out_path):
     import torch.distributed as dist
 
     from mast3r_slam_tpu_torch.config import tpu_fast_config
-    from mast3r_slam_tpu_torch.models import mast3r, oracle, oracle_timing
+    from mast3r_slam_tpu_torch.models import oracle, oracle_timing
     from mast3r_slam_tpu_torch.ops import _kernels
     from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
     from mast3r_slam_tpu_torch.slam import retrieval
@@ -3336,10 +3563,7 @@ def _child_loop(out_path):
     if not mesh_mod.init_distributed(device="cuda"):
         raise RuntimeError("phase 9 child: no process group")
     # main()'s network, oracle and retrieval head, from the same seeds
-    model_cfg = mast3r.MASt3RConfig(head_dtype="bfloat16")
-    net = mast3r.init_params(
-        model_cfg, torch.Generator(device="cuda").manual_seed(0),
-        device="cuda")
+    net, model_cfg = _child_vit_l()
     orc = oracle.make_params(oracle.make_traj(N_TRAJ).cuda(),
                              desc_dim=model_cfg.desc_dim, seed=0,
                              device="cuda")
@@ -3418,6 +3642,194 @@ def _child_ba(graph_path, out_path):
            "launches": launches}
     dist.destroy_process_group()
     return out
+
+
+def _child_kf_ba(graph_path, out_path):
+    import torch
+    import torch.distributed as dist
+
+    from mast3r_slam_tpu_torch.config import BAConfig
+    from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.parallel import dist_ba
+    from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+
+    if not mesh_mod.init_distributed(device="cuda"):
+        raise RuntimeError("phase 9 child: no process group")
+    me = dist.get_rank()
+    g = torch.load(graph_path)
+    T, Xs, Cs = (g[k].cuda() for k in ("T", "Xs", "Cs"))
+    n_kf, cfg, dense = g["n_kf"], BAConfig(**g["cfg"]), g["dense"].cuda()
+    m = mesh_mod.make_mesh()
+    ii, jj, idx, vm, Q, mask = _padded([a.cuda() for a in g["edges"]],
+                                       m.size)
+    Xp, Cp = (mesh_mod.pad_to_multiple(a, m.size) for a in (Xs, Cs))
+    stride = cfg.point_stride
+
+    def prep():
+        Xs_b, Cs_b = dist_ba.shard_keyframe_store(m, Xp, Cp)
+        return dist_ba.prep_edges_kf_sharded(m, Xs_b, Cs_b, ii, jj, idx, vm,
+                                             stride=stride)
+
+    def solve(pres):
+        return dist_ba.gauss_newton_rays_dist_pre(T, pres, ii, jj, vm, Q,
+                                                  mask, n_kf, m, cfg)
+
+    _kernels.reset_launch_counts()
+    pres = prep()
+    res = solve(pres)
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    # the one-process prep of the same graph over (cuda:0, cuda:0)
+    one = mesh_mod.Mesh((torch.device("cuda", 0),) * m.size)
+    ref = dist_ba.prep_edges_kf_sharded(
+        one, *dist_ba.shard_keyframe_store(one, Xp, Cp), ii, jj, idx, vm,
+        stride=stride)
+    equal = all(_bit_equal(a, b) for l, pre in enumerate(pres)
+                for a, b in zip(pre, ref[m.first_shard + l]))
+    # the exchange alone, on the points it moved
+    _, send, recv, _ = dist_ba.kf_gather(
+        m, *dist_ba.shard_keyframe_store(m, Xp, Cp), ii, jj, idx, vm, stride)
+    nbytes = lambda shape: math.prod(shape) * 4
+    sent = sum(t.numel() * t.element_size() for r, ts in enumerate(send)
+               if r != me for t in ts)
+    received = sum(nbytes(shape) for r, specs in enumerate(recv) if r != me
+                   for shape, _ in specs)
+    # both ranks make the same calls in the same order: the collectives
+    # pair up
+    ex_ms = time_ms(lambda: mesh_mod.exchange(m, send, recv,
+                                              dtypes=(torch.float32,)),
+                    reps=10, warmup=2)
+    prep_ms = time_ms(prep, reps=3, warmup=1)
+    solve_ms = time_ms(lambda: solve(pres), reps=3, warmup=1)
+    torch.save(res.T_WC.cpu(), out_path)
+    out = {"rank": me, "mesh_size": m.size,
+           "keyframes_padded": Xp.shape[0], "edges": int(ii.shape[0]),
+           "edge_pre_bit_equal": equal,
+           "max_pose_diff": float((res.T_WC - dense).abs().max()),
+           "iters": res.iters, "sent_bytes": sent,
+           "received_bytes": received, "exchange_ms": ex_ms,
+           "prep_ms": prep_ms, "solve_ms": solve_ms, "launches": launches}
+    dist.destroy_process_group()
+    return out
+
+
+def _child_vit_l():
+    """main()'s ViT-L network from the same seed."""
+    import torch
+
+    from mast3r_slam_tpu_torch.models import mast3r
+
+    model_cfg = mast3r.MASt3RConfig(head_dtype="bfloat16")
+    net = mast3r.init_params(
+        model_cfg, torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    return net, model_cfg
+
+
+def _child_dp_serve():
+    import torch
+    import torch.distributed as dist
+
+    from mast3r_slam_tpu_torch.models import oracle, oracle_timing
+    from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.parallel import dp_tracking
+    from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+
+    if not mesh_mod.init_distributed(device="cuda"):
+        raise RuntimeError("phase 9 child: no process group")
+    me = dist.get_rank()
+    net, model_cfg = _child_vit_l()
+    # this rank's stream: its own oracle scene (seed) and frames
+    orc = oracle.make_params(oracle.make_traj(N_TRAJ).cuda(),
+                             desc_dim=model_cfg.desc_dim, seed=me,
+                             device="cuda")
+    params = oracle_timing.make_params(net, orc)
+    first = DP_FIRST[me]
+    m = mesh_mod.make_mesh()
+    lone_sys, lone_seq = window_seq(params, model_cfg, first)
+    ref = lone_window(params, model_cfg, lone_sys, lone_seq)
+    system, seq = window_seq(params, model_cfg, first)
+    tr = system.tracker
+    dp = lambda: dp_tracking.track_window_dp(
+        dp_tracking.replicate_params(params, m), model_cfg, tr.mcfg, tr.tcfg,
+        [seq], m, model_mod=oracle_timing, **_window_args(system))
+    _kernels.reset_launch_counts()
+    (got,) = dp()
+    stats = got.hoststats.cpu()
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    fields = ("hoststats", "T_WCf", "idx_last", "prev_T_WC")
+    bufs = ("X", "C", "N", "N_updates", "score", "T_WC", "feat", "pos",
+            "dataset_idx")
+    unequal = [f for f in fields if not _bit_equal(getattr(got, f),
+                                                   getattr(ref, f))]
+    unequal += [f"kfs.{b}" for b in bufs
+                if not _bit_equal(getattr(seq.kfs, b),
+                                  getattr(lone_seq.kfs, b))]
+    out = {"rank": me, "mesh_size": m.size, "ids": seq.frame_ids,
+           "unequal": unequal,
+           "keyframes_promoted": int(stats[:, 5].sum()),
+           "all_active": bool((stats[:, 7] == 1).all()),
+           # both ranks' windows at once, each rep started at a barrier
+           "window_ms": ranks_wall_ms(lambda: dp()[0].hoststats.cpu(),
+                                      together=True),
+           # the ranks in turn, the other waiting at a barrier
+           "lone_window_ms": ranks_wall_ms(lambda: lone_window(
+               params, model_cfg, lone_sys, lone_seq).hoststats.cpu(),
+               together=False),
+           "launches": launches}
+    dist.destroy_process_group()
+    return out
+
+
+def _child_dp_decode(batch_path):
+    import torch
+    import torch.distributed as dist
+
+    from mast3r_slam_tpu_torch.models import mast3r
+    from mast3r_slam_tpu_torch.ops import _kernels
+    from mast3r_slam_tpu_torch.parallel import dp_tracking
+    from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+
+    if not mesh_mod.init_distributed(device="cuda"):
+        raise RuntimeError("phase 9 child: no process group")
+    me = dist.get_rank()
+    net, model_cfg = _child_vit_l()
+    batch = [t.cuda() for t in torch.load(batch_path)]
+    m = mesh_mod.make_mesh()
+    by_device = dp_tracking.replicate_params(net, m)
+    dp = lambda: dp_tracking.inference_symmetric_dp(by_device, m, *batch,
+                                                    model_cfg)
+    _kernels.reset_launch_counts()
+    got = dp()
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    one = mesh_mod.Mesh((torch.device("cuda", 0),) * m.size)
+    ref = dp_tracking.inference_symmetric_dp(
+        dp_tracking.replicate_params(net, one), one, *batch, model_cfg)
+    unequal = sorted(k for k in ref if k not in got
+                     or not _bit_equal(got[k], ref[k]))
+    # the all-gather alone, on this rank's decoded chunk
+    chunks = mesh_mod.shard_edges(m, *(mesh_mod.pad_to_multiple(t, m.size)
+                                       for t in batch))
+    local = mast3r.inference_symmetric(net, *(c[0] for c in chunks),
+                                       model_cfg)
+    mine = tuple(local[k] for k in sorted(local))
+    sent = sum(t.numel() * t.element_size() for t in mine)
+    out = {"rank": me, "mesh_size": m.size, "edges": batch[0].shape[0],
+           "padded_to": chunks[0][0].shape[0] * m.size, "unequal": unequal,
+           "gather_sent_bytes": sent,
+           "gather_received_bytes": sent * (m.world_size - 1),
+           "gather_ms": time_ms(lambda: mesh_mod.all_gather_shards(
+               m, [mine]), reps=10, warmup=2),
+           "decode_ms": time_ms(dp, reps=3, warmup=1),
+           "launches": launches}
+    dist.destroy_process_group()
+    return out
+
+
+_CHILDREN = {"ba": _child_ba, "loop": _child_loop, "kf_ba": _child_kf_ba,
+             "dp_serve": _child_dp_serve, "dp_decode": _child_dp_decode}
 
 
 # -- phase 10: training -------------------------------------------------------
@@ -4021,6 +4433,9 @@ def main():
     multi_host_ba_phase(loop_graph, run_launches)
     multi_host_loop_phase(loop_ref, run_launches)
     multi_host_cli_phase(run_launches)
+    multi_host_kf_ba_phase(loop_graph, run_launches)
+    dp_serve_phase(run_launches)
+    dp_decode_phase(decode_batch, run_launches)
     log(f"phase 9 (data-parallel tracking, sharded decode, multi-host): "
         f"{time.perf_counter() - t9:.2f} s")
 

@@ -6,9 +6,10 @@ the JAX package. Entry points run on the GPU (``device="cuda"``) unless the
 caller passes ``device="cpu"``, which selects the plain PyTorch versions of
 the hand-written CUDA kernels (``csrc/``).
 
-First slice: the per-frame tracking frontend (encode, asymmetric decode and
-heads, matcher, confidence gate, Sim(3) Gauss-Newton, pointmap fusion).
-What the slice leaves out raises ``NotImplementedError``; see ROADMAP.md.
+It does what the JAX package does: the tracking frontend (windowed or
+frame by frame), the backend with loop closure and relocalization, the run
+loop and the CLI, the backend across devices and processes
+(``parallel/``), data-parallel tracking and training (``distill``).
 """
 
 from ._device import resolve_device

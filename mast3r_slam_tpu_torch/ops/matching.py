@@ -17,8 +17,10 @@ kernels carry it on the GPU:
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 PyTorch version beside it for CPU tensors; nothing else falls back. The
 TPU layout workarounds of the JAX package (pair/quad unfolds, the
-phase-decimated window unfolds, payload riding) are not ported: the
-kernels read the images directly.
+phase-decimated window unfolds, payload riding in the refine's gathers)
+are not ported: the kernels read the images directly. What the payload
+workaround returns is: ``match(payload=)`` gathers ``[X11, payload]`` at
+the final match with ``gather.gather_rows`` (``csrc/gather_rows.cu``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import math
 import torch
 
 from . import _kernels
+from .gather import gather_rows
 from .gradient import l2_normalize, prep_rays_grad_padded
 
 
@@ -340,10 +343,15 @@ def match(X11, X21, D11, D21, idx_1_to_2_init=None, max_iter: int = 10,
     X11 (b, h, w, 3) and D11 (b, h, w, f) of view 1; X21/D21 (b, hq, wq, .)
     queries (a sub-grid needs ``idx_1_to_2_init``). Returns (idx (b, n)
     int64, valid (b, n, 1) bool) and, with ``subpixel``, p_sub (b, n, 2).
+
+    ``payload`` (b, h, w, p) fp32 needs radius > 0, not ``subpixel`` and
+    bf16 descriptors (``ValueError`` otherwise, as in JAX); the return is
+    then (idx, valid, pay_m), pay_m (b, n, 3 + p) being ``[X11, payload]``
+    at the final match. The full window search runs whatever
+    ``separable_refine`` says, as JAX's payload path does
+    (``matching.py:330-350``), and idx and valid are those of the call
+    without a payload.
     """
-    if payload is not None:
-        raise NotImplementedError(
-            "payload riding is a TPU layout workaround and is not ported")
     b, h, w, _ = X11.shape
     hq, wq = X21.shape[1], X21.shape[2]
     n = hq * wq
@@ -396,6 +404,13 @@ def match(X11, X21, D11, D21, idx_1_to_2_init=None, max_iter: int = 10,
             f"refine_dtype must be 'bfloat16' or 'int8', got "
             f"{refine_dtype!r} (a silent fall-through would quietly run "
             "bf16 while the user believes the quantized search is active)")
+    if payload is not None:
+        if radius <= 0 or subpixel:
+            raise ValueError("payload requires radius > 0 and not subpixel")
+        if refine_dtype != "bfloat16":
+            raise ValueError("payload rides bf16-bitcast rows; "
+                             "refine_dtype='int8' is not supported with it")
+        separable_refine = False
 
     # occlusion gate: 3D distance between matched points
     lin = pixel_to_lin(p1i.to(torch.int64), w)
@@ -417,6 +432,13 @@ def match(X11, X21, D11, D21, idx_1_to_2_init=None, max_iter: int = 10,
                      p1i.contiguous(), radius, dilation_max, grid_width=wq)
 
     idx = pixel_to_lin(p1i.to(torch.int64), w)
+    if payload is not None:
+        # [X11, payload] at the match: one row gather over the batch
+        table = torch.cat([X11, payload], dim=-1).to(torch.float32)
+        rows = idx + h * w * torch.arange(b, device=dev)[:, None]
+        pay_m = gather_rows(table.reshape(b * h * w, -1).contiguous(),
+                            rows.reshape(-1).to(torch.int32))
+        return idx, valid[..., None], pay_m.reshape(b, n, -1)
     if not subpixel:
         return idx, valid[..., None]
     p_sub, _ = iter_proj(rays_grad, pts3d_norm, p1i.to(X11.dtype),

@@ -17,12 +17,13 @@ per iteration, stops them at the same iteration.
 
 The keyframe-sharded variant (``shard_keyframe_store``,
 ``prep_edges_kf_sharded``, ``gauss_newton_rays_dist_pre``) keeps each
-keyframe's maps on one device only: before the loop, each edge's endpoint
-points are gathered on the device that holds that keyframe and moved to
-the edge's shard; the loop then reads no keyframe map. Across processes
-that move would cross ranks, which is not ported: ``shard_keyframe_store``
-and ``prep_edges_kf_sharded`` raise ``NotImplementedError`` for a mesh that
-spans processes (ROADMAP.md queue 1 item 7).
+keyframe's maps on one device only, in ``mesh.size`` contiguous blocks:
+before the loop, each edge's endpoint points are gathered on the device
+that holds that keyframe and moved to the edge's shard; the loop then reads
+no keyframe map. Across processes the points bound for another rank's
+shards go in one ``mesh.exchange`` (the all-to-all that GSPMD inserts for
+the JAX package); each shard's ``EdgePre`` is the one-process prep's for
+that shard, bit for bit.
 
 The edge lists are read to the host once per solve, for every shard's
 assembly plan (and the keyframe-sharded gather's selections).
@@ -37,7 +38,7 @@ import torch
 
 from .._device import exact_fp32
 from ..slam import ba
-from .mesh import (Mesh, one_process_only, reduce_partials, replicate,
+from .mesh import (Mesh, exchange, reduce_partials, replicate,
                    shard_edges)
 
 __all__ = ["gauss_newton_dist", "gauss_newton_rays_dist",
@@ -179,55 +180,138 @@ def gauss_newton_calib_dist(T_WCs, Xs, Cs, K_mat, ii, jj, idx_ii2jj,
 # -- keyframe-sharded maps ----------------------------------------------------
 
 
-
 def shard_keyframe_store(mesh: Mesh, Xs, Cs):
     """Keyframe maps (K, P, 3) and confidences (K, P) in ``mesh.size``
-    contiguous blocks, block ``b`` on ``mesh.devices[b]`` (``:32``); K must
-    divide by ``mesh.size`` (pad with ``mesh.pad_to_multiple``). Returns
-    the lists of blocks. One process only."""
-    one_process_only(mesh, "shard_keyframe_store", 7)
+    contiguous blocks (``:32``): this process's blocks, block
+    ``first_shard + l`` on ``mesh.devices[l]``, as ``shard_edges`` lays
+    them out. K must divide by ``mesh.size`` (``ValueError``; pad with
+    ``mesh.pad_to_multiple``). Returns the lists of local blocks."""
+    if Xs.shape[0] % mesh.size:
+        raise ValueError(f"{Xs.shape[0]} keyframes do not split over "
+                         f"{mesh.size} devices: pad them "
+                         "(mesh.pad_to_multiple)")
     return shard_edges(mesh, Xs, Cs)
+
+
+class _Route(NamedTuple):
+    """The edges of one shard whose endpoint on one side lies in one
+    keyframe block, and the ranks that hold the block and the shard."""
+    src: int            # rank of the block
+    dst: int            # rank of the edge shard
+    shard: int          # global edge shard
+    block: int          # global keyframe block
+    side: int           # 0: keyframe i at the matches, 1: keyframe j
+    sel: np.ndarray     # the edges, as indices within the shard
+    rows: np.ndarray    # their keyframes, as rows of the block
+
+
+def _routes(mesh: Mesh, ij, B: int) -> list:
+    """Every non-empty (shard, block, side), ordered by destination rank,
+    then shard, then block, then side: a rank sends its part of this list
+    to each other rank in this order and receives in the same order."""
+    n_loc, E_loc = len(mesh.devices), ij.shape[1] // mesh.size
+    out = []
+    for s in range(mesh.size):
+        ij_s = ij[:, s * E_loc:(s + 1) * E_loc]
+        for b in range(mesh.size):
+            for side in (0, 1):
+                sel = np.flatnonzero(ij_s[side] // B == b)
+                if sel.size:
+                    out.append(_Route(b // n_loc, s // n_loc, s, b, side,
+                                      sel, ij_s[side, sel] - b * B))
+    return out
+
+
+def kf_gather(mesh: Mesh, Xs_sh, Cs_sh, ii, jj, idx, valid_match,
+              stride: int = 1):
+    """The gathering half of ``prep_edges_kf_sharded``: for every route
+    whose block this rank holds, the points gathered on the block's device.
+
+    Returns (``pres``: this rank's shards' ``EdgePre`` with the local
+    routes' points in place, ``send``: per rank the points bound there,
+    ``recv``: per rank the shapes to receive, ``incoming``: the routes
+    whose points arrive, in arrival order)."""
+    _check_edges(mesh, ii)
+    if len(Xs_sh) != len(mesh.devices):
+        raise ValueError(f"{len(Xs_sh)} keyframe blocks for "
+                         f"{len(mesh.devices)} local devices")
+    B = Xs_sh[0].shape[0]
+    ij = host_edges(ii, jj)
+    if ij.size and ij.max() >= B * mesh.size:
+        raise ValueError(f"edge endpoint {ij.max()} outside the "
+                         f"{B * mesh.size} keyframes of the blocks")
+    XC = [torch.cat([X, C[..., None]], dim=-1) for X, C in zip(Xs_sh, Cs_sh)]
+    E_loc = ii.shape[0] // mesh.size
+    me, lo = mesh.rank, mesh.first_shard
+    safe = {}
+
+    def safe_of(s, dev):
+        """Shard ``s``'s safe match indices on ``dev``, made once."""
+        if (s, dev) not in safe:
+            rows = slice(s * E_loc, (s + 1) * E_loc)
+            vm_s = valid_match[rows, ::stride].to(dev)
+            safe[s, dev] = torch.where(
+                vm_s, idx[rows, ::stride].to(dev, torch.int32),
+                torch.zeros((), dtype=torch.int32, device=dev)).contiguous()
+        return safe[s, dev]
+
+    pres = []
+    for l, dev in enumerate(mesh.devices):
+        sf = safe_of(lo + l, dev)
+        XCi = XC[0].new_empty((E_loc, sf.shape[1], 4), device=dev)
+        pres.append(ba.EdgePre(XCi, torch.empty_like(XCi), sf))
+    send = [[] for _ in range(mesh.world_size)]
+    recv = [[] for _ in range(mesh.world_size)]
+    incoming = []
+    P_ = pres[0].safe_idx.shape[1]
+    for rt in _routes(mesh, ij, B):
+        if rt.src != me:
+            if rt.dst == me:
+                recv[rt.src].append(((rt.sel.size, P_, 4), XC[0].dtype))
+                incoming.append(rt)
+            continue
+        dev_b, XC_b = mesh.devices[rt.block - lo], XC[rt.block - lo]
+        # one upload: the shard's edges and their rows in the block
+        both = torch.from_numpy(np.stack([rt.sel, rt.rows])).to(dev_b)
+        if rt.side == 0:
+            got = ba._gather_points(XC_b, both[1],
+                                    safe_of(rt.shard, dev_b)[both[0]])
+        else:
+            got = XC_b[both[1], ::stride]
+        if rt.dst == me:
+            _place(pres, rt, got, lo)
+        else:
+            send[rt.dst].append(got)
+    return pres, send, recv, incoming
+
+
+def _place(pres, rt: _Route, got, lo: int):
+    """A route's points into its edges' rows of the shard's ``EdgePre``."""
+    pre = pres[rt.shard - lo]
+    dst = pre.XCi if rt.side == 0 else pre.XCj
+    dst[torch.from_numpy(rt.sel).to(dst.device)] = got.to(dst.device)
 
 
 def prep_edges_kf_sharded(mesh: Mesh, Xs_sh, Cs_sh, ii, jj, idx,
                           valid_match, stride: int = 1):
-    """Each edge shard's ``EdgePre`` from keyframe-sharded maps (``:44``):
-    the endpoint points of each edge are gathered on the device that holds
-    that keyframe (keyframe i's at the match indices through
-    ``ba._gather_points``, the ``gather_rows`` kernel on CUDA; keyframe j's
-    at every ``stride``-th pixel) and moved to the edge's shard. One process
-    only."""
-    one_process_only(mesh, "prep_edges_kf_sharded", 7)
-    _check_edges(mesh, ii)
-    B = Xs_sh[0].shape[0]
-    XC = [torch.cat([X, C[..., None]], dim=-1) for X, C in zip(Xs_sh, Cs_sh)]
-    ij = host_edges(ii, jj)
-    E_loc = ii.shape[0] // mesh.size
-    out = []
-    for s, (dev, idx_s, vm_s) in enumerate(
-            zip(mesh.devices, *shard_edges(mesh, idx, valid_match))):
-        safe = torch.where(vm_s[:, ::stride], idx_s[:, ::stride].to(
-            torch.int32), torch.zeros((), dtype=torch.int32,
-                                      device=dev)).contiguous()
-        XCi = XC[0].new_empty((E_loc, safe.shape[1], 4), device=dev)
-        XCj = torch.empty_like(XCi)
-        ij_s = ij[:, s * E_loc:(s + 1) * E_loc]
-        for b, (dev_b, XC_b) in enumerate(zip(mesh.devices, XC)):
-            for side, dst in ((0, XCi), (1, XCj)):
-                sel = np.flatnonzero(ij_s[side] // B == b)
-                if not sel.size:
-                    continue
-                # one upload: the shard's edges and their rows in block b
-                both = torch.from_numpy(np.stack(
-                    [sel, ij_s[side, sel] - b * B])).to(dev_b)
-                if side == 0:
-                    got = ba._gather_points(XC_b, both[1],
-                                            safe.to(dev_b)[both[0]])
-                else:
-                    got = XC_b[both[1], ::stride]
-                dst[both[0].to(dev)] = got.to(dev)
-        out.append(ba.EdgePre(XCi, XCj, safe))
-    return out
+    """Each local edge shard's ``EdgePre`` from keyframe-sharded maps
+    (``:44``): for every edge of every shard whose endpoint keyframe lies
+    in a local block, this rank gathers keyframe i's points at the safe
+    match indices (``ba._gather_points``, the ``gather_rows`` kernel on
+    CUDA) or keyframe j's points at every ``stride``-th pixel, on the
+    block's device; one ``mesh.exchange`` routes the points bound for other
+    ranks. ``ii``, ``jj``, ``idx`` and ``valid_match`` are the whole
+    (padded) edge arrays, the same on every rank. Returns one ``EdgePre``
+    a local shard, equal to the one-process prep's for that global shard
+    index."""
+    pres, send, recv, incoming = kf_gather(mesh, Xs_sh, Cs_sh, ii, jj, idx,
+                                           valid_match, stride)
+    got = exchange(mesh, send, recv, dtypes=(pres[0].XCi.dtype,))
+    taken = [0] * mesh.world_size
+    for rt in incoming:
+        _place(pres, rt, got[rt.src][taken[rt.src]], mesh.first_shard)
+        taken[rt.src] += 1
+    return pres
 
 
 @torch.no_grad()

@@ -12,9 +12,13 @@ device, so all S windows are enqueued before the caller reads any
 the one a lone window on that device gives, bit for bit: the same
 operations on the same tensors; nothing passes between sequences.
 
-Both functions take a mesh of one process (``parallel/mesh.py``); a mesh
-across processes raises ``NotImplementedError`` (ROADMAP.md queue 1 item
-8): each rank tracks its own streams with a mesh of its local devices.
+Across processes (a mesh of ``parallel/mesh.py`` that spans ranks) each
+rank tracks its own ``len(mesh.devices)`` sequences, the global sequences
+``first_shard + l``, and gets their outputs: the counterpart of the
+addressable shards of JAX's global output; no collective is needed. The
+sharded decode splits the batch into ``mesh.size`` chunks, each rank
+decodes its own, and ``mesh.all_gather_shards`` gives every rank the whole
+batch.
 """
 
 from __future__ import annotations
@@ -27,8 +31,8 @@ from ..models import mast3r
 from ..slam.frame import KeyframeStore
 from ..slam.system import WindowOut, _track_window_body
 from .backend_device import params_to
-from .mesh import (Mesh, normalize_device, one_process_only, pad_to_multiple,
-                   shard_edges)
+from .mesh import (Mesh, all_gather_shards, normalize_device,
+                   pad_to_multiple, shard_edges)
 
 __all__ = ["SeqInputs", "inference_symmetric_dp", "replicate_params",
            "track_window_dp"]
@@ -76,20 +80,22 @@ def track_window_dp(params_by_device, model_cfg, mcfg, tcfg, seqs,
                     model_mod=mast3r) -> list:
     """The windowed tracker for S sequences, sequence ``s`` on
     ``mesh.devices[s]`` with ``params_by_device[s]`` (``replicate_params``)
-    (``dp_tracking.py:40``). S must equal the mesh size (``ValueError``
-    otherwise: a larger S would drop sequences), and each sequence's
-    tensors must lie on its device (``ValueError``). Each keyframe store is
-    written in place. Returns one ``WindowOut`` per sequence, all still on
-    their devices: the caller reads each ``hoststats`` (the window's one
-    host read) after every window is enqueued."""
-    one_process_only(mesh, "track_window_dp", 8)
-    if len(seqs) != mesh.size:
+    (``dp_tracking.py:40``). S must equal the number of local devices
+    (``ValueError`` otherwise: a larger S would drop sequences), which on
+    every rank of a mesh across processes makes the mesh size globally;
+    each sequence's tensors must lie on its device (``ValueError``). Each
+    keyframe store is written in place. Returns one ``WindowOut`` per
+    sequence, all still on their devices: the caller reads each
+    ``hoststats`` (the window's one host read) after every window is
+    enqueued."""
+    if len(seqs) != len(mesh.devices):
         raise ValueError(
             f"track_window_dp maps one sequence per device: got S = "
-            f"{len(seqs)} sequences on a {mesh.size}-device mesh (a larger "
-            "S would silently drop sequences)")
+            f"{len(seqs)} sequences for the {len(mesh.devices)} local "
+            f"devices of a {mesh.size}-device mesh (a larger S would "
+            "silently drop sequences)")
     for s, (dev, seq) in enumerate(zip(mesh.devices, seqs)):
-        _check_on(dev, seq, s)
+        _check_on(dev, seq, mesh.first_shard + s)
     outs: list[WindowOut] = []
     for params, seq in zip(params_by_device, seqs):
         kfs = seq.kfs
@@ -105,15 +111,18 @@ def inference_symmetric_dp(params_by_device, mesh: Mesh, feat_i, pos_i,
                            feat_j, pos_j, cfg, model_mod=mast3r) -> dict:
     """``inference_symmetric`` of an edge batch split over the mesh
     (``tests/test_parallel.py:38``): the batch padded to a multiple of the
-    mesh size (``pad_to_multiple``), chunk ``s`` decoded on
-    ``mesh.devices[s]`` with ``params_by_device[s]``, the outputs gathered
-    on the first device in shard order and the padding cut off. The same
-    keys as ``model_mod.inference_symmetric``."""
-    one_process_only(mesh, "inference_symmetric_dp", 8)
+    mesh size (``pad_to_multiple``), this rank's chunks decoded, chunk
+    ``first_shard + l`` on ``mesh.devices[l]`` with
+    ``params_by_device[l]``, the outputs gathered in shard order on the
+    first local device (``mesh.all_gather_shards``: one collective an
+    output dtype across processes) and the padding cut off. Every rank
+    passes the whole batch and gets the whole result. The same keys as
+    ``model_mod.inference_symmetric``."""
     b = feat_i.shape[0]
     chunks = shard_edges(mesh, *(pad_to_multiple(t, mesh.size)
                                  for t in (feat_i, pos_i, feat_j, pos_j)))
     outs = [model_mod.inference_symmetric(params, fi, pi, fj, pj, cfg)
             for params, fi, pi, fj, pj in zip(params_by_device, *chunks)]
-    d0 = mesh.devices[0]
-    return {k: torch.cat([o[k].to(d0) for o in outs])[:b] for k in outs[0]}
+    keys = list(outs[0])
+    got = all_gather_shards(mesh, [tuple(o[k] for k in keys) for o in outs])
+    return {k: t[:b] for k, t in zip(keys, got)}

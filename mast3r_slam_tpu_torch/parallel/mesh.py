@@ -4,9 +4,14 @@ over, in one process or across processes.
 Counterpart of ``mast3r_slam_tpu/parallel/mesh.py``. The JAX package shards
 arrays over a ``jax.sharding.Mesh`` and lets XLA insert the collectives;
 here a ``Mesh`` is this process's tuple of devices plus the process layout,
-a shard is a tensor on its device, and a collective is ``reduce_partials``:
-the partials of this process's shards combined in shard order on its first
-device, then one ``torch.distributed.all_reduce`` across processes.
+a shard is a tensor on its device, and the collectives are three
+functions: ``reduce_partials`` (the partials of this process's shards
+combined in shard order on its first device, then one
+``torch.distributed.all_reduce`` across processes), ``exchange`` (tensors
+sent from each rank to each other, one ``all_to_all_single`` a dtype) and
+``all_gather_shards`` (every shard's tensors, in global shard order, on
+every rank's first device: one ``all_gather_into_tensor`` a dtype). The
+last two move bits and do no arithmetic.
 
 In one process the device list may repeat a device:
 ``make_mesh([torch.device("cpu")] * 4)`` runs four shards on the CPU,
@@ -22,7 +27,9 @@ on its local device ``s % len(devices)``. The process group's backend is
 ``SLAM_DIST_BACKEND`` when set, else NCCL for a run on CUDA and gloo on the
 CPU. NCCL refuses two ranks on one GPU; two ranks on a machine with one
 GPU set ``SLAM_DIST_BACKEND=gloo``, whose all-reduce of CUDA tensors goes
-through the host.
+through the host. Gloo takes CUDA tensors in the two moves as well
+(PyTorch's gloo stages them through the host itself), so every collective
+here passes the tensors as they are, on any backend.
 """
 
 from __future__ import annotations
@@ -33,9 +40,10 @@ from typing import Any, NamedTuple, Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Mesh", "dist_backend", "init_distributed", "make_mesh",
-           "make_mesh_2d", "normalize_device", "one_process_only",
-           "pad_to_multiple", "reduce_partials", "replicate", "shard_edges"]
+__all__ = ["Mesh", "all_gather_shards", "dist_backend", "exchange",
+           "init_distributed", "make_mesh", "make_mesh_2d",
+           "normalize_device", "pad_to_multiple", "reduce_partials",
+           "replicate", "shard_edges"]
 
 
 def normalize_device(device) -> torch.device:
@@ -228,13 +236,72 @@ def reduce_partials(mesh: Mesh, partials, op: str = "sum"):
     return tuple(acc)
 
 
-def one_process_only(mesh: Mesh, what: str, item: int):
-    """Raise ``NotImplementedError`` naming ROADMAP.md queue 1 ``item`` for
-    a mesh that spans processes."""
-    if mesh.world_size > 1:
-        raise NotImplementedError(
-            f"{what} over a mesh across processes is not ported yet; see "
-            f"ROADMAP.md queue 1 item {item}")
+def exchange(mesh: Mesh, send, recv, dtypes):
+    """Tensors from each rank to each other rank, moved bit for bit.
+
+    ``send[r]``: the list of tensors this rank sends to rank ``r``;
+    ``recv[r]``: the (shape, dtype) of each tensor it gets from rank ``r``,
+    in the order rank ``r`` sends them. Both sides know every size, so no
+    size message is sent. Returns ``got[r]``, the tensors from rank ``r``,
+    on the first local device. Across processes: one ``all_to_all_single``
+    a dtype, over one flat buffer ordered by rank, each rank's tensors in
+    list order. ``dtypes``: every dtype that any rank moves, the same
+    list on every rank (each is one collective, so a rank that names
+    fewer would leave the others waiting). In one process ``send[0]``
+    comes back as local copies."""
+    d0 = mesh.devices[0]
+    if mesh.world_size == 1:
+        return [[t.to(d0, copy=True) for t in send[0]]]
+    import torch.distributed as dist
+
+    got = [[None] * len(specs) for specs in recv]
+    for dtype in dtypes:
+        mine = [[t for t in ts if t.dtype == dtype] for ts in send]
+        theirs = [[(r, i, torch.Size(shape)) for i, (shape, dt)
+                   in enumerate(specs) if dt == dtype]
+                  for r, specs in enumerate(recv)]
+        out_split = [sum(shape.numel() for *_, shape in ts) for ts in theirs]
+        out = torch.empty(sum(out_split), dtype=dtype, device=d0)
+        dist.all_to_all_single(
+            out, _pack([t for ts in mine for t in ts], dtype, d0), out_split,
+            [sum(t.numel() for t in ts) for ts in mine], group=mesh.group)
+        slots = [slot for ts in theirs for slot in ts]
+        pieces = _unpack(out, [shape for *_, shape in slots])
+        for (r, i, _), piece in zip(slots, pieces):
+            got[r][i] = piece
+    return got
+
+
+def all_gather_shards(mesh: Mesh, shards):
+    """Every shard's tensors over the whole mesh, bit for bit.
+
+    ``shards``: one tuple of tensors per local shard, in shard order; the
+    shards' tensors agree in dtype and in all but the leading dimension,
+    which every rank must hold at the same sizes. Returns one tuple, on the
+    first local device: each tensor concatenated over the ``mesh.size``
+    shards in global shard order along its leading dimension. Across
+    processes: this rank's shards as one flat buffer a dtype, one
+    ``all_gather_into_tensor`` a dtype; in one process, local copies."""
+    d0 = mesh.devices[0]
+    n_t = len(shards[0])
+    if mesh.world_size == 1:
+        return tuple(torch.cat([sh[k].to(d0) for sh in shards])
+                     for k in range(n_t))
+    import torch.distributed as dist
+
+    parts = [[None] * mesh.size for _ in range(n_t)]
+    for dtype, ks in _by_dtype(shards[0]).items():
+        mine = [sh[k] for sh in shards for k in ks]   # shard-major
+        out = torch.empty(mesh.world_size * sum(t.numel() for t in mine),
+                          dtype=dtype, device=d0)
+        dist.all_gather_into_tensor(out, _pack(mine, dtype, d0),
+                                    group=mesh.group)
+        # every rank sends its shards at this rank's shapes
+        pieces = _unpack(out, [t.shape for t in mine] * mesh.world_size)
+        for j, piece in enumerate(pieces):
+            s, k = divmod(j, len(ks))       # global shard s, its k-th tensor
+            parts[ks[k]][s] = piece
+    return tuple(torch.cat(p) for p in parts)
 
 
 def _all_reduce(tensors, op: str, group):
@@ -242,16 +309,35 @@ def _all_reduce(tensors, op: str, group):
 
     red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MIN
     out = list(tensors)
-    by_dtype = {}
-    for i, t in enumerate(tensors):
-        by_dtype.setdefault(t.dtype, []).append(i)
-    for dtype, idx in by_dtype.items():
-        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+    for dtype, idx in _by_dtype(tensors).items():
+        flat = _pack([tensors[i] for i in idx], dtype, tensors[idx[0]].device)
         if dtype == torch.bool:
             flat = flat.to(torch.int32)
         dist.all_reduce(flat, op=red, group=group)
-        flat = flat.to(dtype)
-        for i, piece in zip(idx, flat.split([tensors[i].numel()
-                                             for i in idx])):
-            out[i] = piece.reshape(tensors[i].shape)
+        pieces = _unpack(flat.to(dtype), [tensors[i].shape for i in idx])
+        for i, piece in zip(idx, pieces):
+            out[i] = piece
     return out
+
+
+def _by_dtype(tensors):
+    """The positions of ``tensors`` grouped by dtype, in first-seen order:
+    each group is one flat buffer and one collective."""
+    groups = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    return groups
+
+
+def _pack(tensors, dtype, device):
+    """``tensors`` (all of ``dtype``, maybe none) flattened in order into
+    one buffer on ``device``."""
+    return torch.cat([torch.empty(0, dtype=dtype, device=device)]
+                     + [t.to(device).reshape(-1) for t in tensors])
+
+
+def _unpack(flat, shapes):
+    """``flat`` cut in order into tensors of ``shapes`` (views of it)."""
+    shapes = [torch.Size(s) for s in shapes]
+    return [piece.reshape(s) for piece, s
+            in zip(flat.split([s.numel() for s in shapes]), shapes)]

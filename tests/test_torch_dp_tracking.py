@@ -229,9 +229,10 @@ def test_dp_matches_jax_on_replayed_oracle():
 
 
 def test_dp_refuses_wrong_sequence_counts_and_devices():
-    """S must equal the mesh size (``dp_tracking.py:57-62``); a sequence
-    whose tensors lie elsewhere than its mesh device, and a mesh across
-    processes, are refused before any work."""
+    """S must equal the mesh size (``dp_tracking.py:57-62``), and on a
+    mesh across processes the number of local devices; a sequence whose
+    tensors lie elsewhere than its mesh device is refused, naming its
+    global index; all before any work."""
     params = toracle.make_params(torch.from_numpy(np.array(_traj(12))),
                                  desc_dim=CFG_KW["desc_dim"], device="cpu")
     seq = _seq(toracle, params, 0)
@@ -243,12 +244,16 @@ def test_dp_refuses_wrong_sequence_counts_and_devices():
     with pytest.raises(ValueError, match="not on its mesh device"):
         _dp(toracle, params, [seq, stray])
     mcfg, tcfg = _configs()
-    two = mesh.Mesh((CPU,), "edge", 0, 2, None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    # rank 1 of two processes with one device each: one sequence, the
+    # global sequence 1
+    two = mesh.Mesh((CPU,), "edge", 1, 2, None)
+    with pytest.raises(ValueError, match="one sequence per device: got S = "
+                       "2 sequences for the 1 local devices of a 2-device"):
         dp_tracking.track_window_dp([params], TCFG, mcfg, tcfg, [seq, seq],
                                     two, model_mod=toracle)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        dp_tracking.inference_symmetric_dp([params], two, *[None] * 4, TCFG)
+    with pytest.raises(ValueError, match="sequence 1's tensors"):
+        dp_tracking.track_window_dp([params], TCFG, mcfg, tcfg, [stray],
+                                    two, model_mod=toracle)
 
 
 def test_replicate_params_shares_a_repeated_device():

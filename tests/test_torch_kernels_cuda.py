@@ -273,6 +273,37 @@ def test_gather_rows_matches_plain(cuda, R, C, N):
     assert torch.equal(got, gather.gather_rows_plain(table, idx))
 
 
+@pytest.mark.parametrize("b,p", [(1, 5), (2, 2)])
+def test_match_payload_gather_matches_plain(cuda, b, p):
+    """``match(payload=)`` on the GPU: [X11, payload] picked up at the
+    final match by one ``gather_rows`` launch over the batch (a 3 + p
+    float row: 16-byte rows at p = 5, scalar at p = 2), bit-equal to the
+    plain gather of the same rows; idx and valid those of the call without
+    a payload."""
+    from mast3r_slam_tpu_torch.ops import _kernels, gather, matching
+
+    h, w, f = 48, 64, 16
+    g = torch.Generator(device="cpu").manual_seed(p)
+    X11 = torch.cat([_rays(cuda, h=h, w=w, seed=s) for s in range(b)])
+    X21 = X11 + 0.01 * torch.randn(X11.shape, generator=g).to(cuda)
+    D = torch.nn.functional.normalize(torch.randn(b, h, w, f, generator=g),
+                                      dim=-1).to(cuda)
+    pay = torch.randn(b, h, w, p, generator=g).to(cuda)
+    pay[0, 0, 0, 0] = -0.0
+    pay[-1, -1, -1, -1] = float("nan")
+    kw = dict(max_iter=10, radius=3, dilation_max=5)
+    n0 = _kernels.LAUNCHES["gather_rows"]
+    idx, valid, pay_m = matching.match(X11, X21, D, D, payload=pay, **kw)
+    assert _kernels.LAUNCHES["gather_rows"] == n0 + 1
+    idx0, valid0 = matching.match(X11, X21, D, D, **kw)
+    assert torch.equal(idx, idx0) and torch.equal(valid, valid0)
+    table = torch.cat([X11, pay], -1).reshape(b * h * w, 3 + p)
+    rows = (idx + h * w * torch.arange(b, device=cuda)[:, None]).reshape(-1)
+    want = gather.gather_rows_plain(table, rows).reshape(b, h * w, 3 + p)
+    torch.testing.assert_close(pay_m, want, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(pay_m.view(torch.int32), want.view(torch.int32))
+
+
 @pytest.mark.parametrize("axis,tshape,ishape", [
     (0, (1024, 128), (1024, 128)), (0, (40, 9), (17, 9)),
     (1, (2, 6144), (2, 6144)), (1, (3, 50), (3, 21))])

@@ -258,8 +258,63 @@ def test_match_raises_like_jax():
     it, vt = tm.match(X11, X21, D11, D21, separable_refine=True)
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
-    with pytest.raises(NotImplementedError):
-        tm.match(X11, X21, D11, D21, payload=X11)
+    # payload mode's rules (matching.py:330-336)
+    for kw in (dict(radius=0), dict(subpixel=True)):
+        with pytest.raises(ValueError, match="radius > 0 and not subpixel"):
+            tm.match(X11, X21, D11, D21, payload=X11, **kw)
+    with pytest.raises(ValueError, match="int8"):
+        tm.match(X11, X21, D11, D21, payload=X11, refine_dtype="int8")
+
+
+def _payload_maps(seed=8, h=24, w=32, f=8, p=5):
+    """``tests/test_window_gather.py::test_match_payload_mode_equals_plain``'s
+    inputs, made with numpy: a smooth surface, its noisy second view,
+    random unit descriptors and a random 5-channel payload."""
+    rng = np.random.default_rng(seed)
+    u, v = np.meshgrid(np.linspace(-1, 1, w), np.linspace(-0.75, 0.75, h),
+                       indexing="xy")
+    z = 2.0 + 0.3 * np.sin(u * 3) * np.cos(v * 2)
+    X11 = np.stack([u * z, v * z, z], -1)[None].astype(np.float32)
+    X21 = (X11 + 0.01 * rng.standard_normal(X11.shape)).astype(np.float32)
+    D = rng.standard_normal((1, h, w, f)).astype(np.float32)
+    D /= np.linalg.norm(D, axis=-1, keepdims=True)
+    pay = rng.standard_normal((1, h, w, p)).astype(np.float32)
+    return X11, X21, D, pay
+
+
+@pytest.mark.parametrize("radius,dil", [(2, 1), (3, 2)])
+def test_match_payload_matches_jax(radius, dil):
+    """``match(payload=)`` (``tests/test_window_gather.py:111``): idx and
+    valid equal JAX's payload mode and the port's call without a payload,
+    the payload at the match bit-equal to JAX's; with
+    ``separable_refine`` the payload call still runs the full search; the
+    payload mode's ``ValueError``s."""
+    X11, X21, D, pay = _payload_maps()
+    kw = dict(max_iter=4, radius=radius, dilation_max=dil)
+    ij, vj, pj = jm.match(*(jnp.asarray(a) for a in (X11, X21, D, D)),
+                          payload=jnp.asarray(pay), **kw)
+    t = [torch.from_numpy(a) for a in (X11, X21, D, D)]
+    it, vt, pt = tm.match(*t, payload=torch.from_numpy(pay), **kw)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    assert pt.shape == (1, 24 * 32, 8) and pt.dtype == torch.float32
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    ip, vp = tm.match(*t, **kw)
+    np.testing.assert_array_equal(it.numpy(), ip.numpy())
+    np.testing.assert_array_equal(vt.numpy(), vp.numpy())
+    n = X11.shape[1] * X11.shape[2]
+    want = np.concatenate([X11, pay], -1).reshape(n, -1)[ip.numpy()[0]]
+    np.testing.assert_array_equal(pt.numpy()[0], want)
+    i_sep, _, p_sep = tm.match(*t, payload=torch.from_numpy(pay),
+                               separable_refine=True, **kw)
+    np.testing.assert_array_equal(i_sep.numpy(), ip.numpy())
+    np.testing.assert_array_equal(p_sep.numpy(), pt.numpy())
+    for bad in (dict(kw, radius=0), dict(kw, subpixel=True)):
+        with pytest.raises(ValueError, match="radius > 0 and not subpixel"):
+            tm.match(*t, payload=torch.from_numpy(pay), **bad)
+    with pytest.raises(ValueError, match="refine_dtype='int8'"):
+        tm.match(*t, payload=torch.from_numpy(pay), refine_dtype="int8",
+                 **kw)
 
 
 # -- the separable search (window_gather.refine_matches_separable) -------------
