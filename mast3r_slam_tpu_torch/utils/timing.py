@@ -1,9 +1,9 @@
 """Timing utilities: per-stage accumulating timers and a profiler trace.
 
 Counterpart of ``mast3r_slam_tpu/utils/timing.py``. A stage's time is the
-host's clock around work that, with ``sync``, ends in
-``torch.cuda.synchronize()`` on a CUDA device (PyTorch returns before the
-device has finished). ``ProfilerTrace`` records a ``torch.profiler`` trace
+host's clock around work that, with ``sync``, ends in a
+``torch.cuda.synchronize`` of every visible CUDA device (PyTorch returns
+before the device has finished). ``ProfilerTrace`` records a ``torch.profiler`` trace
 of the host and, where there is one, the GPU, and writes it as a Chrome
 trace into a directory.
 """
@@ -19,14 +19,16 @@ import torch
 
 
 def device_sync():
-    """Wait for the work queued on the current CUDA device; without a GPU
-    there is nothing to wait for."""
+    """Wait for the work queued on every visible CUDA device (a backend may
+    sit on another GPU than the frontend); without a GPU there is nothing
+    to wait for."""
     if torch.cuda.is_available():
-        torch.cuda.synchronize()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 class Timer:
-    """Accumulating per-stage timer; ``sync`` waits for the GPU at both
+    """Accumulating per-stage timer; ``sync`` waits for every GPU at both
     ends of a stage."""
 
     def __init__(self, sync: bool = False):
