@@ -1413,6 +1413,7 @@ def run_slam(preset_cfg, params, model_cfg, n_frames, kf_every, K=None,
     from mast3r_slam_tpu_torch.models import oracle_timing
     from mast3r_slam_tpu_torch.slam.system import SLAMSystem
     from mast3r_slam_tpu_torch.utils.metrics import Metrics
+    from mast3r_slam_tpu_torch.utils import timing
 
     cfg = preset_cfg
     cfg["tracking"] = dict(cfg["tracking"], kf_every=kf_every)
@@ -1431,6 +1432,7 @@ def run_slam(preset_cfg, params, model_cfg, n_frames, kf_every, K=None,
     frames = [oracle_timing.make_frame_image(i, h, w, rng)
               for i in range(n_frames)]
     times, backend = [], []
+    iters = 0           # GN iterations of the newest solve
     for i in range(n_frames):
         t0 = time.perf_counter()
         system.backend_prefetch()
@@ -1438,15 +1440,24 @@ def run_slam(preset_cfg, params, model_cfg, n_frames, kf_every, K=None,
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         times.append((t1 - t0) * 1e3)
-        while system.backend_step():
+        while True:
+            with timing.recording() as rec:
+                if not system.backend_step():
+                    break
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            backend.append(((t2 - t1) * 1e3,
-                            system.factor_graph.last_solve_iters,
-                            len(system.keyframes),
+            iters = last_solve(rec).get("iters", iters)
+            backend.append(((t2 - t1) * 1e3, iters, len(system.keyframes),
                             int(system.factor_graph.n_edges_dev)))
             t1 = t2
     return system, times, backend
+
+
+def last_solve(rec):
+    """The attributes of the last BA solve recorded by ``rec`` (a
+    ``timing.recording``), or {}."""
+    solves = [s for s in rec.spans if s.name == "ba.solve"]
+    return solves[-1].attrs if solves else {}
 
 
 def assert_healthy(system, n_frames, kf_every, traj, label,
@@ -2971,15 +2982,18 @@ def sharded_loop_phase(params, model_cfg, traj, loop_ref, rparams,
     from mast3r_slam_tpu_torch.config import tpu_fast_config
     from mast3r_slam_tpu_torch.ops import _kernels
     from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+    from mast3r_slam_tpu_torch.utils import timing
 
     m = mesh_mod.make_mesh([torch.device("cuda", 0)] * 2)
     _kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    system, _, backend = run_slam(
-        tpu_fast_config(), params, model_cfg, N_LOOP, KF_LOOP,
-        retrieval_params=rparams, edge_capacity=EDGE_CAPACITY_LOOP,
-        parallel={"ba_backend": "edge_sharded"}, mesh=m)
+    with timing.recording() as rec:
+        system, _, backend = run_slam(
+            tpu_fast_config(), params, model_cfg, N_LOOP, KF_LOOP,
+            retrieval_params=rparams, edge_capacity=EDGE_CAPACITY_LOOP,
+            parallel={"ba_backend": "edge_sharded"}, mesh=m)
     wall = time.perf_counter() - t0
+    solved_by = last_solve(rec).get("backend")
     launches = run_launches["sharded_loop"] = dict(_kernels.LAUNCHES)
     rmse, extent = assert_healthy(system, N_LOOP, KF_LOOP, traj,
                                   "sharded_loop")
@@ -2990,12 +3004,12 @@ def sharded_loop_phase(params, model_cfg, traj, loop_ref, rparams,
                  - torch.from_numpy(loop_ref["T"])).abs().max())
           if k == len(loop_ref["T"]) else None)
     if (system.stats != loop_ref["stats"] or fg.n_edges != loop_ref["edges"]
-            or fg.last_solve_backend != "edge_sharded" or missing
+            or solved_by != "edge_sharded" or missing
             or dT is None or not dT <= SHARD_TOL):
         raise AssertionError(
             f"sharded_loop run: stats {system.stats} vs {loop_ref['stats']}, "
             f"edges {fg.n_edges} vs {loop_ref['edges']}, last solve by "
-            f"{fg.last_solve_backend}, never launched {missing}, keyframe "
+            f"{solved_by}, never launched {missing}, keyframe "
             f"poses max abs diff {dT} (gate {SHARD_TOL})")
     log(f"sharded_loop: {N_LOOP} frames in {wall:.3f} s, stats "
         f"{system.stats}, edges {fg.n_edges}, RMSE after BA {rmse:.6f} of "
@@ -3608,6 +3622,7 @@ def _child_loop(out_path):
     from mast3r_slam_tpu_torch.ops import _kernels
     from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
     from mast3r_slam_tpu_torch.slam import retrieval
+    from mast3r_slam_tpu_torch.utils import timing
 
     if not mesh_mod.init_distributed(device="cuda"):
         raise RuntimeError("phase 9 child: no process group")
@@ -3622,18 +3637,19 @@ def _child_loop(out_path):
         codebook_size=CODEBOOK, device="cuda")
     m = mesh_mod.make_mesh()
     _kernels.reset_launch_counts()
-    system, times, backend = run_slam(
-        tpu_fast_config(), oracle_timing.make_params(net, orc), model_cfg,
-        N_LOOP, KF_LOOP, retrieval_params=rparams,
-        edge_capacity=EDGE_CAPACITY_LOOP,
-        parallel={"ba_backend": "edge_sharded"}, mesh=m)
+    with timing.recording() as rec:
+        system, times, backend = run_slam(
+            tpu_fast_config(), oracle_timing.make_params(net, orc),
+            model_cfg, N_LOOP, KF_LOOP, retrieval_params=rparams,
+            edge_capacity=EDGE_CAPACITY_LOOP,
+            parallel={"ba_backend": "edge_sharded"}, mesh=m)
     torch.cuda.synchronize()
     k = len(system.keyframes)
     torch.save(system.keyframes.T_WC[:k].cpu(), out_path)
     fg = system.factor_graph
     out = {"rank": dist.get_rank(), "mesh_size": m.size,
            "stats": system.stats, "edges": fg.n_edges,
-           "backend": fg.last_solve_backend,
+           "backend": last_solve(rec).get("backend"),
            "launches": dict(_kernels.LAUNCHES),
            "frontend_median_ms": statistics.median(times[1:]),
            "backend_ms": [round(b[0], 3) for b in backend]}

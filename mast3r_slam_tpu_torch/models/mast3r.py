@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from .._device import exact_fp32, resolve_device
+from ..utils import timing
 from . import dpt, vit
 
 
@@ -174,15 +175,17 @@ def encode_body(model: MASt3R, img, cfg: MASt3RConfig):
     """(b, h, w, 3) uint8 or ImgNorm float -> (feat (b, n, ed), pos (b, n, 2)),
     differentiable in the weights."""
     exact_fp32()
-    feat, pos, _ = vit.encode(model, normalize_frames(img), cfg,
-                              cfg.compute_dtype)
+    with timing.span("mast3r.encoder"):
+        feat, pos, _ = vit.encode(model, normalize_frames(img), cfg,
+                                  cfg.compute_dtype)
     return feat, pos
 
 
 @torch.no_grad()
 def encode(model: MASt3R, img, cfg: MASt3RConfig):
     """``encode_body`` for inference: no gradients."""
-    return encode_body(model, img, cfg)
+    with timing.span("mast3r.encode", batch=img.shape[0]):
+        return encode_body(model, img, cfg)
 
 
 def _grid(cfg):
@@ -199,13 +202,16 @@ def decode_pair_body(model: MASt3R, feat1, pos1, feat2, pos2,
     grid = _grid(cfg)
     L = cfg.dec_depth
     hooks = (0, L * 2 // 4, L * 3 // 4, L)
-    out1, out2 = vit.decode(model, feat1, pos1, feat2, pos2, cfg,
-                            cfg.compute_dtype)
+    with timing.span("mast3r.decoder"):
+        out1, out2 = vit.decode(model, feat1, pos1, feat2, pos2, cfg,
+                                cfg.compute_dtype)
     hdt = cfg.head_compute_dtype
-    res1 = dpt.head_forward(model.downstream_head1, out1, grid,
-                            cfg.patch_size, cfg.desc_dim, hooks, hdt)
-    res2 = dpt.head_forward(model.downstream_head2, out2, grid,
-                            cfg.patch_size, cfg.desc_dim, hooks, hdt)
+    with timing.span("mast3r.head"):
+        res1 = dpt.head_forward(model.downstream_head1, out1, grid,
+                                cfg.patch_size, cfg.desc_dim, hooks, hdt)
+    with timing.span("mast3r.head"):
+        res2 = dpt.head_forward(model.downstream_head2, out2, grid,
+                                cfg.patch_size, cfg.desc_dim, hooks, hdt)
     return res1, res2
 
 
@@ -224,18 +230,20 @@ def downsample_maps(*maps, ds: int = 1):
 
 def inference_mono(model, feat, pos, cfg: MASt3RConfig, ds: int = 1):
     """Self-pair decode -> (X (b, n, 3), C (b, n, 1))."""
-    res1, _ = decode_pair(model, feat, pos, feat, pos, cfg)
     b = feat.shape[0]
-    X, C = downsample_maps(res1["pts3d"], res1["conf"][..., None], ds=ds)
-    return X.reshape(b, -1, 3), C.reshape(b, -1, 1)
+    with timing.span("mast3r.mono", batch=b):
+        res1, _ = decode_pair(model, feat, pos, feat, pos, cfg)
+        X, C = downsample_maps(res1["pts3d"], res1["conf"][..., None], ds=ds)
+        return X.reshape(b, -1, 3), C.reshape(b, -1, 1)
 
 
 def inference_asymmetric(model, feat_f, pos_f, feat_k, pos_k, cfg):
     """Frame/keyframe decode -> stacked (X, C, D, Q), leading dim 2 =
     [frame's map, keyframe's map], both in the frame's coordinates."""
-    res1, res2 = decode_pair(model, feat_f, pos_f, feat_k, pos_k, cfg)
-    return tuple(torch.cat([res1[k], res2[k]], dim=0)
-                 for k in ("pts3d", "conf", "desc", "desc_conf"))
+    with timing.span("mast3r.asym", batch=feat_f.shape[0]):
+        res1, res2 = decode_pair(model, feat_f, pos_f, feat_k, pos_k, cfg)
+        return tuple(torch.cat([res1[k], res2[k]], dim=0)
+                     for k in ("pts3d", "conf", "desc", "desc_conf"))
 
 
 def symmetric_from_decode(decode, params, feat_i, pos_i, feat_j, pos_j, cfg):
@@ -258,5 +266,6 @@ def symmetric_from_decode(decode, params, feat_i, pos_i, feat_j, pos_j, cfg):
 
 def inference_symmetric(model, feat_i, pos_i, feat_j, pos_j, cfg):
     """Symmetric two-view decode of a batch of edges (``mast3r.py:311``)."""
-    return symmetric_from_decode(decode_pair, model, feat_i, pos_i, feat_j,
-                                 pos_j, cfg)
+    with timing.span("mast3r.sym", batch=feat_i.shape[0]):
+        return symmetric_from_decode(decode_pair, model, feat_i, pos_i,
+                                     feat_j, pos_j, cfg)

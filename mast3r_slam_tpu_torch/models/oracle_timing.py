@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import timing
 from . import mast3r, oracle
 
 
@@ -68,31 +69,39 @@ def _carry(orc, total):
 
 def encode(params, img, cfg):
     feat_r, _ = mast3r.encode(params["net"], img, cfg)
-    fid = _fid_from_image(img)
-    feat_o, pos_o = oracle.encode_fid(params["orc"], fid, cfg)
-    return _carry(feat_o, _total(feat_r)), pos_o
+    with timing.span("oracle"):
+        fid = _fid_from_image(img)
+        feat_o, pos_o = oracle.encode_fid(params["orc"], fid, cfg)
+    with timing.span("oracle.carry"):
+        return _carry(feat_o, _total(feat_r)), pos_o
 
 
 def inference_mono(params, feat, pos, cfg, ds: int = 1):
     X_r, C_r = mast3r.inference_mono(params["net"], feat, pos, cfg, ds)
-    X_o, C_o = oracle.inference_mono(params["orc"], feat, pos, cfg, ds)
-    t = _total(X_r, C_r)
-    return _carry(X_o, t), _carry(C_o, t)
+    with timing.span("oracle"):
+        X_o, C_o = oracle.inference_mono(params["orc"], feat, pos, cfg, ds)
+    with timing.span("oracle.carry"):
+        t = _total(X_r, C_r)
+        return _carry(X_o, t), _carry(C_o, t)
 
 
 def inference_asymmetric(params, feat_f, pos_f, feat_k, pos_k, cfg):
     real = mast3r.inference_asymmetric(params["net"], feat_f, pos_f,
                                        feat_k, pos_k, cfg)
-    orc = oracle.inference_asymmetric(params["orc"], feat_f, pos_f,
-                                      feat_k, pos_k, cfg)
-    t = _total(*real)
-    return tuple(_carry(o, t) for o in orc)
+    with timing.span("oracle"):
+        orc = oracle.inference_asymmetric(params["orc"], feat_f, pos_f,
+                                          feat_k, pos_k, cfg)
+    with timing.span("oracle.carry"):
+        t = _total(*real)
+        return tuple(_carry(o, t) for o in orc)
 
 
 def inference_symmetric(params, feat_i, pos_i, feat_j, pos_j, cfg):
     real = mast3r.inference_symmetric(params["net"], feat_i, pos_i,
                                       feat_j, pos_j, cfg)
-    orc = oracle.inference_symmetric(params["orc"], feat_i, pos_i,
-                                     feat_j, pos_j, cfg)
-    t = _total(*real.values())
-    return {k: _carry(v, t) for k, v in orc.items()}
+    with timing.span("oracle"):
+        orc = oracle.inference_symmetric(params["orc"], feat_i, pos_i,
+                                         feat_j, pos_j, cfg)
+    with timing.span("oracle.carry"):
+        t = _total(*real.values())
+        return {k: _carry(v, t) for k, v in orc.items()}

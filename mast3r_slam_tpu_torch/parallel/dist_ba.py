@@ -38,6 +38,7 @@ import torch
 
 from .._device import exact_fp32
 from ..slam import ba
+from ..utils import timing
 from .mesh import (Mesh, exchange, reduce_partials, replicate,
                    shard_edges)
 
@@ -61,7 +62,8 @@ class _Shard(NamedTuple):
 
 def host_edges(ii, jj) -> np.ndarray:
     """The edge lists on the host, (2, E) int64: the solve's one read."""
-    return torch.stack([ii.to(torch.int64), jj.to(torch.int64)]).cpu().numpy()
+    return timing.host_read("ba_plan", torch.stack([ii.to(torch.int64),
+                                                    jj.to(torch.int64)]))
 
 
 def _shards(mesh: Mesh, ij, ii, jj, valid_match, Q, edge_mask, pres, n_kf,
@@ -105,8 +107,9 @@ def _gn_loop(mode, shards, T_WCs, n_kf: int, cfg: ba.BAConfig, calib,
     T = T_WCs.to(shards[0].device).contiguous()
     deltas = []
     while len(deltas) < cfg.max_iters:
-        Hd, gd = _system(mode, shards, T, n_kf, K_cap, cfg, calib, mesh)
-        T, done = ba._step(T, Hd, gd, n_kf, K_cap, cfg, deltas)
+        with timing.span("ba.iter"):
+            Hd, gd = _system(mode, shards, T, n_kf, K_cap, cfg, calib, mesh)
+            T, done = ba._step(T, Hd, gd, n_kf, K_cap, cfg, deltas)
         if done:
             break
     return ba.BAResult(T, len(deltas), tuple(deltas))

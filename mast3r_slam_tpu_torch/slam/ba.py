@@ -41,6 +41,7 @@ from .._device import exact_fp32
 from ..config import BAConfig
 from ..lie import sim3
 from ..ops import _kernels, gather
+from ..utils import timing
 
 __all__ = ["BAConfig", "BAResult", "ba_edge_terms", "ba_edge_terms_plain",
            "edge_system", "edge_system_plain", "gauss_newton_rays",
@@ -120,7 +121,8 @@ def _assembly_plan(ii, jj, n_kf: int, K_cap: int, pin: int) -> AssemblyPlan:
     poses): made on the host from one read of the edge lists, as a few
     numpy calls, and uploaded in one copy; the solve reads its step norm
     every iteration anyway."""
-    ij = torch.stack([ii.to(torch.int64), jj.to(torch.int64)]).cpu().numpy()
+    ij = timing.host_read("ba_plan", torch.stack([ii.to(torch.int64),
+                                                  jj.to(torch.int64)]))
     return _assembly_plan_host(ij, n_kf, K_cap, pin, ii.device)
 
 
@@ -156,8 +158,9 @@ def _assembly_plan_host(ij, n_kf: int, K_cap: int, pin: int,
     packed[4, :n_runs] = skey[starts]
     block_run = np.full(none, -1, np.int32)
     block_run[skey[starts]] = np.arange(n_runs)
-    buf = torch.from_numpy(np.concatenate([packed.ravel(), block_run])).to(
-        device)
+    buf = timing.host_write("plan_upload",
+                            np.concatenate([packed.ravel(), block_run]),
+                            device=device)
     a = buf[:6 * n].view(6, n)
     return AssemblyPlan(a[0], a[1], a[2], a[3], a[4], buf[6 * n:], a[5])
 
@@ -536,8 +539,8 @@ def _host_cholesky_fp64(Hd, gd):
     factorization fails or the solution is not finite."""
     import scipy.linalg as sla
 
-    H = Hd.detach().cpu().numpy().astype(np.float64)
-    g = gd.detach().cpu().numpy().astype(np.float64)
+    H, g = timing.host_read("ba_fp64", Hd.detach(), gd.detach())
+    H, g = H.astype(np.float64), g.astype(np.float64)
     try:
         dx = sla.cho_solve(sla.cho_factor(H, lower=True), g)
     except (np.linalg.LinAlgError, ValueError):
@@ -600,19 +603,22 @@ def _gauss_newton(mode, T_WCs, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
     exact_fp32()
     n_kf = int(n_kf)
     K_cap = T_WCs.shape[0]
-    pre = _edge_prep(Xs, Cs, ii, jj, idx_ii2jj, valid_match,
-                     stride=cfg.point_stride)
-    wq = plan = None
-    if T_WCs.is_cuda:
-        wq = _edge_weights(pre, valid_match, Q, cfg, cfg.point_stride)
-        plan = _assembly_plan(ii, jj, n_kf, K_cap, cfg.pin)
+    with timing.span("ba.plan"):
+        pre = _edge_prep(Xs, Cs, ii, jj, idx_ii2jj, valid_match,
+                         stride=cfg.point_stride)
+        wq = plan = None
+        if T_WCs.is_cuda:
+            wq = _edge_weights(pre, valid_match, Q, cfg, cfg.point_stride)
+            plan = _assembly_plan(ii, jj, n_kf, K_cap, cfg.pin)
     T = T_WCs.contiguous()
     deltas = []
     while len(deltas) < cfg.max_iters:
-        _, _, Hd, gd = _edge_system(mode, T, Xs, Cs, ii, jj, idx_ii2jj,
-                                    valid_match, Q, edge_mask, n_kf, K_cap,
-                                    cfg.pin, cfg, pre, calib, wq, plan)
-        T, done = _step(T, Hd, gd, n_kf, K_cap, cfg, deltas)
+        with timing.span("ba.iter"):
+            _, _, Hd, gd = _edge_system(mode, T, Xs, Cs, ii, jj, idx_ii2jj,
+                                        valid_match, Q, edge_mask, n_kf,
+                                        K_cap, cfg.pin, cfg, pre, calib, wq,
+                                        plan)
+            T, done = _step(T, Hd, gd, n_kf, K_cap, cfg, deltas)
         if done:
             break
     return BAResult(T, len(deltas), tuple(deltas))
@@ -630,8 +636,8 @@ def _step(T, Hd, gd, n_kf: int, K_cap: int, cfg: BAConfig, deltas: list):
 def _retract(T, dx, free, cfg: BAConfig, deltas: list):
     """The free poses moved by dx, and the stop rule of ``_step``."""
     T = torch.where(free[:, None], sim3.retr(T, dx), T)
-    delta = float(torch.linalg.vector_norm(
-        torch.where(free[:, None], dx, torch.zeros_like(dx))))
+    delta = float(timing.host_read("ba_step", torch.linalg.vector_norm(
+        torch.where(free[:, None], dx, torch.zeros_like(dx)))))
     deltas.append(delta)
     return T, delta < float(np.float32(cfg.delta_norm))
 

@@ -36,6 +36,7 @@ from .. import geometry
 from ..config import BAConfig, FactorGraphConfig, MatchingConfig
 from ..models import mast3r
 from ..ops import dense_matcher, gather, matching
+from ..utils import timing
 from . import ba
 from .frame import KeyframeStore
 
@@ -186,7 +187,8 @@ def _add_tracked_edge_body(bufs, i, j, idx_j_per_i, valid_i, Q_i, e0):
     e64 = e0.to(torch.int64)
     rows = torch.where(fits, torch.stack([e64, e64 + 1]),
                        torch.full((2,), E_cap, dtype=torch.int64, device=dev))
-    ij = torch.tensor([[j, i], [i, j]], dtype=torch.int32, device=dev)
+    ij = timing.host_write("pair_upload",
+                           np.array([[j, i], [i, j]], np.int32), device=dev)
     ii_buf[rows] = ij[0]
     jj_buf[rows] = ij[1]
     idx_buf[rows] = torch.stack([idx32, inv_safe])
@@ -240,8 +242,6 @@ class FactorGraph:
                                        device=self.device)
         self.n_edges_ub = 0          # host upper bound on the device count
         self._pending: list = []     # deferred gate readbacks, FIFO
-        self.last_solve_iters = 0    # GN iterations of the newest solve
-        self.last_solve_backend = None   # the backend that solved it
         z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=self.device)
         # one extra row: the sentinel that swallows dropped writes
         self._bufs = (z((E + 1,), torch.int32), z((E + 1,), torch.int32),
@@ -291,36 +291,38 @@ class FactorGraph:
         synchronously."""
         if not ii:
             return False
-        if is_reloc:
-            defer = False
-        if not defer:
-            self.flush()
-        nb = len(ii)
-        ii_np = np.asarray(ii, dtype=np.int64)
-        jj_np = np.asarray(jj, dtype=np.int64)
-        consec = ii_np == jj_np - 1
+        with timing.span("fg.add_factors", n=len(ii)):
+            if is_reloc:
+                defer = False
+            if not defer:
+                self.flush()
+            nb = len(ii)
+            ii_np = np.asarray(ii, dtype=np.int64)
+            jj_np = np.asarray(jj, dtype=np.int64)
+            consec = ii_np == jj_np - 1
 
-        # worst case over everything in flight; False = capped, the device
-        # clamps by dropping
-        self.ensure_capacity(self.n_edges_ub + 2 * nb)
-        dev = self.device
-        fracs, self.n_edges_dev = _add_factors_body(
-            self._bufs, self.params, self.frames.feat, self.frames.pos,
-            torch.from_numpy(ii_np).to(dev), torch.from_numpy(jj_np).to(dev),
-            torch.from_numpy(consec).to(dev), self.n_edges_dev,
-            float(min_match_frac), bool(is_reloc), float(self.cfg.Q_conf),
-            self.model_cfg, self.mcfg, self.downsample, self.cfg.matcher,
-            self.model_mod, self.query_stride)
+            # worst case over everything in flight; False = capped, the
+            # device clamps by dropping
+            self.ensure_capacity(self.n_edges_ub + 2 * nb)
+            fracs, self.n_edges_dev = _add_factors_body(
+                self._bufs, self.params, self.frames.feat, self.frames.pos,
+                *timing.host_write("edge_upload", ii_np, jj_np, consec,
+                                   device=self.device), self.n_edges_dev,
+                float(min_match_frac), bool(is_reloc),
+                float(self.cfg.Q_conf), self.model_cfg, self.mcfg,
+                self.downsample, self.cfg.matcher, self.model_mod,
+                self.query_stride)
 
-        rec = (fracs, nb, consec, float(min_match_frac), self.capacity,
-               bool(is_reloc))
-        if defer:
-            self._pending.append(rec)
-            self.n_edges_ub = min(self.n_edges_ub + 2 * nb, self.capacity)
-            return True
-        ok = self._apply_gate(rec)
-        self.n_edges_ub = self.n_edges
-        return ok
+            rec = (fracs, nb, consec, float(min_match_frac), self.capacity,
+                   bool(is_reloc))
+            if defer:
+                self._pending.append(rec)
+                self.n_edges_ub = min(self.n_edges_ub + 2 * nb,
+                                      self.capacity)
+                return True
+            ok = self._apply_gate(rec)
+            self.n_edges_ub = self.n_edges
+            return ok
 
     def add_tracked_edge(self, i, j, idx_j_per_i, valid, Q):
         """Append the consecutive edge (i, j) from the tracker's existing
@@ -328,19 +330,20 @@ class FactorGraph:
         advances without a readback; the record still rides the FIFO so
         deferred gates of earlier ``add_factors`` calls reconcile in
         order."""
-        self.ensure_capacity(self.n_edges_ub + 2)
-        # the tracker's match arrives from the frontend's device
-        self.n_edges_dev = _add_tracked_edge_body(
-            self._bufs, int(i), int(j), idx_j_per_i.to(self.device),
-            valid.to(self.device, torch.bool),
-            Q.to(self.device, torch.float32), self.n_edges_dev)
-        rec = ("fixed", self.capacity)
-        if self._pending:
-            self._pending.append(rec)
-        else:
-            self._apply_gate(rec)
-        self.n_edges_ub = min(self.n_edges_ub + 2, self.capacity)
-        return True
+        with timing.span("fg.add_tracked_edge"):
+            self.ensure_capacity(self.n_edges_ub + 2)
+            # the tracker's match arrives from the frontend's device
+            self.n_edges_dev = _add_tracked_edge_body(
+                self._bufs, int(i), int(j), idx_j_per_i.to(self.device),
+                valid.to(self.device, torch.bool),
+                Q.to(self.device, torch.float32), self.n_edges_dev)
+            rec = ("fixed", self.capacity)
+            if self._pending:
+                self._pending.append(rec)
+            else:
+                self._apply_gate(rec)
+            self.n_edges_ub = min(self.n_edges_ub + 2, self.capacity)
+            return True
 
     def _apply_gate(self, rec):
         """Host mirror of the device gate (the same fp32 arithmetic):
@@ -357,7 +360,7 @@ class FactorGraph:
             self.n_edges += 2
             return True
         fracs, nb, consec, min_match_frac, cap_at_dispatch, is_reloc = rec
-        fr = fracs.cpu().numpy()            # the one sync of the pipeline
+        fr = timing.host_read("edge_gate", fracs)   # the pipeline's one read
         frac_j, frac_i = fr[0, :nb], fr[1, :nb]
         invalid = np.minimum(frac_j, frac_i) < np.float32(min_match_frac)
         invalid = (~consec) & invalid
@@ -383,8 +386,10 @@ class FactorGraph:
     def flush(self):
         """Apply all deferred edge-gate readbacks (the host's bookkeeping
         catches up with the device's edge count)."""
-        while self._pending:
-            self._apply_gate(self._pending.pop(0))
+        if self._pending:
+            with timing.span("fg.flush", n=len(self._pending)):
+                while self._pending:
+                    self._apply_gate(self._pending.pop(0))
         self.n_edges_ub = self.n_edges
 
     def _append_edge(self, i, j, idx, valid, Q):
@@ -414,8 +419,8 @@ class FactorGraph:
         e = self.n_edges
         if not e:
             return np.array([], dtype=np.int64)
-        return np.unique(np.concatenate([self.ii[:e].cpu().numpy(),
-                                         self.jj[:e].cpu().numpy()]))
+        return np.unique(np.concatenate(timing.host_read(
+            "kf_idx", self.ii[:e], self.jj[:e])))
 
     # -- solvers -------------------------------------------------------------
 
@@ -457,53 +462,60 @@ class FactorGraph:
         (``factor_graph.py:600``, ``:654``)."""
         if self._nothing_to_solve():
             return
-        backend = (self.cfg.ba_backend
-                   if self.mesh is not None and self.mesh.size > 1
-                   else "dense")
-        if backend != "dense":
-            self.flush()     # the partition needs exact counts
-            if self.n_edges == 0:
-                return
-        Kb, args = self._solve_args()
-        T0, Xs, Cs = (self.frames.T_WC[:Kb], self.frames.X[:Kb],
-                      self.frames.average_confs(Kb))
-        img_size = (self.frames.h, self.frames.w)
-        if residual == "calib":
-            Xs = constrain_all(Xs, self.K, img_size)
-        if backend == "schur":
-            from ..parallel import schur
+        with timing.span("ba.solve") as sp:
+            backend = (self.cfg.ba_backend
+                       if self.mesh is not None and self.mesh.size > 1
+                       else "dense")
+            if backend != "dense":
+                self.flush()     # the partition needs exact counts
+                if self.n_edges == 0:
+                    return
+            Kb, args = self._solve_args()
+            T0, Xs, Cs = (self.frames.T_WC[:Kb], self.frames.X[:Kb],
+                          self.frames.average_confs(Kb))
+            img_size = (self.frames.h, self.frames.w)
+            if residual == "calib":
+                Xs = constrain_all(Xs, self.K, img_size)
+            if backend == "schur":
+                from ..parallel import schur
 
-            Eb = args[0].shape[0]
-            ij = torch.stack([args[0], args[1]]).cpu().numpy()
-            part, order, keep = schur.schur_partition(
-                ij[0], ij[1], np.arange(Eb) < self.n_edges, K_cap=Kb,
-                n_shards=self.mesh.size)
-            if schur.separator_dominated(part, len(self.frames)):
-                backend = "edge_sharded"
-        if backend == "schur":
-            res = schur.gauss_newton_schur(
-                T0, Xs, Cs, self.K, part.owner, part.int_slot,
-                part.sep_slot, *schur.reorder_edges(order, keep, *args[:6]),
-                args[6], part.I_cap, part.S_cap, self.mesh, self.ba_cfg,
-                residual=residual, img_size=img_size)
-        elif backend == "edge_sharded":
-            from ..parallel import dist_ba, mesh as mesh_mod
+                Eb = args[0].shape[0]
+                ij = timing.host_read("schur_edges", torch.stack(
+                    [args[0], args[1]]))
+                part, order, keep = schur.schur_partition(
+                    ij[0], ij[1], np.arange(Eb) < self.n_edges, K_cap=Kb,
+                    n_shards=self.mesh.size)
+                if schur.separator_dominated(part, len(self.frames)):
+                    backend = "edge_sharded"
+            if backend == "schur":
+                res = schur.gauss_newton_schur(
+                    T0, Xs, Cs, self.K, part.owner, part.int_slot,
+                    part.sep_slot,
+                    *schur.reorder_edges(order, keep, *args[:6]), args[6],
+                    part.I_cap, part.S_cap, self.mesh, self.ba_cfg,
+                    residual=residual, img_size=img_size)
+            elif backend == "edge_sharded":
+                from ..parallel import dist_ba, mesh as mesh_mod
 
-            nd = self.mesh.size
-            pad = lambda a, fill=0: mesh_mod.pad_to_multiple(a, nd, 0, fill)
-            ii, jj, idx, vm, Q, mask, n_kf = args
-            res = dist_ba.gauss_newton_dist(
-                T0, Xs, Cs, self.K, pad(ii), pad(jj), pad(idx),
-                pad(vm, False), pad(Q), pad(mask), n_kf, self.mesh,
-                self.ba_cfg, residual=residual, img_size=img_size)
-        elif residual == "calib":
-            res = ba.gauss_newton_calib(T0, Xs, Cs, self.K, *args, img_size,
-                                        self.ba_cfg)
-        else:
-            res = ba.gauss_newton_rays(T0, Xs, Cs, *args, self.ba_cfg)
-        self.last_solve_iters = res.iters
-        self.last_solve_backend = backend
-        self.frames.update_T_WCs(res.T_WC)
+                nd = self.mesh.size
+                pad = lambda a, fill=0: mesh_mod.pad_to_multiple(a, nd, 0,
+                                                                 fill)
+                ii, jj, idx, vm, Q, mask, n_kf = args
+                res = dist_ba.gauss_newton_dist(
+                    T0, Xs, Cs, self.K, pad(ii), pad(jj), pad(idx),
+                    pad(vm, False), pad(Q), pad(mask), n_kf, self.mesh,
+                    self.ba_cfg, residual=residual, img_size=img_size)
+            elif residual == "calib":
+                res = ba.gauss_newton_calib(T0, Xs, Cs, self.K, *args,
+                                            img_size, self.ba_cfg)
+            else:
+                res = ba.gauss_newton_rays(T0, Xs, Cs, *args, self.ba_cfg)
+            sp.set("backend", backend)
+            sp.set("iters", res.iters)
+            n_edges, n_kf = self._buckets()
+            sp.set("n_kf", n_kf)
+            sp.set("n_edges", n_edges)
+            self.frames.update_T_WCs(res.T_WC)
 
 
 def constrain_all(Xs, K, img_size):

@@ -24,6 +24,7 @@ import torch
 
 from .._device import exact_fp32, resolve_device
 from ..config import RetrievalConfig
+from ..utils import timing
 
 __all__ = ["IVF", "RetrievalConfig", "RetrievalDatabase",
            "aggregate_image", "aggregate_residuals", "binarize_pack",
@@ -358,45 +359,48 @@ class RetrievalDatabase:
         backbone_feat (n, backbone_dim): the frame's encoder tokens
         (ignored when ``prefetched`` handles from ``prefetch`` are given).
         Returns a list of keyframe indices."""
-        if prefetched is not None:
-            feats_d, words_d, event = prefetched
-            if event is not None:
-                event.synchronize()
-        else:
-            ma = (max(self.cfg.ma_query, self.cfg.ma_build)
-                  if self.kf_counter > 0 else self.cfg.ma_build)
-            feats_d, words_d = prep_and_quantize(self.rparams, backbone_feat,
-                                                 self.cfg.nfeat, ma)
-        feats = feats_d.cpu().numpy()       # the one sync of the update
-        q_words = words_d.cpu().numpy()
-        topk_inds: list = []
-        if self.kf_counter > 0:
-            words = q_words[:, : self.cfg.ma_query]
-            ades, agg_ids = aggregate_residuals(feats, words,
-                                                self.centroids_np)
-            if self.native:
-                packed = self.native.binarize_pack64(ades)
-                scores = self.ivf.search_packed(
-                    packed, agg_ids.astype(np.int64), self.cfg.alpha,
-                    self.cfg.similarity_threshold)
+        with timing.span("retrieval.update"):
+            event = None
+            if prefetched is not None:
+                feats_d, words_d, event = prefetched
             else:
-                scores = self.ivf.search(binarize_pack(ades), agg_ids,
-                                         self.cfg.alpha,
-                                         self.cfg.similarity_threshold)
-            order = np.argsort(-scores)[: min(k, self.ivf.n_images)]
-            topk_inds = [int(i) for i in order if scores[i] > min_thresh]
+                ma = (max(self.cfg.ma_query, self.cfg.ma_build)
+                      if self.kf_counter > 0 else self.cfg.ma_build)
+                feats_d, words_d = prep_and_quantize(
+                    self.rparams, backbone_feat, self.cfg.nfeat, ma)
+            # the one wait of the update
+            feats, q_words = timing.host_read("retrieval", feats_d, words_d,
+                                              wait=event)
+            with timing.span("retrieval.ivf"):
+                topk_inds: list = []
+                if self.kf_counter > 0:
+                    words = q_words[:, : self.cfg.ma_query]
+                    ades, agg_ids = aggregate_residuals(feats, words,
+                                                        self.centroids_np)
+                    if self.native:
+                        packed = self.native.binarize_pack64(ades)
+                        scores = self.ivf.search_packed(
+                            packed, agg_ids.astype(np.int64),
+                            self.cfg.alpha, self.cfg.similarity_threshold)
+                    else:
+                        scores = self.ivf.search(
+                            binarize_pack(ades), agg_ids, self.cfg.alpha,
+                            self.cfg.similarity_threshold)
+                    order = np.argsort(-scores)[: min(k, self.ivf.n_images)]
+                    topk_inds = [int(i) for i in order
+                                 if scores[i] > min_thresh]
 
-        if add_after_query:
-            words_b = q_words[:, : self.cfg.ma_build]
-            ades, agg_ids = aggregate_residuals(feats, words_b,
-                                                self.centroids_np)
-            if self.native:
-                self.ivf.add_packed(self.native.binarize_pack64(ades),
-                                    agg_ids.astype(np.int64),
-                                    self.kf_counter)
-            else:
-                self.ivf.add(binarize_pack(ades), agg_ids,
-                             np.full(agg_ids.shape[0], self.kf_counter,
-                                     dtype=np.int64))
-            self.kf_counter += 1
-        return topk_inds
+                if add_after_query:
+                    words_b = q_words[:, : self.cfg.ma_build]
+                    ades, agg_ids = aggregate_residuals(feats, words_b,
+                                                        self.centroids_np)
+                    if self.native:
+                        self.ivf.add_packed(
+                            self.native.binarize_pack64(ades),
+                            agg_ids.astype(np.int64), self.kf_counter)
+                    else:
+                        self.ivf.add(binarize_pack(ades), agg_ids,
+                                     np.full(agg_ids.shape[0],
+                                             self.kf_counter, dtype=np.int64))
+                    self.kf_counter += 1
+                return topk_inds

@@ -63,6 +63,7 @@ from ..lie import sim3
 from ..models import mast3r
 from ..ops import matching
 from ..parallel import backend_device as bdev
+from ..utils import timing
 from . import tracker as tracker_mod
 from .factor_graph import FactorGraph
 from .frame import Frame, KeyframeStore, Mode, _score, fuse_pointmap
@@ -78,8 +79,9 @@ def _track_match(model_mod, params, cfg, mcfg, feat_f, pos_f, feat_k, pos_k,
                                                 feat_k, pos_k, cfg)
     X, C, D, Q = mast3r.downsample_maps(X, C, D, Q, ds=ds)
     Xff, Xkf = X[0:1], X[1:2]
-    out = matching.match(Xff, Xkf, D[0:1], D[1:2], idx_1_to_2_init=idx_init,
-                         **mcfg._asdict())
+    with timing.span("track.match"):
+        out = matching.match(Xff, Xkf, D[0:1], D[1:2],
+                             idx_1_to_2_init=idx_init, **mcfg._asdict())
     if mcfg.subpixel:
         idx, valid, p_sub = out
     else:
@@ -152,15 +154,16 @@ def _track_frame_body(model_mod, params, cfg, mcfg, tcfg, feat_f, pos_f,
         tcfg.C_conf, tcfg.Q_conf)
 
     T_init = sim3.rel(kf_T_WC, frame_T_WC)
-    if not use_calib:
-        res = tracker_mod.opt_pose_ray_dist_sim3(Xf_at, Xk, T_init, Qk,
-                                                 valid_opt, tcfg)
-    else:
-        meas_k, valid_meas_k = tracker_mod.calib_measurements(
-            Xk, K, img_size, tcfg.depth_eps)
-        res = tracker_mod.opt_pose_calib_sim3(
-            Xf_at, Xk, T_init, Qk, valid_opt, meas_k, valid_meas_k, K,
-            img_size, tcfg, intrinsics)
+    with timing.span("track.gn"):
+        if not use_calib:
+            res = tracker_mod.opt_pose_ray_dist_sim3(Xf_at, Xk, T_init, Qk,
+                                                     valid_opt, tcfg)
+        else:
+            meas_k, valid_meas_k = tracker_mod.calib_measurements(
+                Xk, K, img_size, tcfg.depth_eps)
+            res = tracker_mod.opt_pose_calib_sim3(
+                Xf_at, Xk, T_init, Qk, valid_opt, meas_k, valid_meas_k, K,
+                img_size, tcfg, intrinsics)
 
     skip = stats3[0] < tcfg.min_match_frac
     ok = (~skip) & (~res.failed)
@@ -373,9 +376,10 @@ class TrackerRunner:
 
     def track(self, frame: Frame):
         """Returns (new_kf, try_reloc)."""
-        if self.fused:
-            return self._track_fused(frame)
-        return self._track_steps(frame)
+        with timing.span("track.frame", frame=frame.frame_id):
+            if self.fused:
+                return self._track_fused(frame)
+            return self._track_steps(frame)
 
     def _track_fused(self, frame: Frame):
         kfs = self.keyframes
@@ -394,7 +398,7 @@ class TrackerRunner:
             self.downsample, self.filtering_mode, self.filtering_score,
             self.use_calib, (kfs.h, kfs.w), self.intrinsics)
 
-        st = stats.cpu().numpy()     # the per-frame stats read
+        st = timing.host_read("track_stats", stats)   # the frame's one read
         self.idx_f2k = idx_f2k
         self.last_stats = {"match_frac": float(st[0]),
                            "match_frac_k": float(st[1]),
@@ -450,7 +454,8 @@ class TrackerRunner:
         Qk, valid_opt, stats = _track_gate(
             idx_f2k, valid_match_k, Qff, Qkf, frame.get_average_conf(),
             kf.get_average_conf(), tcfg.C_conf, tcfg.Q_conf)
-        match_frac, match_frac_k, unique_frac = stats.cpu().numpy()
+        match_frac, match_frac_k, unique_frac = timing.host_read(
+            "track_stats", stats)
         self.last_stats = {"match_frac": float(match_frac),
                            "match_frac_k": float(match_frac_k),
                            "unique_frac": float(unique_frac)}
@@ -473,7 +478,7 @@ class TrackerRunner:
             res = tracker_mod.opt_pose_calib_sim3(
                 Xf[idx_f2k], Xk, T_init, Qk, valid_opt, meas_k, valid_meas_k,
                 self.K, img_size, tcfg, self.intrinsics)
-        if bool(res.failed):
+        if timing.host_read("track_failed", res.failed):
             print(f"Cholesky failed {frame.frame_id}")
             return False, True
 
@@ -629,17 +634,22 @@ class SLAMSystem:
 
     def make_frame(self, frame_id: int, img_np: np.ndarray) -> Frame:
         """img_np (h, w, 3): normalized float32 or raw uint8."""
-        self._check_frame_shape(frame_id, img_np)
-        img = torch.from_numpy(np.ascontiguousarray(img_np)).to(self.device)
-        T_WC = (self.current_frame.T_WC if self.current_frame is not None
-                else sim3.identity(device=self.device))
-        frame = Frame(frame_id=frame_id, img=img, uimg=self._to_uimg(img_np),
-                      T_WC=T_WC, K=self.K)
-        feat, pos = self.model_mod.encode(self.params, img[None],
-                                          self.model_cfg)
-        frame.feat = feat[0]
-        frame.pos = pos[0]
-        return frame
+        with timing.span("track.make_frame", frame=frame_id):
+            self._check_frame_shape(frame_id, img_np)
+            img = timing.host_write("frame_upload", img_np,
+                                    device=self.device)
+            if self.current_frame is not None:
+                T_WC = self.current_frame.T_WC
+            else:
+                with timing.span("sync.pose_upload"):
+                    T_WC = sim3.identity(device=self.device)
+            frame = Frame(frame_id=frame_id, img=img,
+                          uimg=self._to_uimg(img_np), T_WC=T_WC, K=self.K)
+            feat, pos = self.model_mod.encode(self.params, img[None],
+                                              self.model_cfg)
+            frame.feat = feat[0]
+            frame.pos = pos[0]
+            return frame
 
     def _mono_init(self, frame: Frame):
         X, C = self.model_mod.inference_mono(
@@ -701,29 +711,30 @@ class SLAMSystem:
         memory, the chain and its store-row writes are enqueued, and the
         returned handle is for ``consume_window``. Work enqueued in between
         (the backend's) runs after the window on the stream."""
-        assert self.mode == Mode.TRACKING
-        kfs, tr = self.keyframes, self.tracker
-        W = len(ids)
-        assert len(kfs) + W < kfs.capacity, "keyframe buffer nearly full"
-        for fid, im in zip(ids, imgs_np):
-            self._check_frame_shape(fid, im)
-        host = torch.from_numpy(np.ascontiguousarray(np.stack(imgs_np)))
-        if self.device.type == "cuda":
-            imgs = host.pin_memory().to(self.device, non_blocking=True)
-        else:
-            imgs = host.to(self.device)
-        K = (self.K if self.K is not None
-             else torch.eye(3, device=self.device))
-        prev_T = (self.current_frame.T_WC if self.current_frame is not None
-                  else sim3.identity(device=self.device))
-        out = _track_window_body(
-            self.model_mod, self.params, self.model_cfg, tr.mcfg, tr.tcfg,
-            imgs, list(ids), tr.idx_f2k, prev_T, K,
-            len(kfs) - 1, kfs, self.downsample, tr.filtering_mode,
-            tr.filtering_score, self.use_calib, (kfs.h, kfs.w),
-            tr.intrinsics, capture_matches=self._reuse_consec)
-        tr.idx_f2k = out.idx_last
-        return out, list(ids), imgs_np, imgs
+        with timing.span("track.dispatch", frame=ids[0], n=len(ids)):
+            assert self.mode == Mode.TRACKING
+            kfs, tr = self.keyframes, self.tracker
+            W = len(ids)
+            assert len(kfs) + W < kfs.capacity, "keyframe buffer nearly full"
+            for fid, im in zip(ids, imgs_np):
+                self._check_frame_shape(fid, im)
+            host = torch.from_numpy(np.ascontiguousarray(np.stack(imgs_np)))
+            if self.device.type == "cuda":
+                imgs = host.pin_memory().to(self.device, non_blocking=True)
+            else:
+                imgs = host.to(self.device)
+            K = (self.K if self.K is not None
+                 else torch.eye(3, device=self.device))
+            prev_T = (self.current_frame.T_WC if self.current_frame is not None
+                      else sim3.identity(device=self.device))
+            out = _track_window_body(
+                self.model_mod, self.params, self.model_cfg, tr.mcfg, tr.tcfg,
+                imgs, list(ids), tr.idx_f2k, prev_T, K,
+                len(kfs) - 1, kfs, self.downsample, tr.filtering_mode,
+                tr.filtering_score, self.use_calib, (kfs.h, kfs.w),
+                tr.intrinsics, capture_matches=self._reuse_consec)
+            tr.idx_f2k = out.idx_last
+            return out, list(ids), imgs_np, imgs
 
     def process_window(self, ids, imgs_np) -> int:
         """Track ``len(ids)`` frames as one window (``system.py:870``).
@@ -736,50 +747,51 @@ class SLAMSystem:
         """Read the window's stats (the one host wait of a window) and do
         the host's bookkeeping (``system.py:877``)."""
         out, ids, imgs_np, imgs = pending
-        kfs, tr = self.keyframes, self.tracker
-        hs = out.hoststats.cpu().numpy()
-        consumed = 0
-        for t in range(len(ids)):
-            if hs[t, 7] < 0.5:           # after the halt: never tracked
-                break
-            skipped = hs[t, 3] > 0.5 or hs[t, 4] > 0.5
-            tr.last_stats = {"match_frac": float(hs[t, 0]),
-                             "match_frac_k": float(hs[t, 1]),
-                             "unique_frac": float(hs[t, 2])}
-            new_kf = hs[t, 5] > 0.5
-            if new_kf:
-                kfs.n_size += 1
-                self.stats["keyframes"] += 1
-                self.backend_queue.append(kfs.n_size - 1)
-                kfs.set_uimg(kfs.n_size - 1, self._to_uimg(imgs_np[t]))
-                if self._reuse_consec:
-                    self._consec_match[kfs.n_size - 1] = (
-                        out.idxs[t], out.valids[t], out.Qks[t])
-            if self.metrics is not None:
-                self.metrics.log(
-                    event="track", frame=ids[t], new_kf=bool(new_kf),
-                    reloc=bool(skipped), n_kf=len(kfs),
-                    n_edges=self.factor_graph.n_edges,
-                    edges_dropped=self.factor_graph.edges_dropped,
-                    **tr.last_stats)
-            consumed += 1
-            self.stats["frames_tracking"] += 1
-            if skipped:
-                which = "Skipped" if hs[t, 3] > 0.5 else "Cholesky failed"
-                print(f"{which} frame {ids[t]}")
-                self.stats["skipped"] += 1
-                self.mode = Mode.RELOC
-                self.current_frame = Frame(
-                    frame_id=ids[t], img=imgs[t],
-                    uimg=self._to_uimg(imgs_np[t]), T_WC=out.T_WCf[t],
-                    X_canon=out.Xff[t], C=out.Cff[t], feat=out.feats[t],
-                    pos=out.poss[t], N=1, N_updates=1, K=self.K)
-                return consumed
-        self.current_frame = Frame(
-            frame_id=ids[consumed - 1], img=None, uimg=None,
-            T_WC=out.prev_T_WC, feat=out.feat_last, pos=out.pos_last, N=1,
-            N_updates=1, K=self.K)
-        return consumed
+        with timing.span("track.consume", frame=ids[0], n=len(ids)):
+            kfs, tr = self.keyframes, self.tracker
+            hs = timing.host_read("window_stats", out.hoststats)
+            consumed = 0
+            for t in range(len(ids)):
+                if hs[t, 7] < 0.5:           # after the halt: never tracked
+                    break
+                skipped = hs[t, 3] > 0.5 or hs[t, 4] > 0.5
+                tr.last_stats = {"match_frac": float(hs[t, 0]),
+                                 "match_frac_k": float(hs[t, 1]),
+                                 "unique_frac": float(hs[t, 2])}
+                new_kf = hs[t, 5] > 0.5
+                if new_kf:
+                    kfs.n_size += 1
+                    self.stats["keyframes"] += 1
+                    self.backend_queue.append(kfs.n_size - 1)
+                    kfs.set_uimg(kfs.n_size - 1, self._to_uimg(imgs_np[t]))
+                    if self._reuse_consec:
+                        self._consec_match[kfs.n_size - 1] = (
+                            out.idxs[t], out.valids[t], out.Qks[t])
+                if self.metrics is not None:
+                    self.metrics.log(
+                        event="track", frame=ids[t], new_kf=bool(new_kf),
+                        reloc=bool(skipped), n_kf=len(kfs),
+                        n_edges=self.factor_graph.n_edges,
+                        edges_dropped=self.factor_graph.edges_dropped,
+                        **tr.last_stats)
+                consumed += 1
+                self.stats["frames_tracking"] += 1
+                if skipped:
+                    which = "Skipped" if hs[t, 3] > 0.5 else "Cholesky failed"
+                    print(f"{which} frame {ids[t]}")
+                    self.stats["skipped"] += 1
+                    self.mode = Mode.RELOC
+                    self.current_frame = Frame(
+                        frame_id=ids[t], img=imgs[t],
+                        uimg=self._to_uimg(imgs_np[t]), T_WC=out.T_WCf[t],
+                        X_canon=out.Xff[t], C=out.Cff[t], feat=out.feats[t],
+                        pos=out.poss[t], N=1, N_updates=1, K=self.K)
+                    return consumed
+            self.current_frame = Frame(
+                frame_id=ids[consumed - 1], img=None, uimg=None,
+                T_WC=out.prev_T_WC, feat=out.feat_last, pos=out.pos_last, N=1,
+                N_updates=1, K=self.K)
+            return consumed
 
     def check_invariants(self):
         """Runtime checks of the store and the graph (``system.py:938``);
@@ -817,10 +829,11 @@ class SLAMSystem:
         results equal the inline path's."""
         if self.retrieval is None:
             return
-        for idx in self.backend_queue:
-            if idx not in self._retrieval_prefetch:
-                self._retrieval_prefetch[idx] = self.retrieval.prefetch(
-                    self.keyframes.feat[idx])
+        with timing.span("backend.prefetch", n=len(self.backend_queue)):
+            for idx in self.backend_queue:
+                if idx not in self._retrieval_prefetch:
+                    self._retrieval_prefetch[idx] = self.retrieval.prefetch(
+                        self.keyframes.feat[idx])
 
     def backend_step(self, flush_deferred=True):
         """Process one backend task (``system.py:993``): a pending
@@ -831,70 +844,78 @@ class SLAMSystem:
         ``flush_deferred=False`` skips the flush of deferred edge-gate
         readbacks (a caller draining several queued keyframes flushes once
         before stepping)."""
-        if flush_deferred:
-            self.factor_graph.flush()
-        if (self._backend_mirror is not None
-                and (self.reloc_pending or self.backend_queue)):
-            # only when there is backend work (system.py:1010)
-            self._backend_mirror.sync()
-        if self.reloc_pending:
-            self.reloc_pending = False
-            if self._relocalize(self.current_frame):
-                self.mode = Mode.TRACKING
-                self.stats["relocs"] += 1
-                self._reloc_fail_streak = 0
-            else:
-                self.stats["reloc_failed"] += 1
-                self._reloc_fail_streak += 1
-                if self.metrics is not None:
-                    self.metrics.log(event="reloc_failed",
-                                     frame=self.current_frame.frame_id,
-                                     streak=self._reloc_fail_streak)
-                if self.reinit_after and (self._reloc_fail_streak
-                                          >= self.reinit_after):
-                    self._reinit_from_current()
+        reloc = self.reloc_pending
+        did = reloc or bool(self.backend_queue)
+        # the request served: the lost frame, or the queued keyframe
+        frame = (getattr(self.current_frame, "frame_id", None) if reloc
+                 else None)
+        kf = self.backend_queue[0] if did and not reloc else None
+        with timing.span("backend.step", frame=frame, kf=kf) as sp:
+            sp.set("did", did)
+            sp.set("reloc", reloc)
+            if flush_deferred:
+                self.factor_graph.flush()
+            if self._backend_mirror is not None and did:
+                # only when there is backend work (system.py:1010)
+                self._backend_mirror.sync()
+            if reloc:
+                self.reloc_pending = False
+                if self._relocalize(self.current_frame):
+                    self.mode = Mode.TRACKING
+                    self.stats["relocs"] += 1
+                    self._reloc_fail_streak = 0
+                else:
+                    self.stats["reloc_failed"] += 1
+                    self._reloc_fail_streak += 1
+                    if self.metrics is not None:
+                        self.metrics.log(event="reloc_failed",
+                                         frame=self.current_frame.frame_id,
+                                         streak=self._reloc_fail_streak)
+                    if self.reinit_after and (self._reloc_fail_streak
+                                              >= self.reinit_after):
+                        self._reinit_from_current()
+                return True
+
+            if not did:
+                return False
+            idx = self.backend_queue[0]
+
+            # consecutive edge: reuse the tracker's frame->keyframe match when
+            # one was captured, else decode + match the pair
+            cm = (self._consec_match.pop(idx, None)
+                  if self._reuse_consec else None)
+            kf_idx = []
+            if cm is None and idx > 0:
+                kf_idx.append(idx - 1)
+
+            if self.retrieval is not None:
+                rcfg = self.config["retrieval"]
+                pref = self._retrieval_prefetch.pop(idx, None)
+                feat = None if pref is not None else self.keyframes.feat[idx]
+                inds = self.retrieval.update(
+                    feat, add_after_query=True, k=int(rcfg["k"]),
+                    min_thresh=float(rcfg["min_thresh"]), prefetched=pref)
+                lc = set(inds) - {idx - 1}
+                if lc:
+                    self.stats["loop_closures"] += len(lc)
+                kf_idx += inds
+
+            drop = {idx} if cm is None else {idx, idx - 1}
+            kf_idx = list(set(kf_idx) - drop)
+            if cm is not None and idx > 0:
+                self.factor_graph.add_tracked_edge(idx - 1, idx, *cm)
+            if kf_idx:
+                # deferred gate: no host read here; the solve below masks by
+                # the device's edge count and the match fractions are read at
+                # the next backend step's flush
+                self.factor_graph.add_factors(
+                    kf_idx, [idx] * len(kf_idx),
+                    float(self.config["local_opt"]["min_match_frac"]),
+                    defer=True)
+
+            self._solve()
+            self.backend_queue.pop(0)
             return True
-
-        if not self.backend_queue:
-            return False
-        idx = self.backend_queue[0]
-
-        # consecutive edge: reuse the tracker's frame->keyframe match when
-        # one was captured, else decode + match the pair
-        cm = (self._consec_match.pop(idx, None)
-              if self._reuse_consec else None)
-        kf_idx = []
-        if cm is None and idx > 0:
-            kf_idx.append(idx - 1)
-
-        if self.retrieval is not None:
-            rcfg = self.config["retrieval"]
-            pref = self._retrieval_prefetch.pop(idx, None)
-            feat = None if pref is not None else self.keyframes.feat[idx]
-            inds = self.retrieval.update(
-                feat, add_after_query=True, k=int(rcfg["k"]),
-                min_thresh=float(rcfg["min_thresh"]), prefetched=pref)
-            lc = set(inds) - {idx - 1}
-            if lc:
-                self.stats["loop_closures"] += len(lc)
-            kf_idx += inds
-
-        drop = {idx} if cm is None else {idx, idx - 1}
-        kf_idx = list(set(kf_idx) - drop)
-        if cm is not None and idx > 0:
-            self.factor_graph.add_tracked_edge(idx - 1, idx, *cm)
-        if kf_idx:
-            # deferred gate: no host read here; the solve below masks by
-            # the device's edge count and the match fractions are read at
-            # the next backend step's flush
-            self.factor_graph.add_factors(
-                kf_idx, [idx] * len(kf_idx),
-                float(self.config["local_opt"]["min_match_frac"]),
-                defer=True)
-
-        self._solve()
-        self.backend_queue.pop(0)
-        return True
 
     def _solve(self):
         if self.use_calib:
@@ -1033,47 +1054,61 @@ class SLAMSystem:
                     checkpoint_path=None, checkpoint_every=0, viewer=None):
         t0 = time.time()
         W = self.window
-        load = lambda t: resize_img(dataset[t][1], dataset.img_size)["img_u8"]
+
+        def load(t):
+            with timing.span("run.load", frame=t):
+                return resize_img(dataset[t][1], dataset.img_size)["img_u8"]
+
         while i < n:
             i_prev = i
             if viewer is not None:
                 viewer.wait_if_paused()
             # a step released while paused advances one frame
             stepping = viewer is not None and viewer.paused
-            if (W > 1 and not threaded and self.mode == Mode.TRACKING
-                    and not stepping and i + W <= n
-                    and len(self.keyframes) + W < self.keyframes.capacity):
-                ids = list(range(i, i + W))
-                self.backend_prefetch()
-                pending = self.dispatch_window(ids, [load(t) for t in ids])
-                # one flush for the whole drain: the earlier windows' gate
-                # readbacks, not this window's keyframes (queued at consume)
-                self.factor_graph.flush()
-                while self.backend_step(flush_deferred=False):
-                    pass
-                i += self.consume_window(pending)
-            else:
-                frame = self.make_frame(i, load(i))
-                if threaded:
-                    self._check_backend_thread()
-                    with self.state_lock:
-                        self.process_frame(frame)
-                else:
-                    self.process_frame(frame)
-                    while self.backend_step():
+            windowed = (W > 1 and not threaded and self.mode == Mode.TRACKING
+                        and not stepping and i + W <= n
+                        and len(self.keyframes) + W
+                        < self.keyframes.capacity)
+            with timing.span("run.window" if windowed else "run.frame",
+                             frame=i, n=W if windowed else None) as sp:
+                if windowed:
+                    ids = list(range(i, i + W))
+                    self.backend_prefetch()
+                    pending = self.dispatch_window(ids,
+                                                   [load(t) for t in ids])
+                    # one flush for the whole drain: the earlier windows'
+                    # gate readbacks, not this window's keyframes (queued at
+                    # consume)
+                    self.factor_graph.flush()
+                    while self.backend_step(flush_deferred=False):
                         pass
-                i += 1
-            self.last_frame_idx = i
-            if viewer is not None:
-                viewer.update(self)     # takes state_lock for its snapshot
-            if progress and i // 30 > i_prev // 30:
-                print(f"FPS: {i / (time.time() - t0):.2f}")
-            if (checkpoint_path and checkpoint_every
-                    and i // checkpoint_every > i_prev // checkpoint_every):
-                from . import checkpoint
+                    consumed = self.consume_window(pending)
+                    sp.set("frames", consumed)
+                    i += consumed
+                else:
+                    frame = self.make_frame(i, load(i))
+                    if threaded:
+                        self._check_backend_thread()
+                        with self.state_lock:
+                            self.process_frame(frame)
+                    else:
+                        self.process_frame(frame)
+                        while self.backend_step():
+                            pass
+                    sp.set("frames", 1)
+                    i += 1
+                self.last_frame_idx = i
+                if viewer is not None:
+                    viewer.update(self)   # takes state_lock for its snapshot
+                if progress and i // 30 > i_prev // 30:
+                    print(f"FPS: {i / (time.time() - t0):.2f}")
+                if (checkpoint_path and checkpoint_every
+                        and i // checkpoint_every
+                        > i_prev // checkpoint_every):
+                    from . import checkpoint
 
-                with self.state_lock:
-                    checkpoint.save_state(checkpoint_path, self)
+                    with self.state_lock:
+                        checkpoint.save_state(checkpoint_path, self)
 
     def _backend_loop(self):
         """The backend thread of ``run``: one ``backend_step`` at a time

@@ -76,6 +76,7 @@ import torch
 
 torch.set_num_threads(1)
 from mast3r_slam_tpu_torch.parallel import mesh as mesh_mod
+from mast3r_slam_tpu_torch.utils import timing
 
 MODE = sys.argv[1]
 CPU = torch.device("cpu")
@@ -152,12 +153,14 @@ def run_mode(frames, dst):
                         mesh=m)
     ds = datasets.RGBFiles(frames)
     ds.img_size = mcfg["img_size"][1]
-    stats = system.run(ds)
+    with timing.recording() as rec:
+        stats = system.run(ds)
     k = len(system.keyframes)
+    solves = [s for s in rec.spans if s.name == "ba.solve"]
     np.savez(dst, T=system.keyframes.T_WC[:k].numpy(),
              ids=system.keyframes.dataset_idx[:k].numpy(),
              n_edges=system.factor_graph.n_edges,
-             backend=system.factor_graph.last_solve_backend,
+             backend=solves[-1].attrs["backend"],
              stats=json.dumps(stats))
     dist.destroy_process_group()
 

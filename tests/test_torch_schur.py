@@ -26,6 +26,7 @@ from mast3r_slam_tpu_torch.parallel import mesh, schur
 from mast3r_slam_tpu_torch.slam import ba as tba
 from mast3r_slam_tpu_torch.slam.factor_graph import FactorGraph
 from mast3r_slam_tpu_torch.slam.frame import KeyframeStore
+from mast3r_slam_tpu_torch.utils import timing
 
 from test_ba import _edges, _make_world
 from test_schur import _setup
@@ -203,6 +204,12 @@ def _graph(backend, m, n_kf, P, T_init, Xs, edges):
     return fg
 
 
+def _solved_by(rec):
+    """The backend of the one solve recorded in ``rec``."""
+    (solve,) = [s for s in rec.spans if s.name == "ba.solve"]
+    return solve.attrs["backend"]
+
+
 def test_factor_graph_backend_dispatch_matches_dense():
     """``test_schur.py:117``: ``solve_GN_rays`` with ``ba_backend`` schur
     and edge_sharded over a mesh of 8 equals the dense solve at 1e-3 (and
@@ -230,8 +237,9 @@ def test_factor_graph_backend_dispatch_matches_dense():
             ("schur", None, "dense"),
             ("edge_sharded", mesh.make_mesh([CPU]), "dense")):
         fg = _graph(backend, mm, n_kf, P, T_init, Xs, edges)
-        fg.solve_GN_rays()
-        assert fg.last_solve_backend == solved_by
+        with timing.recording() as rec:
+            fg.solve_GN_rays()
+        assert _solved_by(rec) == solved_by
         out[(backend, mm is None)] = fg.frames.T_WC[:n_kf].numpy()
     dense = out[("dense", True)]
     assert np.abs(dense - T_init.numpy()).max() > 1e-3
@@ -267,7 +275,8 @@ def test_factor_graph_schur_eliminates():
         poses = {}
         for backend in ("dense", "schur"):
             fg = graph(backend)
-            getattr(fg, solve)()
-            assert fg.last_solve_backend == backend
+            with timing.recording() as rec:
+                getattr(fg, solve)()
+            assert _solved_by(rec) == backend
             poses[backend] = fg.frames.T_WC[:n_kf].numpy()
         np.testing.assert_allclose(poses["schur"], poses["dense"], atol=TOL)
