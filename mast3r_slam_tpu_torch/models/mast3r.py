@@ -14,11 +14,13 @@ effect. A trainable model (``init_params(..., trainable=True)``) keeps
 every weight in fp32, as JAX's ``init_params`` does, and the layers cast
 per call; ``encode_body`` and ``decode_pair_body`` are the grad-enabled
 forward passes that ``encode`` and ``decode_pair`` run under
-``torch.no_grad()``.
+``torch.no_grad()``, on CUDA replayed from a graph of their call's shapes
+(``models/graphs.py``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -27,7 +29,7 @@ from torch import nn
 
 from .._device import exact_fp32, resolve_device
 from ..utils import timing
-from . import dpt, vit
+from . import dpt, graphs, vit
 
 
 class MASt3RConfig(NamedTuple):
@@ -183,9 +185,10 @@ def encode_body(model: MASt3R, img, cfg: MASt3RConfig):
 
 @torch.no_grad()
 def encode(model: MASt3R, img, cfg: MASt3RConfig):
-    """``encode_body`` for inference: no gradients."""
-    with timing.span("mast3r.encode", batch=img.shape[0]):
-        return encode_body(model, img, cfg)
+    """``encode_body`` for inference: no gradients, through
+    ``graphs.run``."""
+    with timing.span("mast3r.encode", batch=img.shape[0]) as sp:
+        return graphs.run(model, "encode", encode_body, (img,), cfg, sp)
 
 
 def _grid(cfg):
@@ -216,9 +219,12 @@ def decode_pair_body(model: MASt3R, feat1, pos1, feat2, pos2,
 
 
 @torch.no_grad()
-def decode_pair(model: MASt3R, feat1, pos1, feat2, pos2, cfg: MASt3RConfig):
-    """``decode_pair_body`` for inference: no gradients."""
-    return decode_pair_body(model, feat1, pos1, feat2, pos2, cfg)
+def decode_pair(model: MASt3R, feat1, pos1, feat2, pos2, cfg: MASt3RConfig,
+                span=None):
+    """``decode_pair_body`` for inference: no gradients, through
+    ``graphs.run``; ``span``, the caller's, gets the attribute ``graph``."""
+    return graphs.run(model, "decode_pair", decode_pair_body,
+                      (feat1, pos1, feat2, pos2), cfg, span)
 
 
 def downsample_maps(*maps, ds: int = 1):
@@ -231,8 +237,8 @@ def downsample_maps(*maps, ds: int = 1):
 def inference_mono(model, feat, pos, cfg: MASt3RConfig, ds: int = 1):
     """Self-pair decode -> (X (b, n, 3), C (b, n, 1))."""
     b = feat.shape[0]
-    with timing.span("mast3r.mono", batch=b):
-        res1, _ = decode_pair(model, feat, pos, feat, pos, cfg)
+    with timing.span("mast3r.mono", batch=b) as sp:
+        res1, _ = decode_pair(model, feat, pos, feat, pos, cfg, span=sp)
         X, C = downsample_maps(res1["pts3d"], res1["conf"][..., None], ds=ds)
         return X.reshape(b, -1, 3), C.reshape(b, -1, 1)
 
@@ -240,8 +246,9 @@ def inference_mono(model, feat, pos, cfg: MASt3RConfig, ds: int = 1):
 def inference_asymmetric(model, feat_f, pos_f, feat_k, pos_k, cfg):
     """Frame/keyframe decode -> stacked (X, C, D, Q), leading dim 2 =
     [frame's map, keyframe's map], both in the frame's coordinates."""
-    with timing.span("mast3r.asym", batch=feat_f.shape[0]):
-        res1, res2 = decode_pair(model, feat_f, pos_f, feat_k, pos_k, cfg)
+    with timing.span("mast3r.asym", batch=feat_f.shape[0]) as sp:
+        res1, res2 = decode_pair(model, feat_f, pos_f, feat_k, pos_k, cfg,
+                                 span=sp)
         return tuple(torch.cat([res1[k], res2[k]], dim=0)
                      for k in ("pts3d", "conf", "desc", "desc_conf"))
 
@@ -266,6 +273,6 @@ def symmetric_from_decode(decode, params, feat_i, pos_i, feat_j, pos_j, cfg):
 
 def inference_symmetric(model, feat_i, pos_i, feat_j, pos_j, cfg):
     """Symmetric two-view decode of a batch of edges (``mast3r.py:311``)."""
-    with timing.span("mast3r.sym", batch=feat_i.shape[0]):
-        return symmetric_from_decode(decode_pair, model, feat_i, pos_i,
-                                     feat_j, pos_j, cfg)
+    with timing.span("mast3r.sym", batch=feat_i.shape[0]) as sp:
+        return symmetric_from_decode(functools.partial(decode_pair, span=sp),
+                                     model, feat_i, pos_i, feat_j, pos_j, cfg)

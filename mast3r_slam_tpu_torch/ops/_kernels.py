@@ -10,11 +10,15 @@ PyTorch versions there. ``build_all()`` starts one ``nvcc`` per source at
 once so a fresh checkout builds in the time of the slowest file.
 
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else. A launch into a CUDA graph
+under capture runs nothing: inside ``tally_launches`` a thread's launches
+are counted into the graph's tally instead, and each replay of the graph
+adds the tally (``add_launches``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import os
@@ -59,11 +63,31 @@ LAUNCHES = {name: 0 for name in SOURCES}
 _libs: dict = {}
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+_tally = threading.local()      # .counts: this thread's tally, or None
 
 
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Inside the block this thread's launches are counted into the
+    yielded dict (kernel name -> launches), not into ``LAUNCHES``."""
+    counts = dict.fromkeys(SOURCES, 0)
+    _tally.counts = counts
+    try:
+        yield counts
+    finally:
+        _tally.counts = None
+
+
+def add_launches(counts):
+    """Add ``counts`` (kernel name -> launches) to ``LAUNCHES``."""
+    with _count_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 def _nvcc():
@@ -159,8 +183,9 @@ def launch(name, *args):
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")
+    counts = getattr(_tally, "counts", None)
     with _count_lock:     # the backend thread of SLAMSystem.run launches too
-        LAUNCHES[name] += 1
+        (LAUNCHES if counts is None else counts)[name] += 1
 
 
 @functools.lru_cache(maxsize=None)
