@@ -188,7 +188,8 @@ def encode(model: MASt3R, img, cfg: MASt3RConfig):
     """``encode_body`` for inference: no gradients, through
     ``graphs.run``."""
     with timing.span("mast3r.encode", batch=img.shape[0]) as sp:
-        return graphs.run(model, "encode", encode_body, (img,), cfg, sp)
+        return graphs.run(model, ("encode", cfg),
+                          lambda x: encode_body(model, x, cfg), (img,), sp)
 
 
 def _grid(cfg):
@@ -223,8 +224,9 @@ def decode_pair(model: MASt3R, feat1, pos1, feat2, pos2, cfg: MASt3RConfig,
                 span=None):
     """``decode_pair_body`` for inference: no gradients, through
     ``graphs.run``; ``span``, the caller's, gets the attribute ``graph``."""
-    return graphs.run(model, "decode_pair", decode_pair_body,
-                      (feat1, pos1, feat2, pos2), cfg, span)
+    return graphs.run(model, ("decode_pair", cfg),
+                      lambda *a: decode_pair_body(model, *a, cfg),
+                      (feat1, pos1, feat2, pos2), span)
 
 
 def downsample_maps(*maps, ds: int = 1):

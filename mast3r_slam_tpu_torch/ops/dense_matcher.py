@@ -22,10 +22,8 @@ version beside it for CPU tensors; nothing else falls back.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..utils import timing
 from . import _kernels, matching
 
 
@@ -206,8 +204,10 @@ def match_dense(X11, X21, D11, D21, stride: int = 4, fine_radius: int = 3,
     flow_up = flow.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     vv, uu = torch.meshgrid(ar(h), ar(0, w, qs), indexing="ij")
     upos = torch.stack([uu, vv], dim=-1)[None]            # (1, h, wq, 2)
-    hi = timing.host_write("bound_upload", np.array([w - 1, h - 1]),
-                           device=dev)
+    # the bounds (w - 1, h - 1) made on the device: no upload, so that the
+    # backend's edge chain captures as one CUDA graph
+    hi = torch.full((2,), h - 1, dtype=upos.dtype, device=dev)
+    hi[:1].fill_(w - 1)
     p0 = torch.minimum(torch.clamp(upos + flow_up, min=0), hi)
     idx_init = matching.pixel_to_lin(p0.reshape(b, nq, 2), w)
 

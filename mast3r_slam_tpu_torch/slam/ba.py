@@ -20,8 +20,16 @@ system. Per GN iteration:
 * ``_solve``: Jacobi equilibration and an fp32 Cholesky on the device (or
   fp64 on the host), as the JAX package computes it outside any kernel.
 
-The GN loop is a Python loop; the step norm is the one host read per
-iteration, and the plan reads the edge lists once per solve.
+The plan reads the edge lists once per solve. The GN loop
+(``_early_exit_loop``) reads the step norm to the host every iteration
+and stops early on it. On CUDA with the fp32 solver, once the thread has
+run that loop there, a solve instead runs predicated on the device
+(``_replayed_loop``): one CUDA graph of an iteration at the solve's own
+shapes (``models/graphs.py``), captured before the plan's read and
+replayed ``max_iters`` times, the stop rule a device flag, the step norms
+read once at the end: the same poses, iterations and norms, bit for bit.
+The CPU, grad, the ``fp64_host`` solver and the sharded solvers
+(``parallel/dist_ba.py``, ``parallel/schur.py``) keep the early-exit loop.
 ``ba_edge_terms`` (per-edge S0, g0 for given Tij) stays callable; on CUDA
 tensors it runs the same kernel without the conjugation and the
 assembly. The JAX package's point chunks, component-major stacks
@@ -31,6 +39,7 @@ not carried over.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -40,6 +49,7 @@ from .. import geometry, robust
 from .._device import exact_fp32
 from ..config import BAConfig
 from ..lie import sim3
+from ..models import graphs
 from ..ops import _kernels, gather
 from ..utils import timing
 
@@ -57,6 +67,7 @@ class BAResult(NamedTuple):
     T_WC: torch.Tensor   # (K, 8) updated poses
     iters: int           # GN iterations executed
     deltas: tuple = ()   # each iteration's step norm, as the host read it
+    graph: str = "eager"  # "capture": one CUDA graph replayed the solve
 
 
 class EdgePre(NamedTuple):
@@ -116,18 +127,31 @@ def _edge_prep(Xs, Cs, ii, jj, idx, valid_match, stride: int = 1) -> EdgePre:
                    XC_j[jj.to(torch.int64)].contiguous(), safe_idx)
 
 
-def _assembly_plan(ii, jj, n_kf: int, K_cap: int, pin: int) -> AssemblyPlan:
+def _assembly_plan(ii, jj, n_kf: int, K_cap: int, pin: int,
+                   out=None) -> AssemblyPlan:
     """The assembly's plan, once per solve (it does not depend on the
     poses): made on the host from one read of the edge lists, as a few
-    numpy calls, and uploaded in one copy; the solve reads its step norm
-    every iteration anyway."""
+    numpy calls, and uploaded in one copy (into ``out``, a buffer of
+    ``_plan_buffer``, where given)."""
     ij = timing.host_read("ba_plan", torch.stack([ii.to(torch.int64),
                                                   jj.to(torch.int64)]))
-    return _assembly_plan_host(ij, n_kf, K_cap, pin, ii.device)
+    return _assembly_plan_host(ij, n_kf, K_cap, pin, ii.device, out)
+
+
+def _plan_buffer(E: int, K_cap: int, device):
+    """An unfilled int32 buffer for the plan of E edges and K_cap poses."""
+    return torch.empty((24 * E + K_cap * K_cap,), dtype=torch.int32,
+                       device=device)
+
+
+def _plan_views(buf, E: int) -> AssemblyPlan:
+    """The plan's arrays as views of its flat buffer."""
+    a = buf[:24 * E].view(6, 4 * E)
+    return AssemblyPlan(a[0], a[1], a[2], a[3], a[4], buf[24 * E:], a[5])
 
 
 def _assembly_plan_host(ij, n_kf: int, K_cap: int, pin: int,
-                        device) -> AssemblyPlan:
+                        device, out=None) -> AssemblyPlan:
     """``_assembly_plan`` from the edge lists already on the host, ij (2, E)
     int64, uploaded to ``device``. The plain version adds the four block
     types in four ``index_put_`` calls, each in edge order, so the
@@ -161,8 +185,9 @@ def _assembly_plan_host(ij, n_kf: int, K_cap: int, pin: int,
     buf = timing.host_write("plan_upload",
                             np.concatenate([packed.ravel(), block_run]),
                             device=device)
-    a = buf[:6 * n].view(6, n)
-    return AssemblyPlan(a[0], a[1], a[2], a[3], a[4], buf[6 * n:], a[5])
+    if out is not None:
+        buf = out.copy_(buf)
+    return _plan_views(buf, E)
 
 
 def _edge_weights(pre: EdgePre, valid_match, Q, cfg: BAConfig,
@@ -602,26 +627,144 @@ def _gauss_newton(mode, T_WCs, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
                   edge_mask, n_kf, cfg: BAConfig, calib=None) -> BAResult:
     exact_fp32()
     n_kf = int(n_kf)
+    T = T_WCs.contiguous()
+    if not _replays(T, cfg):
+        system = _system_of(mode, T, Xs, Cs, ii, jj, idx_ii2jj, valid_match,
+                            Q, edge_mask, n_kf, cfg, calib)
+        T, deltas = _early_exit_loop(system, T, n_kf, T.shape[0], cfg)
+        return BAResult(T, len(deltas), tuple(deltas))
+    T, deltas = _replayed_loop(mode, T, Xs, Cs, ii, jj, idx_ii2jj,
+                               valid_match, Q, edge_mask, n_kf, cfg, calib)
+    return BAResult(T, len(deltas), tuple(deltas), "capture")
+
+
+def _system_of(mode, T_WCs, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
+               edge_mask, n_kf: int, cfg: BAConfig, calib=None, plan=None):
+    """A solve's linear system as a function of the poses, T -> (H, g,
+    Hd, gd) (``_edge_system``), with the per-solve work done here once:
+    the edge prep and, on CUDA, the weights and the assembly plan (made
+    here unless given)."""
     K_cap = T_WCs.shape[0]
     with timing.span("ba.plan"):
         pre = _edge_prep(Xs, Cs, ii, jj, idx_ii2jj, valid_match,
                          stride=cfg.point_stride)
-        wq = plan = None
+        wq = None
         if T_WCs.is_cuda:
             wq = _edge_weights(pre, valid_match, Q, cfg, cfg.point_stride)
-            plan = _assembly_plan(ii, jj, n_kf, K_cap, cfg.pin)
-    T = T_WCs.contiguous()
+            if plan is None:
+                plan = _assembly_plan(ii, jj, n_kf, K_cap, cfg.pin)
+
+    def system(T):
+        return _edge_system(mode, T, Xs, Cs, ii, jj, idx_ii2jj, valid_match,
+                            Q, edge_mask, n_kf, K_cap, cfg.pin, cfg, pre,
+                            calib, wq, plan)
+    return system
+
+
+def _early_exit_loop(system, T, n_kf: int, K_cap: int, cfg: BAConfig):
+    """Up to ``cfg.max_iters`` iterations, each ending in its host read of
+    the step norm: (T, the step norms read)."""
     deltas = []
     while len(deltas) < cfg.max_iters:
         with timing.span("ba.iter"):
-            _, _, Hd, gd = _edge_system(mode, T, Xs, Cs, ii, jj, idx_ii2jj,
-                                        valid_match, Q, edge_mask, n_kf,
-                                        K_cap, cfg.pin, cfg, pre, calib, wq,
-                                        plan)
+            _, _, Hd, gd = system(T)
             T, done = _step(T, Hd, gd, n_kf, K_cap, cfg, deltas)
         if done:
             break
-    return BAResult(T, len(deltas), tuple(deltas))
+    if T.is_cuda and cfg.solver == "fp32" and deltas:
+        _warm.devices = getattr(_warm, "devices", set()) | {T.device}
+    return T, deltas
+
+
+class Loop(NamedTuple):
+    """The Gauss-Newton loop's state on the poses' device (``_loop``),
+    updated in place by ``_predicated_iteration`` with no host read."""
+    T: torch.Tensor       # (K_cap, 8) poses
+    done: torch.Tensor    # () bool: the stop rule has fired
+    k: torch.Tensor       # () int64: iterations issued, the next slot
+    deltas: torch.Tensor  # (max_iters,) fp32 step norms, slot k by k
+
+
+def _loop(T, max_iters: int) -> Loop:
+    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=T.device)
+    return Loop(T.clone(), z((), torch.bool), z((), torch.int64),
+                z((max_iters,), torch.float32))
+
+
+def _predicated_iteration(loop: Loop, system, n_kf: int, K_cap: int,
+                          cfg: BAConfig):
+    """One iteration of ``_early_exit_loop`` with its stop rule kept on the
+    device: until ``loop.done`` is set it moves ``loop.T`` and writes its
+    step norm into slot ``loop.k``; the iteration whose norm is below
+    ``cfg.delta_norm`` (compared in fp32) sets ``done`` and keeps its
+    step, and every later one leaves ``T`` and the slots as they are. The
+    same operations on the same values as the early-exit loop, so the
+    poses and norms carry its bits."""
+    _, _, Hd, gd = system(loop.T)
+    dx, free = _solve(Hd, gd, n_kf, K_cap, cfg.pin, cfg.solver)
+    T_new = torch.where(free[:, None], sim3.retr(loop.T, dx), loop.T)
+    delta = torch.linalg.vector_norm(
+        torch.where(free[:, None], dx, torch.zeros_like(dx)))
+    live = ~loop.done
+    loop.T.copy_(torch.where(live, T_new, loop.T))
+    slot = (torch.arange(loop.deltas.shape[0], device=dx.device)
+            == loop.k) & live
+    loop.deltas.copy_(torch.where(slot, delta, loop.deltas))
+    loop.done.logical_or_(delta < float(np.float32(cfg.delta_norm)))
+    loop.k.add_(1)
+
+
+def _loop_deltas(loop: Loop, cfg: BAConfig) -> list:
+    """The step norms of the iterations that ran, from one host read: the
+    slots up to the first below ``cfg.delta_norm``, where ``done`` was
+    set (later slots were never written)."""
+    deltas = []
+    for d in timing.host_read("ba_deltas", loop.deltas):
+        deltas.append(float(d))
+        if d < float(np.float32(cfg.delta_norm)):
+            break
+    return deltas
+
+
+_warm = threading.local()        # .devices: where this thread has solved
+
+
+def _replays(T, cfg: BAConfig) -> bool:
+    """Whether a solve on ``T`` runs ``_replayed_loop``: on CUDA under
+    no_grad with the fp32 solver, on a thread whose eager loop has run
+    there (that warmed cuSOLVER's and cuBLAS's handles, which a capture
+    cannot create)."""
+    return (not graphs.eager(T) and cfg.solver == "fp32"
+            and cfg.max_iters >= 1
+            and T.device in getattr(_warm, "devices", ()))
+
+
+def _replayed_loop(mode, T, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
+                   edge_mask, n_kf: int, cfg: BAConfig, calib=None):
+    """``_early_exit_loop`` on CUDA with no host read between iterations:
+    one capture of ``_predicated_iteration`` at the solve's own shapes,
+    replayed ``cfg.max_iters`` times, the stop rule a device flag, the
+    step norms read once at the end; the graph is dropped on return. The
+    capture needs the addresses of the solve's tensors, not their values,
+    so it is made before the plan's read of the edge lists: the host
+    captures while the device still runs the work queued before the solve
+    (the new edges' decode and match)."""
+    K_cap = T.shape[0]
+    E = ii.shape[0]
+    plan = _plan_buffer(E, K_cap, T.device)
+    _counters(T.device, E)       # grown outside the capture
+    system = _system_of(mode, T, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
+                        edge_mask, n_kf, cfg, calib, _plan_views(plan, E))
+    loop = _loop(T, cfg.max_iters)
+    g = graphs.capture(
+        lambda: _predicated_iteration(loop, system, n_kf, K_cap, cfg),
+        T.device, "ba.capture")
+    with timing.span("ba.plan"):
+        _assembly_plan(ii, jj, n_kf, K_cap, cfg.pin, out=plan)
+    for _ in range(cfg.max_iters):
+        with timing.span("ba.iter"):
+            g.replay()
+    return loop.T, _loop_deltas(loop, cfg)
 
 
 def _step(T, Hd, gd, n_kf: int, K_cap: int, cfg: BAConfig, deltas: list):

@@ -34,7 +34,7 @@ import torch
 
 from .. import geometry
 from ..config import BAConfig, FactorGraphConfig, MatchingConfig
-from ..models import mast3r
+from ..models import graphs, mast3r
 from ..ops import dense_matcher, gather, matching
 from ..utils import timing
 from . import ba
@@ -44,21 +44,37 @@ __all__ = ["FactorGraph", "FactorGraphConfig", "MatchingConfig",
            "constrain_all"]
 
 
-@torch.no_grad()
-def _match_edges_symmetric(params, cfg, mcfg, feat_i, pos_i, feat_j, pos_j,
-                           ds: int = 1, matcher: str = "iter_proj",
-                           model_mod=mast3r, query_stride: int = 1):
-    """Decode + match both directions of a batch of candidate edges
-    (``factor_graph.py:61``). Returns idx_i2j, idx_j2i (b, P) int32;
-    valid_match_j, valid_match_i (b, P, 1); Qii/Qjj/Qji/Qij (b, P)."""
+# the decoded maps the edge chain reads, in its inputs' order
+EDGE_MAPS = tuple(c + d for c in "XDQ" for d in ("ii", "jj", "ji", "ij"))
+
+
+def _edge_maps(out, mcfg, ds: int = 1):
+    """The decode's maps that matching and the gate read
+    (``EDGE_MAPS``), each subsampled by ``ds``. With a bf16 refine
+    (``mcfg.refine_dtype``) the matchers read the descriptors only through
+    a cast to bf16, so they are cast here, first: the same bits, and half
+    the bytes for the edge chain's graph inputs to hold."""
+    maps = mast3r.downsample_maps(*(out[k] for k in EDGE_MAPS), ds=ds)
+    if mcfg.refine_dtype != "bfloat16":
+        return maps
+    return tuple(m.to(torch.bfloat16) if k[0] == "D" else m
+                 for k, m in zip(EDGE_MAPS, maps))
+
+
+def _check_matcher(matcher):
     if matcher not in ("iter_proj", "dense"):
         raise ValueError(f"local_opt.matcher must be 'iter_proj' or "
                          f"'dense', got {matcher!r}")
-    out = model_mod.inference_symmetric(params, feat_i, pos_i, feat_j,
-                                        pos_j, cfg)
-    if ds > 1:
-        out = {k: mast3r.downsample_maps(v, ds=ds)[0] for k, v in out.items()}
-    b = feat_i.shape[0]
+
+
+def _match_maps(maps, mcfg, matcher: str = "iter_proj",
+                query_stride: int = 1):
+    """Match both directions of a batch of decoded candidate edges
+    (``maps`` as ``_edge_maps`` gives them; ``factor_graph.py:61``).
+    Returns idx_i2j, idx_j2i (b, P) int32; valid_match_j, valid_match_i
+    (b, P, 1); Qii/Qjj/Qji/Qij (b, P)."""
+    out = dict(zip(EDGE_MAPS, maps))
+    b = out["Xii"].shape[0]
     X11 = torch.cat([out["Xii"], out["Xjj"]], dim=0)
     X21 = torch.cat([out["Xji"], out["Xij"]], dim=0)
     D11 = torch.cat([out["Dii"], out["Djj"]], dim=0)
@@ -91,6 +107,19 @@ def _match_edges_symmetric(params, cfg, mcfg, feat_i, pos_i, feat_j, pos_j,
     }
 
 
+@torch.no_grad()
+def _match_edges_symmetric(params, cfg, mcfg, feat_i, pos_i, feat_j, pos_j,
+                           ds: int = 1, matcher: str = "iter_proj",
+                           model_mod=mast3r, query_stride: int = 1):
+    """Decode + match both directions of a batch of candidate edges
+    (``factor_graph.py:61``): ``_match_maps`` of the symmetric decode."""
+    _check_matcher(matcher)
+    out = model_mod.inference_symmetric(params, feat_i, pos_i, feat_j,
+                                        pos_j, cfg)
+    return _match_maps(_edge_maps(out, mcfg, ds), mcfg, matcher,
+                       query_stride)
+
+
 def _gate_edges(m, Q_conf, query_stride: int = 1):
     """Paired descriptor confidences and bidirectional match fractions
     (``factor_graph.py:117``). With query-strided edge matching only every
@@ -111,23 +140,20 @@ def _pairs(a, bwd):
     return torch.stack([a, bwd], dim=1).reshape(2 * a.shape[0], *a.shape[1:])
 
 
-@torch.no_grad()
-def _add_factors_body(bufs, params, feat, pos, ii_arr, jj_arr, consec, e0,
-                      min_match_frac, strict, Q_conf, cfg, mcfg, ds, matcher,
-                      model_mod, query_stride: int = 1):
-    """The add_factors pipeline without a host read: pair-feature gather ->
-    symmetric decode -> match -> confidence gate -> masked two-way append,
-    the keep decision taken on the device (``factor_graph.py:137``).
+def _edge_chain(bufs, maps, ii_arr, jj_arr, consec, e0, min_match_frac,
+                strict, Q_conf, mcfg, matcher, query_stride: int = 1):
+    """Everything of add_factors after the decode: match -> confidence
+    gate -> masked two-way append, the keep decision taken on the device
+    (``factor_graph.py:137``). No host read and no upload, so that it
+    captures as one CUDA graph.
 
     ``bufs`` = (ii, jj, idx, valid_match, Q) edge buffers with E_cap + 1
     rows, written in place: dropped rows (gated out, or past a hard
-    capacity) go to the sentinel row E_cap. ``e0`` is the 0-d device edge
-    count. Returns (fracs (2, b), n_new 0-d int32)."""
+    capacity) go to the sentinel row E_cap. ``maps`` as ``_edge_maps``
+    gives them; ``e0`` is the 0-d device edge count. Returns (fracs (2, b),
+    n_new 0-d int32)."""
     ii_buf, jj_buf, idx_buf, vm_buf, Q_buf = bufs
-    m = _match_edges_symmetric(
-        params, cfg, mcfg, feat.index_select(0, ii_arr),
-        pos.index_select(0, ii_arr), feat.index_select(0, jj_arr),
-        pos.index_select(0, jj_arr), ds, matcher, model_mod, query_stride)
+    m = _match_maps(maps, mcfg, matcher, query_stride)
     Qj, Qi, frac_j, frac_i = _gate_edges(m, Q_conf, query_stride)
 
     invalid = (torch.minimum(frac_j, frac_i) < min_match_frac) & ~consec
@@ -154,6 +180,42 @@ def _add_factors_body(bufs, params, feat, pos, ii_arr, jj_arr, consec, e0,
     fits = torch.clamp((E_cap - e0) // 2, min=0)
     n_new = e0 + 2 * torch.minimum(keep.sum().to(torch.int32), fits)
     return torch.stack([frac_j, frac_i]), n_new
+
+
+@torch.no_grad()
+def _add_factors_body(bufs, params, feat, pos, ii_arr, jj_arr, consec, e0,
+                      min_match_frac, strict, Q_conf, cfg, mcfg, ds, matcher,
+                      model_mod, query_stride: int = 1, owner=None,
+                      span=None):
+    """The add_factors pipeline without a host read: pair-feature gather ->
+    symmetric decode -> ``_edge_chain`` (match, gate, append; arguments
+    and result as there).
+
+    With an ``owner`` (the ``FactorGraph``), the chain runs through
+    ``graphs.run`` under it: on CUDA under no_grad one CUDA graph a
+    proposal shape, keyed also by the edge buffers' storage (a capacity
+    doubling makes new buffers and so new graphs) and by what the chain
+    bakes in; ``span`` gets the attribute ``graph``. The decode is a
+    replay of its own (``mast3r.decode_pair``), never nested in this
+    one."""
+    _check_matcher(matcher)
+    out = model_mod.inference_symmetric(
+        params, feat.index_select(0, ii_arr), pos.index_select(0, ii_arr),
+        feat.index_select(0, jj_arr), pos.index_select(0, jj_arr), cfg)
+    args = (*_edge_maps(out, mcfg, ds), ii_arr, jj_arr, consec, e0)
+    n = len(EDGE_MAPS)
+
+    def chain(*a):
+        return _edge_chain(bufs, a[:n], *a[n:], min_match_frac, strict,
+                           Q_conf, mcfg, matcher, query_stride)
+
+    if owner is None:
+        return chain(*args)
+    key = ("edges", matcher, query_stride, ds, float(min_match_frac),
+           bool(strict), float(Q_conf), mcfg,
+           tuple((b.data_ptr(), tuple(b.shape)) for b in bufs))
+    return graphs.run(owner, key, chain, args, span, "fg.capture",
+                      share_inputs=True)
 
 
 @torch.no_grad()
@@ -270,6 +332,7 @@ class FactorGraph:
 
             self._bufs = tuple(grow(a) for a in self._bufs)
             self.capacity = new_cap
+            graphs.drop(self)      # the edge chain's graphs wrote the old
         return True
 
     # -- edge construction ---------------------------------------------------
@@ -291,7 +354,7 @@ class FactorGraph:
         synchronously."""
         if not ii:
             return False
-        with timing.span("fg.add_factors", n=len(ii)):
+        with timing.span("fg.add_factors", n=len(ii)) as sp:
             if is_reloc:
                 defer = False
             if not defer:
@@ -311,7 +374,7 @@ class FactorGraph:
                 float(min_match_frac), bool(is_reloc),
                 float(self.cfg.Q_conf), self.model_cfg, self.mcfg,
                 self.downsample, self.cfg.matcher, self.model_mod,
-                self.query_stride)
+                self.query_stride, owner=self, span=sp)
 
             rec = (fracs, nb, consec, float(min_match_frac), self.capacity,
                    bool(is_reloc))
@@ -512,6 +575,7 @@ class FactorGraph:
                 res = ba.gauss_newton_rays(T0, Xs, Cs, *args, self.ba_cfg)
             sp.set("backend", backend)
             sp.set("iters", res.iters)
+            sp.set("graph", res.graph)
             n_edges, n_kf = self._buckets()
             sp.set("n_kf", n_kf)
             sp.set("n_edges", n_edges)

@@ -378,3 +378,64 @@ def test_gauss_newton_calib_matches_jax():
         tba.BAConfig(max_iters=20))
     np.testing.assert_allclose(res.T_WC.numpy(), np.asarray(Tj), atol=1e-4)
     assert _pose_err(T_true, res.T_WC.numpy()) < 0.15
+
+
+# -- the predicated loop (``ba._predicated_iteration``) -------------------------
+
+
+def _loop_problem():
+    """A perturbed 5-keyframe world with a loop edge: (n_kf, the solver's
+    arguments T_WCs, Xs, Cs, ii, jj, idx, valid, Q, mask)."""
+    key = jax.random.PRNGKey(3)
+    n_kf, n_pts = 5, 256
+    T_true, Xs = _make_world(key, n_kf, n_pts)
+    Cs = np.full((n_kf, n_pts), 5.0, np.float32)
+    edges = _edges(n_kf, n_pts, extra=[(0, n_kf - 1)])
+    T_init = _perturbed(key, T_true, n_kf, 0.05, 11)
+    return n_kf, _t(T_init, Xs, Cs, *edges)
+
+
+def _stop_rule(case, d):
+    """The ``delta_norm`` that stops the early-exit loop where ``case``
+    says, from the step norms ``d`` of a loop that never stops."""
+    if case == "first":
+        return 2.0 * d[0]
+    if case == "third":
+        assert d[2] < min(d[0], d[1])
+        return float(np.sqrt(d[2] * min(d[0], d[1])))
+    if case == "never":
+        return 0.0
+    return 1e-8                  # all pinned: every step norm is 0
+
+
+@pytest.mark.parametrize("case", ["first", "third", "never", "all_pinned"])
+def test_predicated_loop_bit_equal_to_early_exit(case):
+    """The device-predicated loop (stop flag and step-norm slots, no host
+    read until the end) gives the early-exit loop's poses, iteration count
+    and step norms bit for bit, also when the rule fires early."""
+    n_kf, args = _loop_problem()
+    T, T0 = args[0], args[0].clone()
+    pin = n_kf if case == "all_pinned" else 1
+    cfg = tba.BAConfig(max_iters=6, pin=pin, delta_norm=0.0)
+    system = lambda c: tba._system_of("rays", *args, n_kf, c)
+    _, free = tba._early_exit_loop(system(cfg), T, n_kf, n_kf, cfg)
+    cfg = cfg._replace(delta_norm=_stop_rule(case, free))
+    want_T, want = tba._early_exit_loop(system(cfg), T, n_kf, n_kf, cfg)
+    expect = {"first": 1, "third": 3, "never": 6, "all_pinned": 1}[case]
+    assert len(want) == expect
+    assert (want == [0.0]) == (case == "all_pinned")
+
+    loop = tba._loop(T, cfg.max_iters)
+    sys_ = system(cfg)
+    for _ in range(cfg.max_iters):
+        tba._predicated_iteration(loop, sys_, n_kf, n_kf, cfg)
+    assert tba._loop_deltas(loop, cfg) == want
+    assert torch.equal(loop.T, want_T)
+    assert int(loop.k) == cfg.max_iters
+    assert bool(loop.done) == (expect < cfg.max_iters)
+    assert torch.equal(T, T0)            # the caller's poses are kept
+
+    # on CPU tensors the solve keeps the early-exit loop
+    res = tba.gauss_newton_rays(*args, n_kf, cfg)
+    assert res.graph == "eager" and res.iters == expect
+    assert list(res.deltas) == want and torch.equal(res.T_WC, want_T)

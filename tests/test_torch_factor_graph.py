@@ -29,6 +29,8 @@ from mast3r_slam_tpu_torch.config import (BAConfig, FactorGraphConfig,
 from mast3r_slam_tpu_torch.models import convert
 from mast3r_slam_tpu_torch.models import mast3r as tmast3r
 from mast3r_slam_tpu_torch.models import oracle as toracle
+from mast3r_slam_tpu_torch.ops import dense_matcher as tdense
+from mast3r_slam_tpu_torch.ops import matching as tmatching
 from mast3r_slam_tpu_torch.slam import factor_graph as tfg
 from mast3r_slam_tpu_torch.slam.frame import KeyframeStore as TStore
 from mast3r_slam_tpu_torch.utils import timing
@@ -489,3 +491,132 @@ def test_growth_and_solve_from_jax_state():
                             torch.full((P,), 4.0))
     assert f2.capacity == 16 and f2.n_edges == 16
     assert f2.edges_dropped == E - 16
+
+
+# -- the edge chain after the decode (``factor_graph._edge_chain``) ------------
+
+
+@torch.no_grad()
+def _add_factors_reference(bufs, params, feat, pos, ii_arr, jj_arr, consec,
+                           e0, min_match_frac, strict, Q_conf, cfg, mcfg,
+                           matcher, model_mod, query_stride):
+    """add_factors' device pipeline as one eager body, as it stood before
+    the chain after the decode was split off for its CUDA graph: decode,
+    match, gate, masked two-way append."""
+    out = model_mod.inference_symmetric(
+        params, feat.index_select(0, ii_arr), pos.index_select(0, ii_arr),
+        feat.index_select(0, jj_arr), pos.index_select(0, jj_arr), cfg)
+    b = ii_arr.shape[0]
+    X11 = torch.cat([out["Xii"], out["Xjj"]], dim=0)
+    X21 = torch.cat([out["Xji"], out["Xij"]], dim=0)
+    D11 = torch.cat([out["Dii"], out["Djj"]], dim=0)
+    D21 = torch.cat([out["Dji"], out["Dij"]], dim=0)
+    if matcher == "dense":
+        idx, valid = tdense.match_dense(
+            X11, X21, D11, D21, dist_thresh=mcfg.dist_thresh,
+            fine_radius=mcfg.radius,
+            fine_dilation=max(int(mcfg.dilation_max), 1),
+            lambda_init=mcfg.lambda_init,
+            convergence_thresh=mcfg.convergence_thresh,
+            query_stride=query_stride)
+    else:
+        kw = mcfg._asdict()
+        kw["subpixel"] = False
+        kw["max_iter"] = max(int(kw["max_iter"]), 10)
+        idx, valid = tmatching.match(X11, X21, D11, D21, **kw)
+    idx = idx.to(torch.int32)
+    hw = X11.shape[1] * X11.shape[2]
+    flat = lambda a: a.reshape(b, hw).contiguous()
+    m = {"idx_i2j": idx[:b].contiguous(), "idx_j2i": idx[b:].contiguous(),
+         "valid_match_j": valid[:b], "valid_match_i": valid[b:],
+         "Qii": flat(out["Qii"]), "Qjj": flat(out["Qjj"]),
+         "Qji": flat(out["Qji"]), "Qij": flat(out["Qij"])}
+    Qj, Qi, frac_j, frac_i = tfg._gate_edges(m, Q_conf, query_stride)
+    invalid = (torch.minimum(frac_j, frac_i) < min_match_frac) & ~consec
+    keep = ~invalid
+    if strict:
+        keep = keep & ~invalid.any()
+    ii_buf, jj_buf, idx_buf, vm_buf, Q_buf = bufs
+    E_cap = ii_buf.shape[0] - 1
+    kprefix = torch.cumsum(keep, 0) - keep.to(torch.int64)
+    rows_fwd = e0.to(torch.int64) + 2 * kprefix
+    rows_fwd = torch.where(keep & (rows_fwd + 1 < E_cap), rows_fwd,
+                           torch.full_like(rows_fwd, E_cap))
+    rows = torch.clamp(tfg._pairs(rows_fwd, rows_fwd + 1), max=E_cap)
+    i32, j32 = ii_arr.to(torch.int32), jj_arr.to(torch.int32)
+    ii_buf[rows] = tfg._pairs(i32, j32)
+    jj_buf[rows] = tfg._pairs(j32, i32)
+    idx_buf[rows] = tfg._pairs(m["idx_i2j"], m["idx_j2i"])
+    vm_buf[rows] = tfg._pairs(m["valid_match_j"][..., 0],
+                              m["valid_match_i"][..., 0])
+    Q_buf[rows] = tfg._pairs(Qj, Qi)
+    fits = torch.clamp((E_cap - e0) // 2, min=0)
+    n_new = e0 + 2 * torch.minimum(keep.sum().to(torch.int32), fits)
+    return torch.stack([frac_j, frac_i]), n_new
+
+
+def _network_graph(tp):
+    """``_port_graph`` with the real network of the test's configuration
+    (random weights) in place of the oracle, and its features."""
+    fg = _port_graph(tp, tmast3r)
+    model = fg.params = tmast3r.init_params(
+        TCFG, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    img = torch.randint(0, 256, (N_KF, H, W, 3), generator=g,
+                        dtype=torch.uint8)
+    feat, pos = tmast3r.encode(model, img, TCFG)
+    fg.frames.feat[:N_KF] = feat.to(fg.frames.feat.dtype)
+    fg.frames.pos[:N_KF] = pos
+    return fg
+
+
+# (ii, jj, min_match_frac, strict, capacity, e0, matcher, point_stride)
+CHAIN_CASES = {
+    "loop_batch": ([0, 1, 2, 0], [1, 2, 3, 3], 0.1, False, 16, 0,
+                   "iter_proj", 1),
+    "strict_rejects": ([3, 3], [0, 1], 0.9999, True, 16, 2, "dense", 4),
+    "strict_keeps": ([3, 3], [0, 1], 0.1, True, 16, 2, "dense", 4),
+    "capacity_clamped": ([0, 1, 2], [1, 2, 3], 0.0, False, 5, 2,
+                         "iter_proj", 1),
+    "dense_gated": ([2, 0, 1], [3, 3, 3], 0.999, False, 16, 4, "dense", 4),
+    "network": ([0, 1, 0], [1, 3, 2], 0.05, False, 16, 0, "iter_proj", 1),
+}
+
+
+@pytest.mark.parametrize("case", list(CHAIN_CASES))
+def test_edge_chain_equals_the_eager_body(oracle_params, case):
+    """Decode, then the factored chain (match -> gate -> append, the body
+    that the CUDA graph captures) through ``_add_factors_body`` with the
+    graph as its owner: the same edge buffers, fractions and device count
+    as the pipeline written as one eager body, with strict proposals and
+    with an append clamped at the capacity (a nonzero starting count)."""
+    ii, jj, frac, strict, cap, e0, matcher, stride = CHAIN_CASES[case]
+    _, tp = oracle_params
+    fg = (_network_graph(tp) if case == "network" else
+          _port_graph(tp, toracle, capacity=cap, matcher=matcher,
+                      point_stride=stride))
+    ii_a, jj_a = torch.tensor(ii), torch.tensor(jj)
+    consec = ii_a == jj_a - 1
+    e0 = torch.tensor(e0, dtype=torch.int32)
+    common = (fg.params, fg.frames.feat, fg.frames.pos, ii_a, jj_a, consec,
+              e0, frac, strict, float(fg.cfg.Q_conf), fg.model_cfg, fg.mcfg)
+    ref_bufs = tuple(b.clone() for b in fg._bufs)
+    want = _add_factors_reference(ref_bufs, *common, matcher, fg.model_mod,
+                                  fg.query_stride)
+    with timing.recording() as rec, timing.span("fg.add_factors") as sp:
+        got = tfg._add_factors_body(fg._bufs, *common, fg.downsample,
+                                    matcher, fg.model_mod, fg.query_stride,
+                                    owner=fg, span=sp)
+    assert [s.attrs["graph"] for s in rec.spans
+            if s.name == "fg.add_factors"] == ["eager"]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(fg._bufs, ref_bufs):
+        assert torch.equal(a, b)
+    n_new = int(got[1])
+    if case == "strict_rejects":
+        assert n_new == int(e0)
+    elif case == "capacity_clamped":
+        assert n_new == cap - 1      # one pair fits beside the two rows
+    else:
+        assert n_new > int(e0)

@@ -16,6 +16,12 @@ capture recorded; two threads on two streams; weights loaded in place after
 capture show in the next replay; a profiler started after the capture sees
 the replayed kernels. Replays equal the eager call exactly: the graph runs
 the same kernels on the same inputs.
+
+The backend's graphs, on the GPU: a bundle adjustment replayed from one
+graph of its iteration equals the early-exit loop (poses, iterations, step
+norms) at the cells' map size, stride 4 and 1, with the stop rule firing
+and not; the edge chain after the decode replayed equals its eager body
+for proposals of 1-4 edges, clamped appends and across a capacity doubling.
 """
 
 import threading
@@ -310,3 +316,169 @@ def test_profiler_started_after_capture_sees_the_replay(cuda):
                  if e.device_type() == cuda_type]
         assert sum("rope_qk" in n for n in names) == TINY.enc_depth, names
         assert len(names) > 10 * TINY.enc_depth
+
+
+# -- the backend's graphs: a BA solve, the edge chain ------------------------
+
+
+def _ba_cell_graph(dev, n_kf=100, P=384 * 512, seed=0):
+    """A chain of ``n_kf`` keyframes over one world at the cells' map size,
+    edges to the 1st, 2nd, 4th and 8th next keyframe both ways (770 edges
+    at 100 keyframes), noisy poses: the solver's arguments."""
+    from mast3r_slam_tpu_torch.lie import sim3
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    pts_w = randn(P, 3) + torch.tensor([0.0, 0.0, 4.0], device=dev)
+    T_true = [sim3.identity(device=dev)]
+    for _ in range(1, n_kf):
+        T_true.append(sim3.mul(T_true[-1], sim3.exp(0.02 * randn(7))))
+    T_true = torch.stack(T_true)
+    Xs = sim3.act(sim3.inv(T_true)[:, None], pts_w[None])
+    Cs = 1.0 + 4.0 * torch.rand((n_kf, P), generator=g, device=dev)
+    pairs = [(i, i + d) for d in (1, 2, 4, 8) for i in range(n_kf - d)]
+    ii = torch.tensor([p for a, b in pairs for p in (a, b)],
+                      dtype=torch.int32, device=dev)
+    jj = torch.tensor([p for a, b in pairs for p in (b, a)],
+                      dtype=torch.int32, device=dev)
+    E = ii.shape[0]
+    idx = torch.arange(P, dtype=torch.int32, device=dev).expand(
+        E, P).contiguous()
+    valid = torch.rand((E, P), generator=g, device=dev) > 0.1
+    Q = 5.0 * torch.rand((E, P), generator=g, device=dev)
+    mask = torch.ones((E,), device=dev)
+    noise = 0.01 * randn(n_kf, 7)
+    noise[0] = 0.0
+    return (sim3.retr(T_true, noise), Xs, Cs, ii, jj, idx, valid, Q, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rule", ["never", "third"])
+@pytest.mark.parametrize("stride", [4, 1])
+def test_ba_solve_replay_bit_equal_to_the_eager_loop(cuda, stride, rule):
+    """A solve replayed from one graph of its iteration (the stop rule on
+    the device, one read of the step norms) against the early-exit loop
+    that reads every norm: poses, iterations and norms bit for bit, at the
+    cells' map size with ~100 keyframes and ~800 edges; the rule that
+    never fires (the cells' ``delta_norm``) and one that fires at the third
+    iteration. The solve's spans: one ``ba.iter`` a replay issued, one
+    capture, one read of the norms."""
+    from mast3r_slam_tpu_torch.slam import ba
+
+    args = _ba_cell_graph(cuda)
+    n_kf = args[0].shape[0]
+    cfg = ba.BAConfig(max_iters=10, point_stride=stride)
+    system = lambda c: ba._system_of("rays", *args, n_kf, c)
+    if rule == "third":
+        free = cfg._replace(delta_norm=0.0)
+        _, d = ba._early_exit_loop(system(free), args[0], n_kf, n_kf, free)
+        assert d[2] < min(d[0], d[1])
+        cfg = cfg._replace(delta_norm=float((d[2] * min(d[0], d[1])) ** 0.5))
+    want_T, want = ba._early_exit_loop(system(cfg), args[0], n_kf, n_kf, cfg)
+    assert len(want) == (3 if rule == "third" else 10)
+    n0 = _kernels.LAUNCHES["ba_edge_terms"]
+    with timing.recording() as rec:
+        res = ba.gauss_newton_rays(*args, n_kf, cfg)
+    torch.cuda.synchronize()
+    assert res.graph == "capture"
+    assert res.iters == len(want) and list(res.deltas) == want
+    torch.testing.assert_close(res.T_WC, want_T, rtol=0, atol=0)
+    names = [s.name for s in rec.spans]
+    assert names.count("ba.iter") == cfg.max_iters
+    assert names.count("ba.capture") == 1
+    assert names.count("sync.ba_deltas") == 1
+    assert "sync.ba_step" not in names
+    assert _kernels.LAUNCHES["ba_edge_terms"] - n0 == cfg.max_iters
+
+
+def _chain_graph(dev, matcher, capacity, n_kf=5):
+    """A factor graph at the cells' map size on the oracle (the benchmark's
+    geometry): ``n_kf`` keyframes, ``matcher`` as the configuration's
+    (dense at point stride 4, tpu_fast's; iter_proj at stride 1, base's)."""
+    from mast3r_slam_tpu_torch.config import (BAConfig, FactorGraphConfig,
+                                              MatchingConfig)
+    from mast3r_slam_tpu_torch.models import oracle
+    from mast3r_slam_tpu_torch.slam import factor_graph as fgm
+    from mast3r_slam_tpu_torch.slam.frame import KeyframeStore
+
+    cfg = VITL._replace(desc_dim=24)
+    h, w = cfg.img_size
+    params = oracle.make_params(oracle.make_traj(n_kf), desc_dim=24,
+                                device=dev)
+    kfs = KeyframeStore(8, h * w, cfg.num_patches, cfg.enc_embed_dim,
+                        (h, w), device=dev)
+    feat, pos = oracle.encode_fid(params, torch.arange(n_kf, device=dev),
+                                  cfg)
+    kfs.feat[:n_kf] = feat.to(kfs.feat.dtype)
+    kfs.pos[:n_kf] = pos
+    kfs.n_size = n_kf
+    stride = 4 if matcher == "dense" else 1
+    mcfg = (MatchingConfig(radius=1, dilation_max=1) if matcher == "dense"
+            else MatchingConfig(radius=3, dilation_max=5))
+    return fgm, fgm.FactorGraph(
+        params, cfg, kfs,
+        FactorGraphConfig(edge_capacity=capacity, matcher=matcher),
+        BAConfig(point_stride=stride), mcfg, model_module=oracle)
+
+
+def _chain(fgm, fg, bufs, ii, jj, e0, owner):
+    dev = fg.device
+    ii_a = torch.tensor(ii, device=dev)
+    jj_a = torch.tensor(jj, device=dev)
+    with timing.recording() as rec, timing.span("fg.add_factors") as sp:
+        out = fgm._add_factors_body(
+            bufs, fg.params, fg.frames.feat, fg.frames.pos, ii_a, jj_a,
+            ii_a == jj_a - 1, torch.tensor(e0, dtype=torch.int32,
+                                           device=dev), 0.1, False,
+            float(fg.cfg.Q_conf), fg.model_cfg, fg.mcfg, fg.downsample,
+            fg.cfg.matcher, fg.model_mod, fg.query_stride, owner=owner,
+            span=sp)
+    (mode,) = [(s.attrs or {}).get("graph") for s in rec.spans
+               if s.name == "fg.add_factors"]
+    return out, mode
+
+
+# proposals of nb = 1-4 (retrieval k = 3 and the consecutive edge), each
+# three times (eager, capture, replay), larger and smaller in turn
+CHAIN_PROPOSALS = [([3], [4]), ([0, 3], [4, 4]), ([0, 1, 3], [4, 4, 4]),
+                   ([0, 1, 2, 3], [4, 4, 4, 4]), ([1, 3], [4, 4])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matcher", ["dense", "iter_proj"])
+def test_edge_chain_replay_bit_equal_to_its_eager_body(cuda, matcher):
+    """The edge chain after the decode (match, gate, append) replayed from
+    its graph against the same body run eagerly on a copy of the edge
+    buffers: buffers, fractions and the device count bit for bit, for
+    proposals of 1-4 edges, appends clamped at the capacity, and across a
+    capacity doubling (new buffers, new graphs)."""
+    fgm, fg = _chain_graph(cuda, matcher, capacity=16)
+    for rnd in range(2):
+        if rnd:
+            assert fg.ensure_capacity(2 * fg.capacity)
+            assert graphs.entries(fg) == {}
+        cap = fg.capacity
+        for ii, jj in CHAIN_PROPOSALS:
+            modes = []
+            for e0 in (0, 6, cap - 2 * len(ii) + 1):
+                ref = tuple(b.clone() for b in fg._bufs)
+                want, _ = _chain(fgm, fg, ref, ii, jj, e0, None)
+                got, mode = _chain(fgm, fg, fg._bufs, ii, jj, e0, fg)
+                modes.append(mode)
+                _assert_same(got, want)
+                # the rows past the capacity: the sentinel that dropped
+                # rows go to, in no set order
+                _assert_same([b[:-1] for b in fg._bufs],
+                             [b[:-1] for b in ref])
+            assert modes[-1] == "replay", modes
+        assert any(isinstance(g, graphs.Graph)
+                   for g in graphs.entries(fg).values())
+    # the factor graph's own calls: eager, capture, replay
+    fg2 = _chain_graph(cuda, matcher, capacity=64)[1]
+    with timing.recording() as rec:
+        for _ in range(3):
+            fg2.add_factors([2, 3], [4, 4], 0.1, defer=True)
+    assert [s.attrs["graph"] for s in rec.spans
+            if s.name == "fg.add_factors"] == ["eager", "capture", "replay"]
+    fg2.flush()
+    assert fg2.n_edges == int(fg2.n_edges_dev) > 0

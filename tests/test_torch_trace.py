@@ -42,7 +42,6 @@ PARENTS = {"sync.track_stats": {"track.frame"},
            "sync.frame_upload": {"track.make_frame"},
            "sync.pose_upload": {"track.make_frame"},
            "sync.edge_upload": {"fg.add_factors"},
-           "sync.bound_upload": {"fg.add_factors"},
            "sync.pair_upload": {"fg.add_tracked_edge"},
            "ba.iter": {"ba.solve"},
            "retrieval.ivf": {"retrieval.update"},
@@ -140,7 +139,7 @@ def test_span_tree(traced_run):
         assert sum(s.name == "sync.ba_step" for s in spans
                    if s.parent in iters) == len(iters)
     assert {"retrieval.update", "retrieval.ivf", "sync.retrieval",
-            "sync.frame_upload", "sync.edge_upload", "sync.bound_upload",
+            "sync.frame_upload", "sync.edge_upload",
             "backend.step", "fg.add_factors", "mast3r.encode",
             "mast3r.encoder", "mast3r.asym", "mast3r.decoder", "mast3r.head",
             "oracle", "oracle.carry", "track.match", "track.gn",
