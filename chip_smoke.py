@@ -201,32 +201,14 @@ Phases (any failure exits non-zero and prints no result line):
    must exit 0 with one pose per frame and launch ``REHEARSAL_KERNELS``
    (its ``kernel launches`` line), the loss falling; ATE and RPE printed.
 
-11. The benchmark entry points, each in a child process under
-   ``BENCH_TIMEOUT`` (``BENCH_RUNS``): ``python -m
-   mast3r_slam_tpu_torch.bench`` at its defaults (ViT-L, W = 8,
-   ``kf_every`` 4, 65 frames, a 65,536-word codebook, a warm pass and 3
-   timed passes of ``SLAMSystem.run``, the tracking-only windows), then one
-   timed pass each at W = 1, threaded and at natural cadence, and
-   ``python -m mast3r_slam_tpu_torch.bench_multichip --devices 2``, dense
-   and ``--schur``, over cuda:0 repeated. Each must exit 0 (the bench's
-   own health gate, the multichip bench's 1e-4 pose check) and launch the
-   kernels of its path (its ``kernel launches`` line); 17 keyframes at
-   ``kf_every`` 4 with none skipped, relocalizing or dropped, 2 to 32 at
-   natural cadence. Each JSON line is printed, with every pass's frames/s
-   and the TPU's record of keyframes, loop closures and edges beside. The
-   headline runs the bench's ``main`` in a ``--bench-graph`` child, which
-   writes its last pass's final BA problem; ``ba_edge_terms`` is then held
-   against its plain version (``check_graph``, a kernel record each) on that
-   graph (17 keyframes at capacity 32, its edge bucket) and on the
-   BA-scaling graph (16 keyframes, 54 edges of 4,096 valid points).
-
 The loop run's final factor graph is also put through ``ba_edge_terms``,
-its plain version and the plain version in float64, and one more tracked
-frame of the tpu_fast run counts its host syncs (PyTorch's sync debug
-mode) before one is profiled.
+its plain version and the plain version in float64, the tracker's solve
+on an oracle frame is held to ``tracker.gn_solve_plain``
+(``check_oracle_gn``), and one more tracked frame of the tpu_fast run
+counts its host syncs (PyTorch's sync debug mode).
 
-Output: per-frame, per-stage and per-keyframe backend times, peak memory,
-then a line
+Output: per-frame and per-keyframe backend times, peak memory, then a
+line
 ``{"kernels": [...]}``, the ``nvidia-smi`` name/power-limit line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -253,7 +235,7 @@ N_FAST, KF_FAST = 17, 4
 N_BASE, KF_BASE = 5, 2
 N_CALIB, KF_CALIB = 5, 2
 N_LOOP, KF_LOOP = 33, 4
-N_TRAJ = max(N_FAST + 2, N_BASE, N_LOOP)   # two more: syncs, profile
+N_TRAJ = max(N_FAST + 1, N_BASE, N_LOOP)   # one more: the syncs' frame
 KF_TELEPORT = 2
 WINDOW = 8                          # configs/tpu_fast.yaml's tracking_window
 # keyframe poses (all 8 numbers, max abs) of the window run against the
@@ -273,6 +255,15 @@ FRONTEND = {"scharr_rays", "iter_proj", "refine_matches", "gn_step",
             "rope_qk"}
 BA_KERNELS = {"gather_rows", "ba_edge_terms"}
 LOOP_KERNELS = FRONTEND | BA_KERNELS | {"coarse_correlate", "take_along"}
+
+
+def nvidia_smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0]
 
 
 def log(*a):
@@ -1509,121 +1500,6 @@ def assert_healthy(system, n_frames, kf_every, traj, label,
     return rmse, extent
 
 
-def backend_split(system):
-    """Isolated CUDA-event times (ms) of one backend step's parts on the
-    run's final graph: building one consecutive edge, the once-per-solve
-    gather, and per GN iteration the edge terms and assemble + solve."""
-    import torch
-
-    from mast3r_slam_tpu_torch.slam import ba
-    from mast3r_slam_tpu_torch.slam import factor_graph as fgmod
-
-    fg, kfs = system.factor_graph, system.keyframes
-    Kb, (ii, jj, idx, vm, Q, mask, n_kf) = fg._solve_args()
-    cfg = fg.ba_cfg
-    img_size = (kfs.h, kfs.w)
-    T, Xs, Cs = kfs.T_WC[:Kb], kfs.X[:Kb], kfs.average_confs(Kb)
-    mode, calib = "rays", None
-    if system.use_calib:
-        mode, calib = "calib", ba._calib_args(fg.K, img_size)
-        Xs = fgmod.constrain_all(Xs, fg.K, img_size)
-
-    dev, P = fg.device, idx.shape[1]
-    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
-    scratch = (z((3,), torch.int32), z((3,), torch.int32),
-               z((3, P), torch.int32), z((3, P), torch.bool),
-               z((3, P), torch.float32))       # capacity 2 + the sentinel
-    e0 = z((), torch.int32)
-    out = {"edges": int(mask.sum()), "keyframes": Kb,
-           "points_per_edge": len(range(0, P, cfg.point_stride))}
-    if system._reuse_consec:
-        row = (idx[0].long(), vm[0], Q[0])     # the tracker's match, as kept
-        out["edge_build_tracked"] = time_ms(
-            lambda: fgmod._add_tracked_edge_body(scratch, 0, 1, *row, e0))
-    else:
-        one = lambda v, dt: torch.tensor([v], dtype=dt, device=dev)
-        out["edge_build_decode_match"] = time_ms(
-            lambda: fgmod._add_factors_body(
-                scratch, fg.params, kfs.feat, kfs.pos, one(0, torch.int64),
-                one(1, torch.int64), one(True, torch.bool), e0,
-                float(fg.cfg.min_match_frac), False, float(fg.cfg.Q_conf),
-                fg.model_cfg, fg.mcfg, fg.downsample, fg.cfg.matcher,
-                fg.model_mod), reps=5)
-    prep = lambda: ba._edge_prep(Xs, Cs, ii, jj, idx, vm, cfg.point_stride)
-    out["gather_per_solve"] = time_ms(prep)
-    pre = prep()
-    weights = lambda: ba._edge_weights(pre, vm, Q, cfg, cfg.point_stride)
-    out["weights_per_solve"] = time_ms(weights)
-    wq = weights()
-    make_plan = lambda: ba._assembly_plan(ii, jj, n_kf, Kb, cfg.pin)
-    out["plan_per_solve"] = time_ms(make_plan)
-    plan = make_plan()
-    T = T.contiguous()
-    # one launch: edge terms, conjugation and the assembly
-    system = lambda: ba._edge_system(mode, T, Xs, Cs, ii, jj, idx, vm, Q,
-                                     mask, n_kf, Kb, cfg.pin, cfg, pre,
-                                     calib, wq, plan)
-    out["edge_terms_per_iter"] = time_ms(system)
-    out["edge_terms_per_iter_device"] = device_ms(system, reps=10)
-    _, _, Hd, gd = system()
-    # the assembly is inside the launch above: this is the solve alone
-    out["assemble_solve_per_iter"] = time_ms(
-        lambda: ba._solve(Hd, gd, n_kf, Kb, cfg.pin, cfg.solver))
-    return out
-
-
-def loop_split(system):
-    """Isolated times (ms) of what a keyframe with loop closures adds, on
-    the loop run's final state: the retrieval update (prep + quantize on
-    the device, the readback, the host's query of the inverted file) and
-    the dense edge build (symmetric decode + ``match_dense`` + gate +
-    append) for 1, 2 and 3 candidate edges."""
-    import torch
-
-    from mast3r_slam_tpu_torch.slam import factor_graph as fgmod
-    from mast3r_slam_tpu_torch.slam import retrieval as rmod
-
-    fg, kfs, db = system.factor_graph, system.keyframes, system.retrieval
-    last = len(kfs) - 1
-    feat = kfs.feat[last]
-    ma = max(db.cfg.ma_query, db.cfg.ma_build)
-    prep = lambda: rmod.prep_and_quantize(db.rparams, feat, db.cfg.nfeat, ma)
-    out = {"prep_quantize_device": device_ms(prep, reps=10),
-           "codebook_mib": db.rparams["centroids"].numel() * 4 / 2**20}
-    feats, words = prep()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    host = (feats.cpu(), words.cpu(), None)
-    t1 = time.perf_counter()
-    rcfg = system.config["retrieval"]
-    for _ in range(3):
-        hits = db.update(None, add_after_query=False, k=int(rcfg["k"]),
-                         min_thresh=float(rcfg["min_thresh"]),
-                         prefetched=host)
-    t2 = time.perf_counter()
-    out["readback"] = (t1 - t0) * 1e3
-    out["host_ivf_query"] = (t2 - t1) * 1e3 / 3
-    out["query_hits_for_last_keyframe"] = hits
-
-    dev, P = fg.device, kfs.X.shape[1]
-    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
-    scratch = (z((7,), torch.int32), z((7,), torch.int32),
-               z((7, P), torch.int32), z((7, P), torch.bool),
-               z((7, P), torch.float32))       # capacity 6 + the sentinel
-    e0 = z((), torch.int32)
-    for nb in (1, 2, 3):
-        ii = torch.arange(nb, device=dev)
-        jj = torch.full((nb,), last, device=dev)
-        out[f"dense_edge_build_{nb}"] = time_ms(
-            lambda: fgmod._add_factors_body(
-                scratch, fg.params, kfs.feat, kfs.pos, ii, jj,
-                z((nb,), torch.bool), e0, float(fg.cfg.min_match_frac), False,
-                float(fg.cfg.Q_conf), fg.model_cfg, fg.mcfg, fg.downsample,
-                fg.cfg.matcher, fg.model_mod, fg.query_stride), reps=5)
-    out["query_stride"] = fg.query_stride
-    return out
-
-
 def assert_teleport(system, label, expect):
     """``expect``: stat -> (comparison, value) and the end mode."""
     import operator
@@ -1650,17 +1526,18 @@ def assert_teleport(system, label, expect):
                              + f"; stats {st}")
 
 
-def stage_split(params, model_cfg, mcfg, tcfg):
-    """Isolated CUDA-event times of the frontend's stages on one tracked
-    frame (frame 1 against keyframe 0), in the order the path runs them."""
+def check_oracle_gn(params, model_cfg, mcfg, tcfg):
+    """The tracker's solve on one oracle frame (frame 1 against keyframe
+    0, through the network, the matcher and the gate as the path runs
+    them) held to ``tracker.gn_solve_plain``: equal iterations and failed
+    flags, pose within 2e-5; and where that solve waits for the device."""
     import torch
 
     from mast3r_slam_tpu_torch.lie import sim3
-    from mast3r_slam_tpu_torch.models import mast3r, oracle_timing
+    from mast3r_slam_tpu_torch.models import oracle_timing
     from mast3r_slam_tpu_torch.ops import matching
     from mast3r_slam_tpu_torch.slam import system as sysmod
     from mast3r_slam_tpu_torch.slam import tracker
-    from mast3r_slam_tpu_torch.slam.frame import fuse_pointmap
 
     h, w = model_cfg.img_size
     imgs = [torch.from_numpy(oracle_timing.make_frame_image(i, h, w))
@@ -1668,22 +1545,10 @@ def stage_split(params, model_cfg, mcfg, tcfg):
     fk, pk = oracle_timing.encode(params, imgs[0], model_cfg)
     ff, pf = oracle_timing.encode(params, imgs[1], model_cfg)
     fk = fk.to(torch.bfloat16)           # as the keyframe store keeps it
-    out = {}
-    out["encode_network"] = time_ms(
-        lambda: mast3r.encode(params["net"], imgs[1], model_cfg), reps=10)
-    out["encode"] = time_ms(
-        lambda: oracle_timing.encode(params, imgs[1], model_cfg), reps=10)
-    out["decode_heads_network"] = time_ms(
-        lambda: mast3r.inference_asymmetric(params["net"], ff, pf, fk, pk,
-                                            model_cfg), reps=10)
-    out["decode_heads"] = time_ms(
-        lambda: oracle_timing.inference_asymmetric(params, ff, pf, fk, pk,
-                                                   model_cfg), reps=10)
     X, C, D, Q = oracle_timing.inference_asymmetric(params, ff, pf, fk, pk,
                                                     model_cfg)
-    args = (X[0:1], X[1:2], D[0:1], D[1:2])
-    out["match"] = time_ms(lambda: matching.match(*args, **mcfg._asdict()))
-    idx, valid = matching.match(*args, **mcfg._asdict())
+    idx, valid = matching.match(X[0:1], X[1:2], D[0:1], D[1:2],
+                                **mcfg._asdict())
     idx, valid = idx[0], valid[0]
     n = h * w
     Xf, Qf, Cf = X[0].reshape(n, 3), Q[0].reshape(n, 1), C[0].reshape(n, 1)
@@ -1693,11 +1558,6 @@ def stage_split(params, model_cfg, mcfg, tcfg):
         tcfg.Q_conf)
     T0 = sim3.identity(device="cuda")
     res = tracker.opt_pose_ray_dist_sim3(Xf[idx], Xk, T0, Qk, valid_opt, tcfg)
-    out["gn"] = time_ms(lambda: tracker.opt_pose_ray_dist_sim3(
-        Xf[idx], Xk, T0, Qk, valid_opt, tcfg), reps=10)
-    out["gn_device"] = device_ms(lambda: tracker.opt_pose_ray_dist_sim3(
-        Xf[idx], Xk, T0, Qk, valid_opt, tcfg), reps=10)
-    out["gn_iters"] = int(res.iters)
     # the same frame through the plain loop: equal iterations and flags
     sQ = (torch.sqrt(Qk) * valid_opt)[:, 0]
     si = torch.stack([sQ / tcfg.sigma_ray] * 3 + [sQ / tcfg.sigma_dist])
@@ -1711,14 +1571,10 @@ def stage_split(params, model_cfg, mcfg, tcfg):
                              f"iterations / plain {int(ref.iters)}, failed "
                              f"{bool(res.failed)} / {bool(ref.failed)}, pose "
                              f"err {err}")
-    out["gn_pose_err_vs_plain"] = err
-    out["gn_host_syncs_at"] = host_syncs_of(
-        lambda: tracker.opt_pose_ray_dist_sim3(Xf[idx], Xk, T0, Qk,
-                                               valid_opt, tcfg))
-    N = torch.ones((), dtype=torch.int32, device="cuda")
-    out["fusion"] = time_ms(lambda: fuse_pointmap(
-        "weighted_pointmap", Xk, Cf, N, sim3.act(res.T_CkCf, Xk), Cf))
-    return out
+    return {"gn_iters": int(res.iters), "gn_pose_err_vs_plain": err,
+            "gn_host_syncs_at": host_syncs_of(
+                lambda: tracker.opt_pose_ray_dist_sim3(Xf[idx], Xk, T0, Qk,
+                                                       valid_opt, tcfg))}
 
 
 def host_syncs_of(fn):
@@ -1771,33 +1627,6 @@ def host_syncs(system, frame_id, image):
     done = host_syncs_of(lambda: system.process_frame(box["frame"]))
     return {"make_frame": len(made), "make_frame_at": made,
             "process_frame": len(done), "process_frame_at": done}
-
-
-def device_busy(system, frame_id, image):
-    """Profile one more tracked frame: device time summed over its kernels
-    against its wall time, and the heaviest kernels."""
-    import collections
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        system.process_frame(system.make_frame(frame_id, image))
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    # the kernels themselves (operator rows would count their time twice)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    per_name = collections.Counter()
-    for e in kernels:
-        per_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
-    return {"profiled_wall_ms": wall,
-            "device_busy_ms": sum(per_name.values()),
-            "kernels_run": len(kernels),
-            "top_kernels_ms": dict(per_name.most_common(8))}
 
 
 def write_frames(directory, n_frames, h, w):
@@ -2867,8 +2696,9 @@ def sharded_graph_phase(g, run_launches):
            "solves_from_moved_poses": run_solves(
                "loop_graph", solves, dense.T_WC, run_launches)}
     syncs = host_syncs_of(solves["edge_sharded_2"])
+    # the edge lists' read, one plan upload a shard, the step norms' read
     out["host_syncs_edge_sharded_2"] = {
-        "count": len(syncs), "expected": 1 + dense.iters, "at": syncs}
+        "count": len(syncs), "expected": 4, "at": syncs}
     log("sharded BA on the loop graph: " + json.dumps(out))
     return out
 
@@ -4221,156 +4051,6 @@ def rehearsal_phase(run_launches):
         f"{wall:.2f} s, " + json.dumps(m))
 
 
-BENCH_TIMEOUT = 400      # seconds each benchmark child may take
-# the benchmark entry points of phase 11: label -> (module, arguments, the
-# environment added, the kernels the run must launch)
-BENCH = "mast3r_slam_tpu_torch.bench"
-BENCH_MULTI = "mast3r_slam_tpu_torch.bench_multichip"
-ONE_PASS = {"BENCH_E2E_REPEATS": "1", "BENCH_SKIP_TRACKING": "1"}
-BENCH_RUNS = {
-    "bench_w8": (BENCH, [], {}, LOOP_KERNELS),
-    "bench_w1": (BENCH, [], dict(ONE_PASS, BENCH_WINDOW="1"), LOOP_KERNELS),
-    "bench_threaded": (BENCH, [], dict(ONE_PASS, BENCH_E2E_THREADED="1"),
-                       LOOP_KERNELS),
-    "bench_natural": (BENCH, [], dict(ONE_PASS, BENCH_KF_EVERY="0"),
-                      LOOP_KERNELS),
-    "ba_scaling": (BENCH_MULTI, ["--devices", "2"], {}, BA_KERNELS),
-    "ba_scaling_schur": (BENCH_MULTI, ["--devices", "2", "--schur"], {},
-                         BA_KERNELS),
-}
-# the TPU's record of the same workloads (BENCH_r05.json,
-# BENCH_NATURAL_r05.json): keyframes, loop closures, edges. The retrieval
-# head here comes from a torch generator, not JAX's PRNGKey(1), so the loop
-# closures and edges may differ; they are printed beside these
-TPU_RECORD = {"bench_w8": (17, 29, 90), "bench_natural": (14, 27, 54)}
-
-
-def run_entry_point(label, cmd, env, cwd):
-    """``cmd`` (after this Python) with ``env`` added, under
-    ``BENCH_TIMEOUT``: (the JSON of its last stdout line, its ``kernel
-    launches`` line from stderr, its stderr, wall s). A nonzero exit fails."""
-    import os
-    import re
-
-    t0 = time.perf_counter()
-    try:
-        p = subprocess.run([sys.executable, *cmd],
-                           env=dict(os.environ, **env), cwd=cwd,
-                           capture_output=True, text=True,
-                           timeout=BENCH_TIMEOUT)
-    except subprocess.TimeoutExpired as e:
-        raise AssertionError(f"{label}: no exit within {BENCH_TIMEOUT} s: "
-                             f"{(e.stderr or '')[-4000:]}") from None
-    wall = time.perf_counter() - t0
-    if p.returncode != 0:
-        raise AssertionError(f"{label} (rc {p.returncode}): "
-                             f"{p.stderr[-4000:]}")
-    launches = re.search(r"^kernel launches: (\{.*\})$", p.stderr, re.M)
-    if launches is None:
-        raise AssertionError(f"{label}: no kernel launches line: "
-                             f"{p.stderr[-4000:]}")
-    return (json.loads(p.stdout.strip().splitlines()[-1]),
-            json.loads(launches.group(1)), p.stderr, wall)
-
-
-def bench_graph_child(out_path, *argv):
-    """``python -m mast3r_slam_tpu_torch.bench <argv>`` in this process
-    (``-m`` runs the module's ``main``: the same stdout and stderr), its
-    ``bench_e2e`` wrapped to keep the last timed pass's system, whose final
-    BA problem (``graph_args``) is written to ``out_path``."""
-    import torch
-
-    from mast3r_slam_tpu_torch import bench
-
-    kept, run = [], bench.bench_e2e
-
-    def keep(*a, **k):
-        out = run(*a, **k)
-        kept.append(out[1])
-        return out
-
-    bench.bench_e2e = keep
-    bench.main(list(argv))
-    torch.save(graph_args(kept[-1]), out_path)
-    return 0
-
-
-def bench_phase(rec, run_launches):
-    """Phase 11: the benchmark entry points as a user runs them, each in a
-    child process (it loads the kernels this process built):
-    ``python -m mast3r_slam_tpu_torch.bench`` at its defaults (W = 8,
-    ``kf_every`` 4, 65 frames, 3 timed passes, tracking-only on; its
-    ``main`` through ``bench_graph_child``, which writes the last pass's
-    final BA problem), at W = 1, threaded and at natural cadence (one timed
-    pass each, no tracking-only run), then ``python -m
-    mast3r_slam_tpu_torch.bench_multichip --devices 2``, dense and
-    ``--schur``, over cuda:0 repeated (it exits nonzero when the 2-shard
-    poses are not within 1e-4 of one device's). Each must exit 0 and launch
-    the kernels of its path; the fixed-cadence runs must keep 17 keyframes
-    with none skipped, relocalizing or dropped, the natural one 2 to 32
-    keyframes. Each JSON line is printed on its own line. Then
-    ``ba_edge_terms`` is held against its plain version (``check_graph``,
-    a kernel record each) at the two new shapes these runs give it: the
-    headline's final graph (17 keyframes at capacity 32, its edge bucket)
-    and the BA-scaling graph (``bench_multichip.make_graph(16, 4096)``,
-    every point valid)."""
-    import os
-    import tempfile
-
-    import torch
-
-    from mast3r_slam_tpu_torch import bench_multichip
-    from mast3r_slam_tpu_torch.slam import ba
-
-    cwd = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as tmp:
-        headline_graph = os.path.join(tmp, "bench_w8_graph.pt")
-        for label, (module, argv, env, must_launch) in BENCH_RUNS.items():
-            cmd = (["-m", module, *argv] if label != "bench_w8" else
-                   [os.path.join(cwd, "chip_smoke.py"), "--bench-graph",
-                    headline_graph, *argv])
-            out, launches, err, wall = run_entry_point(label, cmd, env, cwd)
-            run_launches[label] = launches
-            missing = sorted(k for k in must_launch
-                             if launches.get(k, 0) <= 0)
-            problems = [f"never launched {missing}"] if missing else []
-            if module == BENCH:
-                kf = out["keyframes"]
-                natural = env.get("BENCH_KF_EVERY") == "0"
-                if not (2 <= kf <= 32 if natural else kf == 17):
-                    problems.append(f"keyframes {kf}")
-                if (out["skipped"] or out["reloc_failed"]
-                        or out["edges_dropped"] or out["edges"] <= 0):
-                    problems.append("skipped, relocalizing, dropped or no "
-                                    "edge")
-                if not out["value"] > 0 or out["gpu"] is None:
-                    problems.append("no frames/s or no GPU line")
-            elif out["platform"] != "gpu" or not out["kf_per_s_ndev"] > 0:
-                problems.append("not on the GPU or no keyframes/s")
-            if problems:
-                raise AssertionError(f"{label}: {'; '.join(problems)}: {out}")
-            log(json.dumps(out))
-            passes = [ln for ln in err.splitlines()
-                      if ln.startswith(("tracking-only", "warm pass",
-                                        "timed pass", "median", "1 device"))]
-            record = TPU_RECORD.get(label)
-            log(f"{label}: {module} {' '.join(argv)} {env}: exit 0 in "
-                f"{wall:.2f} s; " + " | ".join(passes)
-                + (f"; keyframes / loop closures / edges {out['keyframes']} "
-                   f"/ {out['loop_closures']} / {out['edges']} (the TPU's "
-                   f"record: {' / '.join(map(str, record))})" if record
-                   else "")
-                + f"; launches { {k: v for k, v in launches.items() if v} }")
-        graph = torch.load(headline_graph, map_location="cuda",
-                           weights_only=False)
-    log("ba_edge_terms on the headline's final graph: " + json.dumps(
-        check_graph(graph, rec, "bench_w8's final graph")))
-    cfg = ba.BAConfig(max_iters=10, point_chunk=4096)
-    multi = bench_multichip.make_graph(16, 4096, torch.device("cuda"))
-    log("ba_edge_terms on the BA-scaling graph: " + json.dumps(check_graph(
-        (*multi, 16, 16, cfg), rec, "bench_multichip's graph (16, 4096)")))
-
-
 def main():
     import torch
 
@@ -4378,7 +4058,6 @@ def main():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     from mast3r_slam_tpu_torch import native
-    from mast3r_slam_tpu_torch.bench import nvidia_smi_line
     from mast3r_slam_tpu_torch.config import base_config, tpu_fast_config
     from mast3r_slam_tpu_torch.models import mast3r, oracle, oracle_timing
     from mast3r_slam_tpu_torch.ops import _kernels
@@ -4454,13 +4133,11 @@ def main():
         log(f"{label} backend per keyframe (wall ms, GN iterations, "
             f"keyframes, edges): "
             f"{[(round(t, 3), it, k, e) for t, it, k, e in backend]}")
-        log(f"{label} backend split (isolated, ms): "
-            + json.dumps(backend_split(system)))
-        return system, med, launches
+        return system, launches
 
     torch.cuda.reset_peak_memory_stats()
-    system, med, launches = drive("tpu_fast", tpu_fast_config(), N_FAST,
-                                  KF_FAST, FRONTEND | BA_KERNELS)
+    system, _ = drive("tpu_fast", tpu_fast_config(), N_FAST, KF_FAST,
+                      FRONTEND | BA_KERNELS)
     k = len(system.keyframes)
     fast_ref = {"stats": dict(system.stats),
                 "ids": system.keyframes.dataset_idx[:k].cpu().numpy(),
@@ -4469,27 +4146,22 @@ def main():
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
         f"(edge buffers at capacity {EDGE_CAPACITY}: "
         f"{(EDGE_CAPACITY + 1) * h * w * 9 / 2**20:.0f} MiB)")
-    split = stage_split(params, model_cfg, system.tracker.mcfg,
-                        system.tracker.tcfg)
-    log("stage split (isolated, ms): " + json.dumps(split))
+    log("the tracker's solve on an oracle frame: " + json.dumps(
+        check_oracle_gn(params, model_cfg, system.tracker.mcfg,
+                        system.tracker.tcfg)))
     syncs = host_syncs(system, N_FAST, oracle_timing.make_frame_image(
         N_FAST, h, w))
     log("host syncs of one tracked frame: " + json.dumps(syncs))
-    busy = device_busy(system, N_FAST + 1, oracle_timing.make_frame_image(
-        N_FAST + 1, h, w))
-    busy["device_idle_share"] = 1.0 - busy["device_busy_ms"] / med
-    log("one tracked frame under the profiler: " + json.dumps(busy))
 
     # the base presets: radius 3, dilation 5, 10 LM iterations; edges by
     # symmetric decode + match, bundle adjustment on every point
     # every kernel but the loop run's and the separable search's
     every = set(_kernels.SOURCES) - {"coarse_correlate", "refine_separable",
                                      "rope_qk_bwd"}
-    sys_b, _, launches_b = drive("base", base_config(), N_BASE, KF_BASE,
-                                 every)
-    split_b = stage_split(params, model_cfg, sys_b.tracker.mcfg,
-                          sys_b.tracker.tcfg)
-    log("stage split base (isolated, ms): " + json.dumps(split_b))
+    sys_b, _ = drive("base", base_config(), N_BASE, KF_BASE, every)
+    log("the tracker's solve on an oracle frame, base: " + json.dumps(
+        check_oracle_gn(params, model_cfg, sys_b.tracker.mcfg,
+                        sys_b.tracker.tcfg)))
 
     # calibrated base run: pixel + log-depth residuals, the oracle's pinhole
     f = 0.8 * w
@@ -4503,10 +4175,9 @@ def main():
         g, backbone_dim=model_cfg.enc_embed_dim, proj_dim=1024,
         codebook_size=CODEBOOK, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    sys_l, _, _ = drive("loop", tpu_fast_config(), N_LOOP, KF_LOOP,
+    sys_l, _ = drive("loop", tpu_fast_config(), N_LOOP, KF_LOOP,
                         LOOP_KERNELS, retrieval_params=rparams,
                         edge_capacity=EDGE_CAPACITY_LOOP)
-    log("loop split (isolated, ms): " + json.dumps(loop_split(sys_l)))
     log("ba_edge_terms on the loop run's final graph: "
         + json.dumps(check_graph(graph_args(sys_l))))
     scene_cost("the loop run", sys_l)
@@ -4584,13 +4255,13 @@ def main():
     # and the CLI's renders
     sep_cfg = base_config()
     sep_cfg["matching"] = dict(sep_cfg["matching"], separable_refine=True)
-    _, _, launches_s = drive("separable", sep_cfg, N_BASE, KF_BASE,
+    _, launches_s = drive("separable", sep_cfg, N_BASE, KF_BASE,
                              (every - {"refine_matches"})
                              | {"refine_separable"})
     if launches_s["refine_matches"]:
         raise AssertionError(f"separable run launched the full search: "
                              f"{launches_s}")
-    sys_s, _, _ = drive("steps", base_config(), N_BASE, KF_BASE, every,
+    sys_s, _ = drive("steps", base_config(), N_BASE, KF_BASE, every,
                         fused=False)
     k = len(sys_b.keyframes)
     dT = float((sys_s.keyframes.T_WC[:k] - sys_b.keyframes.T_WC[:k]).abs()
@@ -4663,14 +4334,6 @@ def main():
     rehearsal_phase(run_launches)
     log(f"phase 10 (training): {time.perf_counter() - t10:.2f} s")
 
-    # phase 11: the benchmark entry points, each in a child process (this
-    # process's cached device memory is handed back first)
-    torch.cuda.empty_cache()
-    t11 = time.perf_counter()
-    bench_phase(functools.partial(kernel_record, records), run_launches)
-    log(f"phase 11 (the benchmark entry points): "
-        f"{time.perf_counter() - t11:.2f} s")
-
     for r in records:
         r["launches_by_run"] = {label: ln[r["name"]]
                                 for label, ln in run_launches.items()}
@@ -4688,6 +4351,4 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase9-child"]:
         sys.exit(phase9_child(*sys.argv[2:]))
-    if sys.argv[1:2] == ["--bench-graph"]:
-        sys.exit(bench_graph_child(*sys.argv[2:]))
     sys.exit(main())

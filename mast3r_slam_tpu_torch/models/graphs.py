@@ -12,7 +12,9 @@ this module:
   append, ``slam/factor_graph.py``), through ``run``;
 - a bundle adjustment's Gauss-Newton iteration (``slam/ba.py``), through
   ``capture``: one graph a solve, replayed for each iteration and dropped
-  when the solve returns.
+  when the solve returns. Its first call captures at once; before a
+  thread's first capture on a device, ``capture`` makes the thread's
+  cuBLAS and cuSOLVER handles (``_prepare``).
 
 Which path a call takes is decided from what the call shows:
 
@@ -128,6 +130,7 @@ _arenas = weakref.WeakKeyDictionary()   # owner -> {key: [tensor]}
 _streams: dict = {}              # (device index, stream id) -> _Stream
 
 SEEN = None                      # a key's state after its eager call
+_prepared = threading.local()    # .devices: where this thread has handles
 
 
 def eager(t) -> bool:
@@ -198,11 +201,32 @@ def capture(fn, device, capture_span) -> Graph:
     """``fn()`` captured into the pool of ``device``'s current stream,
     inside the span ``capture_span``: a graph with no inputs of its own
     (it reads and writes the tensors ``fn`` holds), for the caller to
-    ``replay`` on that stream and drop when done."""
+    ``replay`` on that stream and drop when done. ``fn`` is never run
+    eagerly: before a thread's first capture on ``device``, ``_prepare``
+    makes what the capture cannot."""
     stream = torch.cuda.current_stream(device)
     shared = _shared(device, stream)
     with shared.lock, timing.span(capture_span):
+        _prepare(device, shared.side)
         return _capture(fn, [], shared, stream)
+
+
+def _prepare(device, side):
+    """Once per thread and device: the thread's cuBLAS and cuSOLVER
+    handles, made by a matrix product, a batched one, a Cholesky
+    factorization and its solve on ``side``, the capture's stream. Without
+    them a thread's first capture of a solve is invalidated. The hand
+    kernels need nothing here: a kernel's module loads at its first
+    launch, inside a capture too."""
+    made = getattr(_prepared, "devices", set())
+    if device.index in made:
+        return
+    with torch.cuda.stream(side):
+        a = torch.eye(2, device=device)
+        L, _ = torch.linalg.cholesky_ex(a)
+        torch.cholesky_solve(a @ a, L)
+        torch.bmm(a[None], a[None])
+    _prepared.devices = made | {device.index}
 
 
 def _mark(span, mode):

@@ -12,8 +12,9 @@ across processes, all-reduced (``mesh.reduce_partials``: the JAX package's
 ``psum``, in a fixed order), ``ba._solve`` runs there, and the new poses
 are replicated to every shard for the next iteration. Every rank then
 holds the same system and runs the same solve, so the ranks' poses are
-bit-identical and their stop rule, the dense loop's with its one host read
-per iteration, stops them at the same iteration.
+bit-identical; the loop is the dense solver's (``ba.gn_loop``), called
+eagerly, so every rank issues ``max_iters`` iterations and their
+collectives.
 
 The keyframe-sharded variant (``shard_keyframe_store``,
 ``prep_edges_kf_sharded``, ``gauss_newton_rays_dist_pre``) keeps each
@@ -101,18 +102,16 @@ def _system(mode, shards, T, n_kf: int, K_cap: int, cfg: ba.BAConfig,
     return reduce_partials(mesh, parts)
 
 
-def _gn_loop(mode, shards, T_WCs, n_kf: int, cfg: ba.BAConfig, calib,
-             mesh: Mesh) -> ba.BAResult:
+def _summed_solve(mode, shards, T_WCs, n_kf: int, cfg: ba.BAConfig,
+                  calib, mesh: Mesh) -> ba.BAResult:
+    """``ba.gn_loop`` on the summed shards' system, solved by
+    ``ba._solve`` on the first local device."""
     K_cap = T_WCs.shape[0]
-    T = T_WCs.to(shards[0].device).contiguous()
-    deltas = []
-    while len(deltas) < cfg.max_iters:
-        with timing.span("ba.iter"):
-            Hd, gd = _system(mode, shards, T, n_kf, K_cap, cfg, calib, mesh)
-            T, done = ba._step(T, Hd, gd, n_kf, K_cap, cfg, deltas)
-        if done:
-            break
-    return ba.BAResult(T, len(deltas), tuple(deltas))
+
+    def step(T):
+        Hd, gd = _system(mode, shards, T, n_kf, K_cap, cfg, calib, mesh)
+        return ba._solve(Hd, gd, n_kf, K_cap, cfg.pin, cfg.solver)
+    return ba.gn_loop(step, T_WCs.to(shards[0].device).contiguous(), cfg)
 
 
 def _check_edges(mesh: Mesh, ii):
@@ -142,7 +141,7 @@ def gauss_newton_dist(T_WCs, Xs, Cs, K_mat, ii, jj, idx_ii2jj, valid_match,
     shards = replicated_shards(mesh, host_edges(ii, jj), Xs, Cs, ii, jj,
                                idx_ii2jj, valid_match, Q, edge_mask, n_kf,
                                T_WCs.shape[0], cfg)
-    return _gn_loop(residual, shards, T_WCs, n_kf, cfg, calib, mesh)
+    return _summed_solve(residual, shards, T_WCs, n_kf, cfg, calib, mesh)
 
 
 def replicated_shards(mesh: Mesh, ij, Xs, Cs, ii, jj, idx_ii2jj,
@@ -329,4 +328,4 @@ def gauss_newton_rays_dist_pre(T_WCs, pre, ii, jj, valid_match, Q, edge_mask,
     n_kf = int(n_kf)
     shards = _shards(mesh, host_edges(ii, jj), ii, jj, valid_match, Q,
                      edge_mask, pre, n_kf, T_WCs.shape[0], cfg)
-    return _gn_loop("rays", shards, T_WCs, n_kf, cfg, None, mesh)
+    return _summed_solve("rays", shards, T_WCs, n_kf, cfg, None, mesh)

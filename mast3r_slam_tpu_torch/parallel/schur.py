@@ -27,7 +27,8 @@ scatters them into its (I_cap + S_cap) local slots in edge order, as
 all-reduce across processes): the reduced systems (summed), the
 back-substituted interior steps (summed: each shard's interior rows are its
 own) and the shards' success flags (min). Every rank then solves the same
-separator system and retracts the same poses.
+separator system and retracts the same poses. The iteration runs in the
+dense solver's loop (``ba.gn_loop``), eagerly.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ import torch
 
 from .._device import exact_fp32
 from ..slam import ba
-from ..utils import timing
 from .dist_ba import _check_edges, host_edges, replicated_shards
 from .mesh import Mesh, reduce_partials
 
@@ -321,55 +321,46 @@ def gauss_newton_schur(T_WCs, Xs, Cs, K_mat, owner, int_slot, sep_slot, ii,
     sep_idx = up(np.maximum(part.sep_slot, 0).astype(np.int64))
     free = up(kf_act)
 
-    T = T_WCs.to(d0).contiguous()
-    deltas = []
-    while len(deltas) < cfg.max_iters:
-        with timing.span("ba.iter"):
-            local, reduced = [], []
-            for sh, b in zip(shards, blocks):
-                H, g, _, _ = ba._edge_system(
-                    residual, T.to(sh.device), None, None, sh.ii, sh.jj,
-                    None, sh.valid_match, sh.Q, sh.edge_mask, n_kf, K_cap,
-                    cfg.pin, cfg, sh.pre, calib, sh.wq, sh.plan)
-                Hd, gd = _local_system(H, g, b, L)
-                H_IS, H_SS = Hd[:nI, nI:], Hd[nI:, nI:]
-                Hs_II, g_I, dI = _equilibrate(Hd[:nI, :nI], gd[:nI],
-                                              b.free_I)
-                L_II, info = torch.linalg.cholesky_ex(Hs_II)
-                B = H_IS * dI[:, None]                   # D^-1/2 H_IS
-                S_p = H_SS - B.T @ torch.cholesky_solve(B, L_II)
-                g_p = gd[nI:] - B.T @ _solve_vec(L_II, g_I * dI)
-                local.append((L_II, info, dI, g_I, H_IS))
-                reduced.append((S_p, g_p))
-            S_red, g_red = reduce_partials(mesh, reduced)
-            # the separator system, on the first device
-            Hs_S, g_red, dS = _equilibrate(S_red, g_red, free_S)
-            L_SS, info_S = torch.linalg.cholesky_ex(Hs_S)
-            x_S = dS * _solve_vec(L_SS, g_red * dS)
-            ok_S = (info_S == 0) & torch.all(torch.isfinite(x_S))
-            dx_S = torch.where(sep_act[:, None],
-                               x_S.reshape(S_cap, D)[sep_idx],
-                               torch.zeros((), dtype=x_S.dtype, device=d0))
-            # back-substitution on each shard; interiors are disjoint by
-            # shard, so each row of the sums below has one nonzero term
-            steps, oks = [], []
-            for sh, b, (L_II, info, dI, g_I, H_IS) in zip(shards, blocks,
-                                                           local):
-                x_I = dI * _solve_vec(L_II, dI * (g_I - H_IS @ x_S.to(
-                    sh.device)))
-                steps.append((torch.where(b.mine[:, None],
-                                          x_I.reshape(-1, D)[b.int_slot],
-                                          torch.zeros((), dtype=x_I.dtype,
-                                                      device=sh.device)),))
-                oks.append(((info == 0) & torch.all(torch.isfinite(x_I)),))
-            (dx_I,) = reduce_partials(mesh, steps)
-            (ok,) = reduce_partials(mesh, oks, op="min")
-            dx = dx_S + dx_I
-            dx = torch.where(ok & ok_S, -dx, torch.zeros_like(dx))
-            T, done = ba._retract(T, dx, free, cfg, deltas)
-        if done:
-            break
-    return ba.BAResult(T, len(deltas), tuple(deltas))
+    def step(T):
+        local, reduced = [], []
+        for sh, b in zip(shards, blocks):
+            H, g, _, _ = ba._edge_system(
+                residual, T.to(sh.device), None, None, sh.ii, sh.jj, None,
+                sh.valid_match, sh.Q, sh.edge_mask, n_kf, K_cap, cfg.pin,
+                cfg, sh.pre, calib, sh.wq, sh.plan)
+            Hd, gd = _local_system(H, g, b, L)
+            H_IS, H_SS = Hd[:nI, nI:], Hd[nI:, nI:]
+            Hs_II, g_I, dI = _equilibrate(Hd[:nI, :nI], gd[:nI], b.free_I)
+            L_II, info = torch.linalg.cholesky_ex(Hs_II)
+            B = H_IS * dI[:, None]                       # D^-1/2 H_IS
+            S_p = H_SS - B.T @ torch.cholesky_solve(B, L_II)
+            g_p = gd[nI:] - B.T @ _solve_vec(L_II, g_I * dI)
+            local.append((L_II, info, dI, g_I, H_IS))
+            reduced.append((S_p, g_p))
+        S_red, g_red = reduce_partials(mesh, reduced)
+        # the separator system, on the first device
+        Hs_S, g_red, dS = _equilibrate(S_red, g_red, free_S)
+        L_SS, info_S = torch.linalg.cholesky_ex(Hs_S)
+        x_S = dS * _solve_vec(L_SS, g_red * dS)
+        ok_S = (info_S == 0) & torch.all(torch.isfinite(x_S))
+        dx_S = torch.where(sep_act[:, None], x_S.reshape(S_cap, D)[sep_idx],
+                           torch.zeros((), dtype=x_S.dtype, device=d0))
+        # back-substitution on each shard; interiors are disjoint by shard,
+        # so each row of the sums below has one nonzero term
+        steps, oks = [], []
+        for sh, b, (L_II, info, dI, g_I, H_IS) in zip(shards, blocks, local):
+            x_I = dI * _solve_vec(L_II, dI * (g_I - H_IS @ x_S.to(
+                sh.device)))
+            steps.append((torch.where(b.mine[:, None],
+                                      x_I.reshape(-1, D)[b.int_slot],
+                                      torch.zeros((), dtype=x_I.dtype,
+                                                  device=sh.device)),))
+            oks.append(((info == 0) & torch.all(torch.isfinite(x_I)),))
+        (dx_I,) = reduce_partials(mesh, steps)
+        (ok,) = reduce_partials(mesh, oks, op="min")
+        dx = dx_S + dx_I
+        return torch.where(ok & ok_S, -dx, torch.zeros_like(dx)), free
+    return ba.gn_loop(step, T_WCs.to(d0).contiguous(), cfg)
 
 
 def gauss_newton_rays_schur(T_WCs, Xs, Cs, owner, int_slot, sep_slot, ii, jj,

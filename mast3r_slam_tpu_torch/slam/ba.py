@@ -20,16 +20,17 @@ system. Per GN iteration:
 * ``_solve``: Jacobi equilibration and an fp32 Cholesky on the device (or
   fp64 on the host), as the JAX package computes it outside any kernel.
 
-The plan reads the edge lists once per solve. The GN loop
-(``_early_exit_loop``) reads the step norm to the host every iteration
-and stops early on it. On CUDA with the fp32 solver, once the thread has
-run that loop there, a solve instead runs predicated on the device
-(``_replayed_loop``): one CUDA graph of an iteration at the solve's own
-shapes (``models/graphs.py``), captured before the plan's read and
-replayed ``max_iters`` times, the stop rule a device flag, the step norms
-read once at the end: the same poses, iterations and norms, bit for bit.
-The CPU, grad, the ``fp64_host`` solver and the sharded solvers
-(``parallel/dist_ba.py``, ``parallel/schur.py``) keep the early-exit loop.
+The plan reads the edge lists once per solve. Every solver, this dense
+one and the sharded ones (``parallel/dist_ba.py``, ``parallel/schur.py``),
+runs the one Gauss-Newton loop ``gn_loop`` on its own T -> (dx, free):
+``max_iters`` iterations predicated on the device (``_predicated_iteration``:
+the stop rule a device flag, later iterations leave the poses as they are),
+the step norms read once at the end. On CUDA under no_grad with the fp32
+solver the dense solve captures one CUDA graph of the iteration at its own
+shapes (``models/graphs.py``), before the plan's read, and replays it
+``max_iters`` times; the CPU, grad, the ``fp64_host`` solver and the
+sharded solvers call the iteration eagerly. Both give the same poses,
+iterations and norms, bit for bit.
 ``ba_edge_terms`` (per-edge S0, g0 for given Tij) stays callable; on CUDA
 tensors it runs the same kernel without the conjugation and the
 assembly. The JAX package's point chunks, component-major stacks
@@ -39,7 +40,6 @@ not carried over.
 
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -65,8 +65,8 @@ _BLOCKS_PER_SM = 3        # the kernel's blocks over all edges, per SM
 
 class BAResult(NamedTuple):
     T_WC: torch.Tensor   # (K, 8) updated poses
-    iters: int           # GN iterations executed
-    deltas: tuple = ()   # each iteration's step norm, as the host read it
+    iters: int           # GN iterations run, up to the stop rule's
+    deltas: tuple = ()   # each of those iterations' step norm
     graph: str = "eager"  # "capture": one CUDA graph replayed the solve
 
 
@@ -624,18 +624,37 @@ def _edge_system(mode, T_WCs, Xs, Cs, ii, jj, idx, valid_match, Q,
 
 
 def _gauss_newton(mode, T_WCs, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
-                  edge_mask, n_kf, cfg: BAConfig, calib=None) -> BAResult:
+                  edge_mask, n_kf, cfg: BAConfig, calib=None,
+                  replay=None) -> BAResult:
+    """The dense solve: ``_system_of`` and ``_solve`` through ``gn_loop``,
+    replayed from a graph of its iteration (``replay``; by default on CUDA
+    under no_grad with the fp32 solver). The capture needs the addresses of
+    the solve's tensors, not their values, so it is made before the plan's
+    read of the edge lists: the host captures while the device still runs
+    the work queued before the solve (the new edges' decode and match)."""
     exact_fp32()
     n_kf = int(n_kf)
     T = T_WCs.contiguous()
-    if not _replays(T, cfg):
-        system = _system_of(mode, T, Xs, Cs, ii, jj, idx_ii2jj, valid_match,
-                            Q, edge_mask, n_kf, cfg, calib)
-        T, deltas = _early_exit_loop(system, T, n_kf, T.shape[0], cfg)
-        return BAResult(T, len(deltas), tuple(deltas))
-    T, deltas = _replayed_loop(mode, T, Xs, Cs, ii, jj, idx_ii2jj,
-                               valid_match, Q, edge_mask, n_kf, cfg, calib)
-    return BAResult(T, len(deltas), tuple(deltas), "capture")
+    K_cap, E = T.shape[0], ii.shape[0]
+    if replay is None:
+        replay = (not graphs.eager(T) and cfg.solver == "fp32"
+                  and cfg.max_iters >= 1)
+    plan = fill = None
+    if replay:
+        buf = _plan_buffer(E, K_cap, T.device)
+        plan = _plan_views(buf, E)
+        _counters(T.device, E)       # grown outside the capture
+
+        def fill():
+            with timing.span("ba.plan"):
+                _assembly_plan(ii, jj, n_kf, K_cap, cfg.pin, out=buf)
+    system = _system_of(mode, T, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
+                        edge_mask, n_kf, cfg, calib, plan)
+
+    def step(T):
+        _, _, Hd, gd = system(T)
+        return _solve(Hd, gd, n_kf, K_cap, cfg.pin, cfg.solver)
+    return gn_loop(step, T, cfg, replay, fill)
 
 
 def _system_of(mode, T_WCs, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
@@ -661,47 +680,31 @@ def _system_of(mode, T_WCs, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
     return system
 
 
-def _early_exit_loop(system, T, n_kf: int, K_cap: int, cfg: BAConfig):
-    """Up to ``cfg.max_iters`` iterations, each ending in its host read of
-    the step norm: (T, the step norms read)."""
-    deltas = []
-    while len(deltas) < cfg.max_iters:
-        with timing.span("ba.iter"):
-            _, _, Hd, gd = system(T)
-            T, done = _step(T, Hd, gd, n_kf, K_cap, cfg, deltas)
-        if done:
-            break
-    if T.is_cuda and cfg.solver == "fp32" and deltas:
-        _warm.devices = getattr(_warm, "devices", set()) | {T.device}
-    return T, deltas
-
-
 class Loop(NamedTuple):
     """The Gauss-Newton loop's state on the poses' device (``_loop``),
     updated in place by ``_predicated_iteration`` with no host read."""
     T: torch.Tensor       # (K_cap, 8) poses
     done: torch.Tensor    # () bool: the stop rule has fired
     k: torch.Tensor       # () int64: iterations issued, the next slot
-    deltas: torch.Tensor  # (max_iters,) fp32 step norms, slot k by k
+    deltas: torch.Tensor  # (max_iters,) step norms, slot k by k
 
 
 def _loop(T, max_iters: int) -> Loop:
     z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=T.device)
     return Loop(T.clone(), z((), torch.bool), z((), torch.int64),
-                z((max_iters,), torch.float32))
+                z((max_iters,), T.dtype))
 
 
-def _predicated_iteration(loop: Loop, system, n_kf: int, K_cap: int,
-                          cfg: BAConfig):
-    """One iteration of ``_early_exit_loop`` with its stop rule kept on the
-    device: until ``loop.done`` is set it moves ``loop.T`` and writes its
-    step norm into slot ``loop.k``; the iteration whose norm is below
-    ``cfg.delta_norm`` (compared in fp32) sets ``done`` and keeps its
-    step, and every later one leaves ``T`` and the slots as they are. The
-    same operations on the same values as the early-exit loop, so the
-    poses and norms carry its bits."""
-    _, _, Hd, gd = system(loop.T)
-    dx, free = _solve(Hd, gd, n_kf, K_cap, cfg.pin, cfg.solver)
+def _predicated_iteration(loop: Loop, step, cfg: BAConfig):
+    """One Gauss-Newton iteration (``ba.py:509-526``) with its stop rule
+    kept on the device. ``step(T)`` gives (dx (K_cap, 7), free (K_cap,)
+    bool); the free poses move by dx and the step norm is the norm of dx
+    over them. Until ``loop.done`` is set it moves ``loop.T`` and writes
+    its step norm into slot ``loop.k``; the iteration whose norm is below
+    ``cfg.delta_norm`` (compared in fp32, as the JAX package compares it)
+    sets ``done`` and keeps its step, and every later one leaves ``T`` and
+    the slots as they are."""
+    dx, free = step(loop.T)
     T_new = torch.where(free[:, None], sim3.retr(loop.T, dx), loop.T)
     delta = torch.linalg.vector_norm(
         torch.where(free[:, None], dx, torch.zeros_like(dx)))
@@ -726,63 +729,29 @@ def _loop_deltas(loop: Loop, cfg: BAConfig) -> list:
     return deltas
 
 
-_warm = threading.local()        # .devices: where this thread has solved
-
-
-def _replays(T, cfg: BAConfig) -> bool:
-    """Whether a solve on ``T`` runs ``_replayed_loop``: on CUDA under
-    no_grad with the fp32 solver, on a thread whose eager loop has run
-    there (that warmed cuSOLVER's and cuBLAS's handles, which a capture
-    cannot create)."""
-    return (not graphs.eager(T) and cfg.solver == "fp32"
-            and cfg.max_iters >= 1
-            and T.device in getattr(_warm, "devices", ()))
-
-
-def _replayed_loop(mode, T, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
-                   edge_mask, n_kf: int, cfg: BAConfig, calib=None):
-    """``_early_exit_loop`` on CUDA with no host read between iterations:
-    one capture of ``_predicated_iteration`` at the solve's own shapes,
-    replayed ``cfg.max_iters`` times, the stop rule a device flag, the
-    step norms read once at the end; the graph is dropped on return. The
-    capture needs the addresses of the solve's tensors, not their values,
-    so it is made before the plan's read of the edge lists: the host
-    captures while the device still runs the work queued before the solve
-    (the new edges' decode and match)."""
-    K_cap = T.shape[0]
-    E = ii.shape[0]
-    plan = _plan_buffer(E, K_cap, T.device)
-    _counters(T.device, E)       # grown outside the capture
-    system = _system_of(mode, T, Xs, Cs, ii, jj, idx_ii2jj, valid_match, Q,
-                        edge_mask, n_kf, cfg, calib, _plan_views(plan, E))
+def gn_loop(step, T, cfg: BAConfig, replay: bool = False,
+            before_replay=None) -> BAResult:
+    """The Gauss-Newton loop of every BA solver: ``cfg.max_iters``
+    iterations of ``_predicated_iteration`` on ``step`` (the solver's
+    system at the poses, solved: T -> (dx, free)), one ``ba.iter`` span
+    each, then one read of the step norms. Eagerly, or with ``replay``
+    (CUDA tensors, no grad) from one CUDA graph of the iteration
+    (``graphs.capture``), replayed ``cfg.max_iters`` times and dropped on
+    return; ``before_replay()`` runs between the capture and the first
+    replay. Both give the same poses, iterations and step norms, bit for
+    bit; ``T`` itself is left as it was."""
     loop = _loop(T, cfg.max_iters)
-    g = graphs.capture(
-        lambda: _predicated_iteration(loop, system, n_kf, K_cap, cfg),
-        T.device, "ba.capture")
-    with timing.span("ba.plan"):
-        _assembly_plan(ii, jj, n_kf, K_cap, cfg.pin, out=plan)
+    iteration = lambda: _predicated_iteration(loop, step, cfg)
+    if replay:
+        iteration = graphs.capture(iteration, T.device, "ba.capture").replay
+        if before_replay is not None:
+            before_replay()
     for _ in range(cfg.max_iters):
         with timing.span("ba.iter"):
-            g.replay()
-    return loop.T, _loop_deltas(loop, cfg)
-
-
-def _step(T, Hd, gd, n_kf: int, K_cap: int, cfg: BAConfig, deltas: list):
-    """Solve, retract the free poses, and the stop rule (``ba.py:509-526``):
-    appends the step norm, read to the host (the iteration's one read), to
-    ``deltas``; True when it is below ``cfg.delta_norm`` (compared in fp32,
-    as the JAX package compares it)."""
-    dx, free = _solve(Hd, gd, n_kf, K_cap, cfg.pin, cfg.solver)
-    return _retract(T, dx, free, cfg, deltas)
-
-
-def _retract(T, dx, free, cfg: BAConfig, deltas: list):
-    """The free poses moved by dx, and the stop rule of ``_step``."""
-    T = torch.where(free[:, None], sim3.retr(T, dx), T)
-    delta = float(timing.host_read("ba_step", torch.linalg.vector_norm(
-        torch.where(free[:, None], dx, torch.zeros_like(dx)))))
-    deltas.append(delta)
-    return T, delta < float(np.float32(cfg.delta_norm))
+            iteration()
+    deltas = _loop_deltas(loop, cfg)
+    return BAResult(loop.T, len(deltas), tuple(deltas),
+                    "capture" if replay else "eager")
 
 
 @torch.no_grad()

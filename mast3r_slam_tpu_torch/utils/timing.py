@@ -1,5 +1,5 @@
-"""Spans of the program's work, the host's reads of the device, a device
-wait and a profiler trace.
+"""Spans of the program's work, the host's reads of the device and a
+profiler trace.
 
 Counterpart of ``mast3r_slam_tpu/utils/timing.py``. ``span(name, ...)``
 marks one piece of the program's work (``with span("ba.solve") as sp:``),
@@ -39,15 +39,6 @@ import torch
 _profiler = torch.autograd.profiler
 
 MAX_SPANS = 1_000_000
-
-
-def device_sync():
-    """Wait for the work queued on every visible CUDA device (a backend may
-    sit on another GPU than the frontend); without a GPU there is nothing
-    to wait for."""
-    if torch.cuda.is_available():
-        for i in range(torch.cuda.device_count()):
-            torch.cuda.synchronize(i)
 
 
 class Span:

@@ -9,6 +9,8 @@ solves and the final poses of ``gauss_newton_*`` are held to 1e-4 (the
 solvers' fixtures are those of ``tests/test_ba.py``).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -380,24 +382,71 @@ def test_gauss_newton_calib_matches_jax():
     assert _pose_err(T_true, res.T_WC.numpy()) < 0.15
 
 
-# -- the predicated loop (``ba._predicated_iteration``) -------------------------
+# -- the solvers' one loop (``ba.gn_loop``) -------------------------------------
 
 
-def _loop_problem():
-    """A perturbed 5-keyframe world with a loop edge: (n_kf, the solver's
-    arguments T_WCs, Xs, Cs, ii, jj, idx, valid, Q, mask)."""
+@functools.lru_cache(maxsize=None)
+def _loop_world():
+    """A perturbed 5-keyframe world with a loop edge, as numpy: T_WCs, Xs,
+    Cs, ii, jj, idx, valid, Q, mask."""
     key = jax.random.PRNGKey(3)
     n_kf, n_pts = 5, 256
     T_true, Xs = _make_world(key, n_kf, n_pts)
     Cs = np.full((n_kf, n_pts), 5.0, np.float32)
     edges = _edges(n_kf, n_pts, extra=[(0, n_kf - 1)])
     T_init = _perturbed(key, T_true, n_kf, 0.05, 11)
-    return n_kf, _t(T_init, Xs, Cs, *edges)
+    return tuple(np.asarray(a) for a in (T_init, Xs, Cs, *edges))
+
+
+@functools.lru_cache(maxsize=None)
+def _calib_world_np():
+    """``test_torch_dist_ba._calib_world`` as numpy: (T_WCs, Xs, Cs, ii, jj,
+    idx, valid, Q, mask), K_mat, img_size."""
+    from test_torch_dist_ba import _calib_world
+
+    args, K_mat, img_size = _calib_world()
+    return tuple(np.asarray(a) for a in args), np.asarray(K_mat), img_size
+
+
+def _solver(solver, residual):
+    """(poses, n_kf, solve(T, cfg) -> BAResult): one solver on one world:
+    the dense solve, edge-sharded over 2 CPU shards or Schur over 2, on
+    ray + distance (``_loop_world``) or pixel + log-depth residuals
+    (``_calib_world``)."""
+    from mast3r_slam_tpu_torch.parallel import dist_ba, mesh, schur
+
+    if residual == "rays":
+        T, Xs, Cs, *edges = _t(*_loop_world())
+        K_mat = img_size = None
+    else:
+        args, K_np, img_size = _calib_world_np()
+        T, Xs, Cs, K_mat, *edges = _t(*args[:3], K_np, *args[3:])
+    n_kf = T.shape[0]
+    if solver == "dense":
+        if residual == "rays":
+            return T, n_kf, lambda T, cfg: tba.gauss_newton_rays(
+                T, Xs, Cs, *edges, n_kf, cfg)
+        return T, n_kf, lambda T, cfg: tba.gauss_newton_calib(
+            T, Xs, Cs, K_mat, *edges, n_kf, img_size, cfg)
+    m = mesh.make_mesh([torch.device("cpu")] * 2)
+    if solver == "edge_sharded":
+        edges = [mesh.pad_to_multiple(a, 2, 0, False if a.dtype == torch.bool
+                                      else 0) for a in edges]
+        return T, n_kf, lambda T, cfg: dist_ba.gauss_newton_dist(
+            T, Xs, Cs, K_mat, *edges, n_kf, m, cfg, residual, img_size)
+    part, order, keep = schur.schur_partition(
+        edges[0].numpy(), edges[1].numpy(), edges[5].numpy(), K_cap=n_kf,
+        n_shards=2)
+    args = ((part.owner, part.int_slot, part.sep_slot)
+            + tuple(schur.reorder_edges(order, keep, *edges)))
+    return T, n_kf, lambda T, cfg: schur.gauss_newton_schur(
+        T, Xs, Cs, K_mat, *args, n_kf, part.I_cap, part.S_cap, m, cfg,
+        residual, img_size)
 
 
 def _stop_rule(case, d):
-    """The ``delta_norm`` that stops the early-exit loop where ``case``
-    says, from the step norms ``d`` of a loop that never stops."""
+    """The ``delta_norm`` that stops the loop where ``case`` says, from the
+    step norms ``d`` of a loop that never stops."""
     if case == "first":
         return 2.0 * d[0]
     if case == "third":
@@ -409,33 +458,33 @@ def _stop_rule(case, d):
 
 
 @pytest.mark.parametrize("case", ["first", "third", "never", "all_pinned"])
-def test_predicated_loop_bit_equal_to_early_exit(case):
-    """The device-predicated loop (stop flag and step-norm slots, no host
-    read until the end) gives the early-exit loop's poses, iteration count
-    and step norms bit for bit, also when the rule fires early."""
-    n_kf, args = _loop_problem()
-    T, T0 = args[0], args[0].clone()
+@pytest.mark.parametrize("residual", ["rays", "calib"])
+@pytest.mark.parametrize("solver", ["dense", "edge_sharded", "schur"])
+def test_gn_loop_stop_rule(solver, residual, case):
+    """Each solver's wiring into the one Gauss-Newton loop, whose stop rule
+    is a device flag read once at the end: with the rule set to fire at
+    the first or third iteration, never, or on the zero steps of an
+    all-pinned graph, the solve reports that many iterations, their step
+    norms are the prefix of the same solver's never-stopping run, its
+    poses are bit-equal to the same solver's run of that many iterations,
+    and the caller's poses are untouched."""
+    T, n_kf, solve = _solver(solver, residual)
+    T0 = T.clone()
     pin = n_kf if case == "all_pinned" else 1
     cfg = tba.BAConfig(max_iters=6, pin=pin, delta_norm=0.0)
-    system = lambda c: tba._system_of("rays", *args, n_kf, c)
-    _, free = tba._early_exit_loop(system(cfg), T, n_kf, n_kf, cfg)
-    cfg = cfg._replace(delta_norm=_stop_rule(case, free))
-    want_T, want = tba._early_exit_loop(system(cfg), T, n_kf, n_kf, cfg)
+    free = solve(T, cfg)
+    assert free.iters == cfg.max_iters == len(free.deltas)
+    cfg = cfg._replace(delta_norm=_stop_rule(case, free.deltas))
+    res = solve(T, cfg)
     expect = {"first": 1, "third": 3, "never": 6, "all_pinned": 1}[case]
-    assert len(want) == expect
-    assert (want == [0.0]) == (case == "all_pinned")
-
-    loop = tba._loop(T, cfg.max_iters)
-    sys_ = system(cfg)
-    for _ in range(cfg.max_iters):
-        tba._predicated_iteration(loop, sys_, n_kf, n_kf, cfg)
-    assert tba._loop_deltas(loop, cfg) == want
-    assert torch.equal(loop.T, want_T)
-    assert int(loop.k) == cfg.max_iters
-    assert bool(loop.done) == (expect < cfg.max_iters)
+    assert res.iters == expect and res.graph == "eager"
+    assert list(res.deltas) == list(free.deltas[:expect])
+    assert (list(res.deltas) == [0.0]) == (case == "all_pinned")
+    short = solve(T, cfg._replace(max_iters=expect, delta_norm=0.0))
+    assert short.iters == expect
+    assert torch.equal(res.T_WC, short.T_WC)
+    if case == "never":
+        assert torch.equal(res.T_WC, free.T_WC)
+    if case != "all_pinned":
+        assert not torch.equal(res.T_WC, T0)
     assert torch.equal(T, T0)            # the caller's poses are kept
-
-    # on CPU tensors the solve keeps the early-exit loop
-    res = tba.gauss_newton_rays(*args, n_kf, cfg)
-    assert res.graph == "eager" and res.iters == expect
-    assert list(res.deltas) == want and torch.equal(res.T_WC, want_T)

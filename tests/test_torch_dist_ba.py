@@ -1,6 +1,8 @@
 """The port's edge-sharded bundle adjustment (``parallel/dist_ba.py``) and
 device list (``parallel/mesh.py``) against the JAX package's, on the
-fixtures of ``tests/test_parallel.py`` and ``tests/test_schur.py``.
+fixtures of ``tests/test_parallel.py`` and ``tests/test_schur.py`` and on
+the synthetic graph of the JAX system's ``bench_multichip.py`` (edge-sharded
+and Schur, 2 and 4 shards).
 
 JAX shards over its 8 virtual CPU devices (``tests/conftest.py``); the port
 over a list that repeats the CPU device (``make_mesh([cpu] * n)``). The
@@ -20,10 +22,11 @@ from mast3r_slam_tpu import geometry as jgeometry
 from mast3r_slam_tpu.lie import sim3 as js
 from mast3r_slam_tpu.parallel import dist_ba as jdist
 from mast3r_slam_tpu.parallel import mesh as jmesh
+from mast3r_slam_tpu.parallel import schur as jschur
 from mast3r_slam_tpu.slam import ba as jba
 from mast3r_slam_tpu_torch import cli as tcli
 from mast3r_slam_tpu_torch.config import BAConfig
-from mast3r_slam_tpu_torch.parallel import dist_ba, mesh
+from mast3r_slam_tpu_torch.parallel import dist_ba, mesh, schur
 from mast3r_slam_tpu_torch.slam import ba as tba
 
 from test_ba import _edges, _make_world
@@ -264,19 +267,18 @@ def _jax_step_norms(T, Xs, Cs, ii, jj, idx, valid, Q, mask, n_kf, cfg):
 
 def _fp64_step_norms(T, Xs, Cs, edges, n_kf, cfg):
     """The port's dense solve in float64 (``edge_system_plain`` on float64
-    copies, the same stop rule): its step norms."""
+    copies and ``ba._solve``, through the solvers' one loop,
+    ``ba.gn_loop``): its step norms."""
     ii, jj, idx, vm, Q, mask = edges
     pre = tba._edge_prep(Xs, Cs, ii, jj, idx, vm, cfg.point_stride)
     pre = tba.EdgePre(pre.XCi.double(), pre.XCj.double(), pre.safe_idx)
-    T, deltas = T.double(), []
-    while len(deltas) < cfg.max_iters:
+
+    def step(T):
         _, _, Hd, gd = tba.edge_system_plain(
             "rays", T, None, None, ii, jj, idx, vm, Q.double(),
             mask.double(), n_kf, n_kf, cfg.pin, cfg, pre)
-        T, done = tba._step(T, Hd, gd, n_kf, n_kf, cfg, deltas)
-        if done:
-            break
-    return deltas
+        return tba._solve(Hd, gd, n_kf, n_kf, cfg.pin, cfg.solver)
+    return list(tba.gn_loop(step, T.double(), cfg).deltas)
 
 
 @pytest.mark.parametrize("key", [0, 3])
@@ -319,3 +321,98 @@ def test_cli_mesh_rule(capsys):
             "solver") in capsys.readouterr().out
     assert tcli._ba_mesh({"parallel": {"ba_backend": "dense"}}, 8) is None
     assert tcli._ba_mesh({}, 8) is None
+
+
+# -- a synthetic graph sized like a run ----------------------------------------
+
+
+def make_graph(n_kf, P, seed=0):
+    """A synthetic pose graph (the JAX system's ``bench_multichip.py:60-85``)
+    from a seeded ``torch.Generator``: consecutive and (i, i + 4) edges in
+    both directions, every point of every edge matched, C = 5, Q = 4, poses
+    noised by 0.03 but the first. (T_init, Xs, Cs, ii, jj, idx, valid, Q,
+    mask) on the CPU."""
+    from mast3r_slam_tpu_torch.lie import sim3
+
+    g = torch.Generator().manual_seed(seed)
+    randn = lambda *shape: torch.randn(*shape, generator=g)
+    pts_w = randn(P, 3) + torch.tensor([0.0, 0.0, 4.0])
+    T_true = [sim3.identity()]
+    for _ in range(1, n_kf):
+        T_true.append(sim3.mul(T_true[-1], sim3.exp(0.05 * randn(7))))
+    T_true = torch.stack(T_true)
+    Xs = sim3.act(sim3.inv(T_true)[:, None], pts_w[None])
+    Cs = torch.full((n_kf, P), 5.0)
+    pairs = ([(i, i + 1) for i in range(n_kf - 1)]
+             + [(i, i + 4) for i in range(n_kf - 4)])
+    ii = torch.tensor([p for a, b in pairs for p in (a, b)],
+                      dtype=torch.int32)
+    jj = torch.tensor([p for a, b in pairs for p in (b, a)],
+                      dtype=torch.int32)
+    E = ii.shape[0]
+    idx = torch.arange(P, dtype=torch.int32).expand(E, P).contiguous()
+    noise = 0.03 * randn(n_kf, 7)
+    noise[0] = 0.0
+    return (sim3.retr(T_true, noise), Xs, Cs, ii, jj, idx,
+            torch.ones((E, P), dtype=torch.bool), torch.full((E, P), 4.0),
+            torch.ones((E,)))
+
+
+def _sharded_solve(graph, n_kf, n_dev, schur_solver, cfg):
+    """The port's solve of ``graph`` over ``n_dev`` CPU shards: Schur, or
+    edge-sharded with the edges padded to the mesh."""
+    T, Xs, Cs, ii, jj, idx, valid, Q, mask = graph
+    m = mesh.make_mesh([CPU] * n_dev)
+    if schur_solver:
+        part, order, keep = schur.schur_partition(
+            ii.numpy(), jj.numpy(), mask.numpy() > 0, K_cap=n_kf,
+            n_shards=n_dev)
+        return schur.gauss_newton_rays_schur(
+            T, Xs, Cs, part.owner, part.int_slot, part.sep_slot,
+            *schur.reorder_edges(order, keep, ii, jj, idx, valid, Q, mask),
+            n_kf, part.I_cap, part.S_cap, m, cfg).T_WC
+    return dist_ba.gauss_newton_rays_dist(
+        T, Xs, Cs, *_padded(_tpad(n_dev), ii, jj, idx, valid, Q, mask),
+        n_kf, m, cfg).T_WC
+
+
+def _jax_sharded_solve(graph, n_kf, n_dev, schur_solver, P):
+    """JAX's solve of the same graph on an ``n_dev``-device mesh of the
+    CPU, as its ``bench_multichip.py`` calls it: the poses."""
+    T, Xs, Cs, ii, jj, idx, valid, Q, mask = (jnp.asarray(a.numpy())
+                                              for a in graph)
+    cfg = jba.BAConfig(max_iters=10, point_chunk=P)
+    m = jmesh.make_mesh(n_dev)
+    if schur_solver:
+        part, order, keep = jschur.schur_partition(
+            np.asarray(ii), np.asarray(jj), np.asarray(mask), K_cap=n_kf,
+            n_shards=n_dev)
+        return np.asarray(jschur.gauss_newton_rays_schur(
+            T, Xs, Cs, *(jnp.asarray(a) for a in part[:3]),
+            *jschur.reorder_edges(order, keep, ii, jj, idx, valid, Q, mask),
+            jnp.asarray(n_kf), part.I_cap, part.S_cap, m, cfg))
+    return np.asarray(jdist.gauss_newton_rays_dist(
+        T, Xs, Cs, *_padded(_jpad(n_dev), ii, jj, idx, valid, Q, mask),
+        jnp.asarray(n_kf), m, cfg))
+
+
+@pytest.mark.parametrize("schur_solver,n_kf,shards", [
+    (False, 8, 2), (True, 8, 2), (False, 7, 4), (True, 7, 4)])
+def test_sharded_solves_of_a_synthetic_graph_match_jax(schur_solver, n_kf,
+                                                       shards):
+    """The port's 1-shard and N-shard solves of ``make_graph`` (dense
+    edge-sharded or Schur) within 1e-4 of JAX's N-device solve of the same
+    graph. At 7 keyframes the 18 edges do not split over 4 shards, so the
+    edge-sharded solve's padding runs."""
+    P = 256
+    graph = make_graph(n_kf, P)
+    assert graph[3].shape[0] % shards == (2 if n_kf == 7 else 0)
+    cfg = BAConfig(max_iters=10, point_chunk=P)
+    T_1 = _sharded_solve(graph, n_kf, 1, False, cfg)
+    T_n = _sharded_solve(graph, n_kf, shards, schur_solver, cfg)
+    want = _jax_sharded_solve(graph, n_kf, shards, schur_solver, P)
+    assert torch.isfinite(T_n).all()
+    np.testing.assert_allclose(T_1.numpy(), want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(T_n.numpy(), want, rtol=1e-4, atol=1e-4)
+    # the solve moved the noised poses
+    assert float((T_1 - graph[0]).abs().max()) > 1e-3
