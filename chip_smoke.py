@@ -54,7 +54,12 @@ Phases (any failure exits non-zero and prints no result line):
    to 256 keyframes with up to 1,204 edges (1e-5 of the largest entry of
    each output). Both are timed where their fixed costs show (few points)
    and at full size; the BA kernel also against the terms-then-assemble
-   path that it replaced.
+   path that it replaced. ``conv2d_3xtf32`` (fp32 convolution in split
+   TF32 on the tensor cores) at every distinct conv shape of a ViT-L
+   ``head_forward`` at batch 1, its relative RMS error against a float64
+   convolution held to at most twice cuDNN fp32's (TF32 off) and 100x below
+   plain TF32's; then a head_forward's 30 convs together at batch 1 and 2,
+   also timed in turns against cuDNN fp32 (``turns_ms``).
 3. Main path at full width: ViT-L MASt3R (384x512, bf16 transformer, bf16
    head, random weights from a seeded generator) driven through
    ``models.oracle_timing`` (the real network runs on every call; the SLAM
@@ -227,6 +232,7 @@ import time
 MEM_BW = 3.35e12        # HBM3 bytes/s
 PEAK_OPS = {"fp32": 67e12,      # FLOP/s outside the tensor cores
             "bf16": 989e12,     # tensor cores
+            "tf32": 495e12,     # tensor cores
             "int8": 1979e12}    # tensor cores, OP/s
 # fp32 instructions/s when each FLOP is one instruction (the kernels are
 # built with -fmad=false: no fused multiply-add); reported beside the bound
@@ -664,6 +670,137 @@ def check_kernels(model_cfg, orc):
     check_loop_kernels(rec, model_cfg, D)
     torch.cuda.synchronize()
     return records
+
+
+def check_conv_3xtf32(records):
+    """``conv2d_3xtf32`` at every conv of a ViT-L 512 ``head_forward``
+    (``kernel_cases.dpt_conv_shapes``, channels-last inputs and weights as
+    the DPT passes them): a record a distinct shape at batch 1, its error
+    against a float64 convolution beside cuDNN's fp32 one (TF32 off) and
+    plain TF32's, held to at most twice cuDNN's and 100x below TF32's; then
+    a record of a head_forward's 30 convs together at batch 1 and at an
+    edge's batch 2, each also timed in turns (cuDNN, kernel, kernel, cuDNN:
+    ``turns_ms``). The bound is 3 x the FLOPs at the TF32 peak;
+    ``library_ms`` is ``F.conv2d`` in fp32 on NCHW tensors plus the bias,
+    what ``layers.conv2d`` ran before (the yardstick only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mast3r_slam_tpu_torch._device import exact_fp32
+    from mast3r_slam_tpu_torch.models import mast3r
+    from mast3r_slam_tpu_torch.ops import conv
+    from mast3r_slam_tpu_torch.utils import kernel_cases
+
+    exact_fp32()
+    cl = torch.channels_last
+    source = "mast3r_slam_tpu_torch/csrc/conv2d_3xtf32.cu"
+    replaces = ("none: mast3r_slam_tpu/models/dpt.py's convolutions "
+                "(models/layers.py::conv2d) are XLA's")
+
+    def rel(a, ref):
+        return float((a.double() - ref).norm() / ref.norm())
+
+    def case(shape, seed):
+        (b, c, h, w), (n, _, r, s), stride, pad, has_bias = shape
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(b, c, h, w, generator=g, device="cuda")
+        wt = ((torch.rand(n, c, r, s, generator=g, device="cuda") * 2 - 1)
+              / math.sqrt(c * r * s))
+        bias = ((torch.rand(n, generator=g, device="cuda") * 2 - 1) * 0.02
+                if has_bias else None)
+        return dict(x=x, w=wt, bias=bias, stride=stride, pad=pad,
+                    xc=x.contiguous(memory_format=cl),
+                    wc=wt.contiguous(memory_format=cl))
+
+    def kernel(k):
+        return conv.conv2d_3xtf32(k["xc"], k["wc"], k["bias"], k["stride"],
+                                  k["pad"])
+
+    def plain(k):
+        return conv.conv2d_3xtf32_plain(k["x"], k["w"], k["bias"],
+                                        k["stride"], k["pad"])
+
+    def library(k):
+        y = F.conv2d(k["x"], k["w"], stride=k["stride"],
+                     padding=k["pad"]).float()
+        return y if k["bias"] is None else y + k["bias"][:, None, None]
+
+    def flops(shape):
+        (b, c, h, w), (n, _, r, s), stride, pad, _ = shape
+        ho = (h + 2 * pad - r) // stride + 1
+        wo = (w + 2 * pad - s) // stride + 1
+        return 2 * b * ho * wo * n * c * r * s
+
+    def io_bytes(shape):
+        (b, c, h, w), (n, _, r, s), stride, pad, has_bias = shape
+        ho = (h + 2 * pad - r) // stride + 1
+        wo = (w + 2 * pad - s) // stride + 1
+        return 4 * (b * c * h * w + n * c * r * s + b * n * ho * wo
+                    + (n if has_bias else 0))
+
+    cfg = mast3r.MASt3RConfig(head_dtype="float32")
+    worst = {"ratio": 0.0, "tf32_margin": float("inf")}
+    for i, shape in enumerate(dict.fromkeys(
+            kernel_cases.dpt_conv_shapes(cfg, 1))):
+        k = case(shape, 40 + i)
+        got = kernel(k)
+        ref = F.conv2d(k["x"].double(), k["w"].double(),
+                       None if k["bias"] is None else k["bias"].double(),
+                       stride=k["stride"], padding=k["pad"])
+        tf32 = F.conv2d(conv.tf32_round(k["x"]), conv.tf32_round(k["w"]),
+                        k["bias"], stride=k["stride"], padding=k["pad"])
+        err, e32, etf = rel(got, ref), rel(library(k), ref), rel(tf32, ref)
+        eplain = rel(plain(k), ref)
+        del ref
+        if not (err <= 2.0 * e32 and 100.0 * err <= etf):
+            raise AssertionError(f"conv2d_3xtf32 at {shape}: error {err} "
+                                 f"against cuDNN fp32's {e32}, TF32's {etf}")
+        worst["ratio"] = max(worst["ratio"], err / e32)
+        worst["tf32_margin"] = min(worst["tf32_margin"], etf / err)
+        (b, c, h, w), (n, _, r, s), stride, pad, has_bias = shape
+        bn, per, splits = conv.plan(b * got.shape[2] * got.shape[3], n, c, r,
+                                    s, torch.cuda.get_device_properties(0)
+                                    .multi_processor_count)
+        kernel_record(
+            records, "conv2d_3xtf32",
+            f"x {shape[0]} w {shape[1]} stride {stride} pad {pad} bias "
+            f"{has_bias}: tile 128x{bn}, {splits} K range(s)", err,
+            functools.partial(kernel, k), functools.partial(plain, k),
+            functools.partial(library, k), io_bytes(shape),
+            3 * flops(shape), "tf32", replaces, source, plain_reps=5,
+            tolerance="relative RMS against float64 <= 2x cuDNN fp32's "
+                      "and <= TF32's / 100",
+            gflop=flops(shape) / 1e9, cudnn_fp32_err=e32, tf32_err=etf,
+            plain_err=eplain)
+    log(f"conv2d_3xtf32 at the DPT shapes: error at most {worst['ratio']:.3f}"
+        f" x cuDNN fp32's, at least {worst['tf32_margin']:.0f} x below "
+        f"TF32's")
+
+    for b in (1, 2):
+        shapes = kernel_cases.dpt_conv_shapes(cfg, b)
+        cases = [case(sh, 90 + i) for i, sh in enumerate(shapes)]
+
+        def run(fn):
+            for k in cases:
+                fn(k)
+
+        turns = [(name, device_ms(functools.partial(run, fn), reps=5))
+                 for name, fn in (("cudnn", library), ("kernel", kernel),
+                                  ("kernel", kernel), ("cudnn", library))]
+        gf = sum(flops(sh) for sh in shapes)
+        kernel_record(
+            records, "conv2d_3xtf32",
+            f"a ViT-L 512 head_forward's {len(shapes)} convs, b={b}, "
+            f"{gf / 1e9:.1f} GFLOP", worst["ratio"],
+            functools.partial(run, kernel), functools.partial(run, plain),
+            functools.partial(run, library),
+            sum(io_bytes(sh) for sh in shapes), 3 * gf, "tf32", replaces,
+            source, plain_reps=3,
+            tolerance="per shape as above (max_abs_err: the largest "
+                      "error ratio to cuDNN fp32)",
+            gflop=gf / 1e9, turns_ms=turns,
+            kernel_share_of_cudnn=(turns[1][1] + turns[2][1])
+            / (turns[0][1] + turns[3][1]))
 
 
 def check_match_payload(rec, X, D, pay, h, w):
@@ -4106,6 +4243,7 @@ def main():
     # phase 2: every kernel against its plain version
     t0 = time.perf_counter()
     records = check_kernels(model_cfg, orc)
+    check_conv_3xtf32(records)
     log(f"phase 2 (kernels against their plain versions): "
         f"{time.perf_counter() - t0:.2f} s")
 

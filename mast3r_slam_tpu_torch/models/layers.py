@@ -9,8 +9,11 @@ the compute dtype, fp32 result, fp32 bias.
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import conv
 
 
 def linear(mod: nn.Linear, x, dtype=None):
@@ -49,7 +52,9 @@ class Mlp(nn.Module):
 
 def conv2d(mod: nn.Conv2d, x, dtype=None, stride=1, padding=None):
     """NCHW conv in ``dtype``; fp32 result plus fp32 bias. ``padding``
-    defaults to k // 2 (what JAX "SAME" gives at stride 1)."""
+    defaults to k // 2 (what JAX "SAME" gives at stride 1). A CUDA fp32
+    conv with no gradient recorded runs ``ops/conv.py``'s 3xTF32 kernel
+    (channels_last result); the rest runs ``F.conv2d``."""
     w = mod.weight
     if dtype is not None:
         x = x.to(dtype)
@@ -58,6 +63,9 @@ def conv2d(mod: nn.Conv2d, x, dtype=None, stride=1, padding=None):
         w = w.to(x.dtype)
     if padding is None:
         padding = w.shape[-1] // 2
+    if conv.takes_kernel(x.device, x.dtype, torch.is_grad_enabled()):
+        bias = None if mod.bias is None else mod.bias.float()
+        return conv.conv2d_3xtf32(x, w, bias, stride, padding)
     y = F.conv2d(x, w, stride=stride, padding=padding).float()
     if mod.bias is not None:
         y = y + mod.bias.float()[:, None, None]

@@ -94,7 +94,9 @@ class MASt3R(nn.Module):
     @torch.no_grad()
     def store_compute_dtypes(self):
         """Keep matmul/conv weights in their compute dtype (biases, norms
-        and the final head conv stay fp32)."""
+        and the final head conv stay fp32). On CUDA the heads' fp32 conv
+        weights are kept channels_last: (N, R, S, C) in memory, the layout
+        ``ops/conv.py``'s kernel reads, so no call copies them."""
         cdt, hdt = self.cfg.compute_dtype, self.cfg.head_compute_dtype
         trunk = [self.patch_embed, self.enc_blocks, self.decoder_embed,
                  self.dec_blocks, self.dec_blocks2]
@@ -108,6 +110,11 @@ class MASt3R(nn.Module):
         for h in heads:
             last = h.dpt.head[4]
             last.weight.data = last.weight.data.float()
+            for m in h.modules():
+                if (isinstance(m, nn.Conv2d) and m.weight.is_cuda
+                        and m.weight.dtype == torch.float32):
+                    m.weight.data = m.weight.data.contiguous(
+                        memory_format=torch.channels_last)
         return self
 
 

@@ -52,6 +52,7 @@ SOURCES = {
     "rope_qk": ("rope_qk_launch", [_P] * 8 + [_L] * 8 + [_I] * 7 + [_P]),
     "rope_qk_bwd": ("rope_qk_bwd_launch",
                     [_P] * 8 + [_L] * 2 + [_I] * 7 + [_P]),
+    "conv2d_3xtf32": ("conv2d_3xtf32_launch", [_P] * 5 + [_I] * 14 + [_P]),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

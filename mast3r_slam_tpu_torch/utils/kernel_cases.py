@@ -196,3 +196,41 @@ def cell_center(cell, h, w, stride):
     u = min((cell % wc) * stride + stride // 2, w - 1)
     v = min((cell // wc) * stride + stride // 2, h - 1)
     return v * w + u
+
+
+def dpt_conv_shapes(cfg, b):
+    """Every ``layers.conv2d`` call of one ``dpt.head_forward`` of network
+    ``cfg`` at batch ``b``, in call order, traced on the meta device (no
+    memory, no arithmetic): tuples (x shape (b, c, h, w), weight shape
+    (n, c, r, s), stride, padding, has_bias). The 3xTF32 conv kernel's
+    tests and ``chip_smoke.py`` run it at these shapes."""
+    from unittest import mock
+
+    import torch
+
+    from ..models import dpt
+
+    with torch.device("meta"):
+        head = dpt.Head(cfg)
+    n_dec = cfg.dec_depth
+    hooks = (0, n_dec * 2 // 4, n_dec * 3 // 4, n_dec)
+    grid = (cfg.img_size[0] // cfg.patch_size,
+            cfg.img_size[1] // cfg.patch_size)
+    n = grid[0] * grid[1]
+    tokens = [torch.empty(b, n, cfg.enc_embed_dim, device="meta")] + [
+        torch.empty(b, n, cfg.dec_embed_dim, device="meta")
+        for _ in range(n_dec)]
+    calls = []
+    conv2d = dpt.conv2d
+
+    def record(mod, x, dtype=None, stride=1, padding=None):
+        w = mod.weight
+        calls.append((tuple(x.shape), tuple(w.shape), stride,
+                      w.shape[-1] // 2 if padding is None else padding,
+                      mod.bias is not None))
+        return conv2d(mod, x, dtype=dtype, stride=stride, padding=padding)
+
+    with mock.patch.object(dpt, "conv2d", record):
+        dpt.head_forward(head, tokens, grid, cfg.patch_size, cfg.desc_dim,
+                         hooks, cfg.head_compute_dtype)
+    return calls

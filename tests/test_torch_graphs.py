@@ -11,7 +11,7 @@ at the benchmark cells' batches and at both configurations' head dtypes; a
 key's first call is eager, its second captures, its third replays; a
 call's outputs survive the next replay; two graphs sharing a pool replay
 in either order; a new module captures after the last one died; each
-replay adds the launches of ``rope_qk`` that the
+replay adds the launches of ``rope_qk`` and ``conv2d_3xtf32`` that the
 capture recorded; two threads on two streams; weights loaded in place after
 capture show in the next replay; a profiler started after the capture sees
 the replayed kernels. Replays equal the eager call exactly: the graph runs
@@ -232,18 +232,25 @@ def test_two_graphs_share_a_pool_in_either_order(cuda, order):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["encode", "asym"])
 def test_replay_counts_the_captured_launches(cuda, kind):
+    from mast3r_slam_tpu_torch.utils import kernel_cases
+
     model = _model(cuda, TINY)
     x = _inputs(kind, model, TINY, 1, seed=7)
     per_call = []
+    names = ("rope_qk", "conv2d_3xtf32")
     for _ in range(4):
-        n0 = _kernels.LAUNCHES["rope_qk"]
+        n0 = [_kernels.LAUNCHES[k] for k in names]
         _call(kind, model, TINY, x)
         torch.cuda.synchronize()
-        per_call.append(_kernels.LAUNCHES["rope_qk"] - n0)
+        per_call.append(tuple(_kernels.LAUNCHES[k] - n for k, n in
+                              zip(names, n0)))
     attn = TINY.enc_depth if kind == "encode" else 4 * TINY.dec_depth
-    assert per_call == [attn] * 4
+    # TINY's heads are fp32: every conv of both head_forwards
+    convs = 0 if kind == "encode" else 2 * len(
+        kernel_cases.dpt_conv_shapes(TINY, 1))
+    assert per_call == [(attn, convs)] * 4
     (g,) = graphs.entries(model).values()
-    assert g.launches == {"rope_qk": attn}
+    assert g.launches == {k: n for k, n in zip(names, (attn, convs)) if n}
 
 
 @pytest.mark.cuda

@@ -854,3 +854,206 @@ def test_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):                     # int64 indices
         gather.gather_rows(torch.zeros(8, 4, device=cuda),
                            torch.zeros(3, dtype=torch.int64, device=cuda))
+
+
+# -- conv2d_3xtf32: fp32 convolution in split TF32 on the tensor cores ------
+# Held to fp32's accuracy, not to bits (the tensor cores add in an order
+# and a rounding of their own): against a float64 convolution of the same
+# inputs its relative RMS error is at most twice cuDNN's in fp32 (TF32 off)
+# and at least 100x below plain TF32's (operands rounded to TF32 once); the
+# plain version (the same splits and products through F.conv2d) agrees to
+# the same order. Replays of a captured launch equal the eager launch bit
+# for bit (no atomics; split K adds its ranges in order).
+
+
+def _conv_case(dev, shape, seed):
+    import math
+
+    (b, c, h, w), (n, _, r, s), stride, pad, has_bias = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, c, h, w, generator=g)
+    wt = (torch.rand(n, c, r, s, generator=g) * 2 - 1) / math.sqrt(c * r * s)
+    bias = (torch.rand(n, generator=g) * 2 - 1) * 0.02 if has_bias else None
+    return (x.to(dev), wt.to(dev), None if bias is None else bias.to(dev),
+            stride, pad)
+
+
+def _conv_errors(x, w, bias, stride, pad, got):
+    """(kernel, cuDNN fp32, plain TF32, kernel vs plain) relative RMS
+    errors, the first three against float64."""
+    import torch.nn.functional as F
+
+    from mast3r_slam_tpu_torch._device import exact_fp32
+    from mast3r_slam_tpu_torch.ops import conv
+
+    exact_fp32()
+
+    def rel(a, ref):
+        return float((a.double() - ref).norm() / ref.norm())
+
+    ref = F.conv2d(x.double(), w.double(),
+                   None if bias is None else bias.double(), stride=stride,
+                   padding=pad)
+    fp32 = F.conv2d(x, w, bias, stride=stride, padding=pad)
+    tf32 = F.conv2d(conv.tf32_round(x), conv.tf32_round(w), bias,
+                    stride=stride, padding=pad)
+    plain = conv.conv2d_3xtf32_plain(x, w, bias, stride, pad)
+    return rel(got, ref), rel(fp32, ref), rel(tf32, ref), rel(got,
+                                                            plain.double())
+
+
+def _check_conv(cuda, shape, seed):
+    from mast3r_slam_tpu_torch.ops import _kernels, conv
+
+    x, w, bias, stride, pad = _conv_case(cuda, shape, seed)
+    n0 = _kernels.LAUNCHES["conv2d_3xtf32"]
+    got = conv.conv2d_3xtf32(x, w, bias, stride, pad)
+    assert _kernels.LAUNCHES["conv2d_3xtf32"] == n0 + 1
+    e, e32, etf, eplain = _conv_errors(x, w, bias, stride, pad, got)
+    assert got.dtype == torch.float32
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert e <= 2.0 * e32, (shape, e, e32)
+    assert 100.0 * e <= etf, (shape, e, etf)
+    assert eplain <= 3.0 * e32, (shape, eplain, e32)
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_conv2d_3xtf32_at_dpt_shapes(cuda, b):
+    """Every conv of a ViT-L 512 head_forward (the shapes of vitl512_base
+    and vitl512_tpu_fast) at batch 1 and 2, channels-last inputs as the
+    DPT passes them."""
+    from mast3r_slam_tpu_torch.models import mast3r
+    from mast3r_slam_tpu_torch.utils import kernel_cases
+
+    shapes = kernel_cases.dpt_conv_shapes(mast3r.MASt3RConfig(), b)
+    for i, shape in enumerate(dict.fromkeys(shapes)):
+        _check_conv(cuda, shape, seed=31 * b + i)
+
+
+@pytest.mark.parametrize("shape", [
+    ((3, 20, 17, 29), (40, 20, 3, 3), 2, 1, True),     # C, N, M ragged
+    ((1, 4, 9, 9), (8, 4, 3, 3), 1, 1, False),         # C = 4
+    ((2, 36, 33, 9), (300, 36, 3, 3), 1, 1, True),     # N past a tile
+    ((1, 512, 7, 9), (7, 512, 3, 3), 1, 1, True),      # split K, odd N
+    ((2, 64, 40, 30), (96, 64, 5, 3), 1, 0, True),     # R != S, no padding
+    ((2, 16, 64, 96), (16, 16, 3, 3), 1, 1, True),     # TINY's full-res conv
+])
+def test_conv2d_3xtf32_ragged_shapes(cuda, shape):
+    _check_conv(cuda, shape, seed=5)
+
+
+def test_conv2d_3xtf32_layouts_and_views(cuda):
+    """NCHW-contiguous inputs and weights (converted by the wrapper) and a
+    sliced channels-last view give the same bits as channels-last
+    copies."""
+    from mast3r_slam_tpu_torch.ops import conv
+
+    x, w, bias, _, _ = _conv_case(
+        cuda, ((2, 32, 20, 24), (64, 32, 3, 3), 1, 1, True), 3)
+    cl = torch.channels_last
+    want = conv.conv2d_3xtf32(x.contiguous(memory_format=cl),
+                              w.contiguous(memory_format=cl), bias, 1, 1)
+    assert torch.equal(conv.conv2d_3xtf32(x, w, bias, 1, 1), want)
+    big = torch.zeros(2, 32, 22, 26, device=cuda).contiguous(memory_format=cl)
+    big[:, :, 1:21, 2:26] = x
+    assert torch.equal(
+        conv.conv2d_3xtf32(big[:, :, 1:21, 2:26], w, bias, 1, 1), want)
+
+
+@pytest.mark.parametrize("shape", [
+    ((1, 256, 96, 128), (256, 256, 3, 3), 1, 1, True),   # one K range
+    ((1, 768, 12, 16), (256, 768, 3, 3), 1, 1, False),   # split K
+])
+def test_conv2d_3xtf32_graph_replay(cuda, shape):
+    """Captured by ``graphs.capture``: the replay equals the eager launch
+    bit for bit, and each replay adds the launch to ``LAUNCHES``."""
+    from mast3r_slam_tpu_torch.models import graphs
+    from mast3r_slam_tpu_torch.ops import _kernels, conv
+
+    x, w, bias, stride, pad = _conv_case(cuda, shape, 11)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = w.contiguous(memory_format=torch.channels_last)
+    eager = conv.conv2d_3xtf32(x, w, bias, stride, pad)
+    out = {}
+
+    def fn():
+        out["y"] = conv.conv2d_3xtf32(x, w, bias, stride, pad)
+
+    n0 = _kernels.LAUNCHES["conv2d_3xtf32"]
+    graph = graphs.capture(fn, cuda, "test.capture")
+    assert graph.launches["conv2d_3xtf32"] == 1
+    assert _kernels.LAUNCHES["conv2d_3xtf32"] == n0
+    for k in range(2):
+        out["y"].fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["conv2d_3xtf32"] == n0 + 1 + k
+        assert torch.equal(out["y"], eager)
+
+
+def test_conv2d_3xtf32_refuses(cuda):
+    from mast3r_slam_tpu_torch.ops import conv
+
+    x, w, bias, _, _ = _conv_case(
+        cuda, ((1, 8, 6, 6), (16, 8, 3, 3), 1, 1, True), 0)
+    with pytest.raises(ValueError):                     # bf16 operands
+        conv.conv2d_3xtf32(x.bfloat16(), w.bfloat16(), bias, 1, 1)
+    with pytest.raises(ValueError):                     # C % 4 != 0
+        conv.conv2d_3xtf32(x[:, :6], w[:, :6], bias, 1, 1)
+    with pytest.raises(ValueError):                     # bias shape
+        conv.conv2d_3xtf32(x, w, bias[:8], 1, 1)
+    with pytest.raises(ValueError):                     # two devices
+        conv.conv2d_3xtf32(x, w.cpu(), bias, 1, 1)
+    with pytest.raises(ValueError):                     # stride 0
+        conv.conv2d_3xtf32(x, w, bias, 0, 1)
+    flat = torch.zeros(1 + x.numel(), device=cuda)
+    shifted = flat[1:].view(1, 6, 6, 8).permute(0, 3, 1, 2)
+    with pytest.raises(ValueError, match="aligned"):    # not 16-byte aligned
+        conv.conv2d_3xtf32(shifted, w, bias, 1, 1)
+
+
+@pytest.mark.parametrize("head_dtype,per_head", [("float32", 30),
+                                                 ("bfloat16", 1)])
+def test_decode_pair_launches_one_conv_kernel_per_fp32_conv(
+        cuda, head_dtype, per_head):
+    """ViT-L 512 through ``mast3r.decode_pair`` (graphs: eager, capture,
+    replay): each call adds one launch per fp32 conv of its two
+    head_forwards (vitl512_base: all 30; bf16 heads: the final 1x1), and
+    the fp32 heads agree with cuDNN's fp32 convolutions to fp32's
+    order."""
+    from mast3r_slam_tpu_torch.models import mast3r
+    from mast3r_slam_tpu_torch.ops import _kernels, conv
+
+    cfg = mast3r.MASt3RConfig(head_dtype=head_dtype)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = mast3r.init_params(cfg, g, device=cuda)
+    n = (cfg.img_size[0] // cfg.patch_size) * (cfg.img_size[1]
+                                               // cfg.patch_size)
+    gen = torch.Generator().manual_seed(1)
+    feat = torch.randn(2, n, cfg.enc_embed_dim, generator=gen).to(cuda)
+    yy, xx = torch.meshgrid(torch.arange(cfg.img_size[0] // cfg.patch_size),
+                            torch.arange(cfg.img_size[1] // cfg.patch_size),
+                            indexing="ij")
+    pos = torch.stack([yy, xx], -1).reshape(1, n, 2).repeat(2, 1, 1).to(cuda)
+    outs = []
+    for _ in range(3):
+        n0 = _kernels.LAUNCHES["conv2d_3xtf32"]
+        outs.append(mast3r.decode_pair(model, feat[:1], pos[:1], feat[1:],
+                                       pos[1:], cfg))
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES["conv2d_3xtf32"] - n0 == 2 * per_head
+    for k in outs[0][0]:
+        assert torch.equal(outs[0][0][k], outs[2][0][k])
+    if head_dtype != "float32":
+        return
+    take = conv.takes_kernel
+    conv.takes_kernel = lambda *a: False
+    try:
+        with torch.no_grad():
+            ref, _ = mast3r.decode_pair_body(model, feat[:1], pos[:1],
+                                             feat[1:], pos[1:], cfg)
+    finally:
+        conv.takes_kernel = take
+    for k in ("pts3d", "conf", "desc"):
+        a, b = outs[2][0][k].double(), ref[k].double()
+        assert float((a - b).norm() / b.norm()) <= 1e-4, k
